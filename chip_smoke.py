@@ -11,20 +11,43 @@ Phases, each printing one line (or a few) before the last:
    nvcc and prints the build seconds;
 3. kernel: holds the fused progressive splat kernel against its plain
    PyTorch version on the card (k in {3, 5, 21}, odd shapes, float32 and
-   bfloat16 logits, initial and random state), then times both at the
-   flagship tile shape (1, 3, 1080, 2048), k = 21, bf16 logits;
-4. reference: the flagship model on the card against the same model on the
+   bfloat16 logits, initial and random state) and at every shape the
+   paths below give it, then times both at the flagship tile shape
+   (1, 3, 1080, 2048), k = 21, bf16 logits, and at the training shape;
+4. backward kernels: holds the two kernels of the splat step's backward
+   (gradient to the data, gradient to the logits) against their plain
+   version, with the running max of a real forward and random cotangents
+   (k in {3, 5, 21}, odd shapes, 2 and 3 channels, float32 and bfloat16
+   logits, and the shapes of the paths below); times them at the training
+   shape (4, 3, 128, 128), k = 21, and at (1, 3, 1080, 2048), bf16;
+5. reference: the flagship model on the card against the same model on the
    CPU (plain splat), on a small input, in float32 and in bfloat16 convs;
-5. main path: writes a synthetic 256x256, 4-spp frame and denoises it with
-   ``sbmc_tpu_torch.denoise`` and ``weights/flagship_f16`` (full width:
-   ksize 21, width 128, nsteps 3, bf16 convs) through uniform tiles; checks
-   the EXR and that every sample step of every tile launched the kernel;
-6. scale: times the flagship forward on one full 1080x2048 tile at 4 spp.
+6. gradient: loss, every parameter gradient and the gradient to the input
+   radiance of the flagship model (float32 convs) on the card (kernels)
+   against the CPU (plain versions); the gradient to the radiance is where
+   the data-gradient kernel runs inside the whole model;
+7. denoise path: writes a synthetic 256x256, 4-spp frame and denoises it
+   with ``sbmc_tpu_torch.denoise`` and ``weights/flagship_f16`` (full
+   width: ksize 21, width 128, nsteps 3, bf16 convs) through uniform tiles;
+   checks the EXR and that every sample step of every tile launched the
+   forward kernel;
+8. training path: writes 8 synthetic 128x128 tiles at 8 spp and runs
+   ``sbmc_tpu_torch.train`` at the flagship architecture (batch 4,
+   randomized sample counts) for a few steps, in float32 and with
+   ``--bf16``; checks the losses, the launches of the forward and
+   logits-gradient kernels (steps x spp each; the data-gradient kernel 0:
+   nothing asks for the gradient to a batch input), the checkpoint and the
+   CSV log, then denoises with the trained checkpoint;
+9. scale: times the flagship forward on one full 1080x2048 tile at 4 spp.
 
-Then one JSON line with each kernel's numbers and, last, the device line.
-Any failure raises and exits non-zero without printing a result.
+Every path records the shapes and logit types it gives the splat step; the
+run fails if a kernel met a shape on a path at which it was not held against
+its plain version. Then one JSON line with each kernel's numbers
+(``launches`` by path) and, last, the device line. Any failure raises and exits non-zero without
+printing a result.
 """
 
+import csv
 import json
 import os
 import subprocess
@@ -47,6 +70,39 @@ ATOL, RTOL = 2e-4, 2e-5
 # round at other places in cuDNN and on the CPU, which moves outputs by as
 # much as the JAX model's own bf16-vs-f32 drift (~1.7e-2 max, ~2.3e-3 mean).
 MODEL_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (5e-2, 5e-3)}
+
+#: (name in ops.launch_counts, source, the Pallas kernel it replaces)
+_CSRC = "sbmc_tpu_torch/ops/csrc/"
+KERNELS = (
+    ("progressive_splat", _CSRC + "progressive_splat.cu",
+     "sbmc_tpu/ops/pallas_kernels.py:535"),
+    ("progressive_splat_ddata", _CSRC + "progressive_splat_bwd.cu",
+     "sbmc_tpu/ops/pallas_kernels.py:728"),
+    ("progressive_splat_dlogits", _CSRC + "progressive_splat_bwd.cu",
+     "sbmc_tpu/ops/pallas_kernels.py:755"),
+)
+#: The paths on which a kernel must have launched. The data-gradient kernel
+#: lies on neither main path by nature (its gradient goes to a batch input,
+#: which nothing asks for): the gradient phase runs it inside the model.
+MUST_LAUNCH = {
+    "progressive_splat": ("denoise", "train", "train_bf16", "gradient"),
+    "progressive_splat_ddata": ("gradient",),
+    "progressive_splat_dlogits": ("train", "train_bf16", "gradient"),
+}
+
+#: (bs, c, h, w, logit type) the paths give the splat step, k = 21: the
+#: denoise path's tile, a training batch in float32 and with --bf16, a frame
+#: denoised with the trained checkpoint, and the gradient phase's input.
+#: The kernel phases compare at each; _check_shapes holds the paths to it.
+PATH_SHAPES = (
+    (1, 3, 160, 160, torch.bfloat16),
+    (4, 3, 128, 128, torch.float32),
+    (4, 3, 128, 128, torch.bfloat16),
+    (1, 3, 128, 128, torch.bfloat16),
+    (1, 3, 48, 48, torch.float32),
+)
+#: kernel -> {(data shape, k2, logit type)} held against the plain version
+_COMPARED = {name: set() for name, _, _ in KERNELS}
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12      # float32 outside the tensor cores
@@ -76,6 +132,13 @@ def _time_ms(fn, warmup, iters):
     return start.elapsed_time(end) / iters
 
 
+def _bound(nbytes, flops):
+    by_bytes = nbytes / H100_BYTES_PER_S
+    by_ops = flops / H100_F32_FLOPS
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
 def _splat_inputs(rng, bs, c, h, w, k, dtype, init):
     dev = torch.device("cuda")
 
@@ -95,7 +158,48 @@ def _splat_inputs(rng, bs, c, h, w, k, dtype, init):
     return (data, logits) + state
 
 
+def _case(data, logits):
+    return tuple(data.shape), logits.shape[1], str(logits.dtype)
+
+
+class _record_shapes:
+    """While active, notes every (data shape, k2, logit type) the model
+    gives the splat step. The call itself goes through unchanged."""
+
+    def __init__(self, ops):
+        self.ops, self.seen = ops, set()
+
+    def __enter__(self):
+        self.plain = self.ops.progressive_splat_update
+
+        def recording(data, klogits, *state):
+            if data.is_cuda:
+                self.seen.add(_case(data, klogits))
+            return self.plain(data, klogits, *state)
+
+        self.ops.progressive_splat_update = recording
+        return self.seen
+
+    def __exit__(self, *exc):
+        self.ops.progressive_splat_update = self.plain
+
+
+def _check_shapes(path, seen, kernels):
+    """Fails if the path met a shape at which one of ``kernels`` was not
+    compared with its plain version."""
+    if not seen:
+        raise AssertionError("the %s path never reached the splat step"
+                             % path)
+    for name in kernels:
+        missing = seen - _COMPARED[name]
+        if missing:
+            raise AssertionError(
+                "%s ran on the %s path at %s, where it was not held against "
+                "its plain version" % (name, path, sorted(missing)))
+
+
 def _compare(ops, args):
+    _COMPARED["progressive_splat"].add(_case(*args[:2]))
     got = ops.progressive_splat_update(*args)
     want = ops.progressive_splat_update_ref(*args)
     torch.cuda.synchronize()
@@ -120,12 +224,17 @@ def _kernel_phase(ops, main_tile):
                     args = _splat_inputs(rng, 2, 3, *hw, k, dtype, init)
                     err = max(err, _compare(ops, args))
                     cases += 1
-    # The main path's own tile shape, and two channels (the kernel's other
-    # template instance the tests use).
-    for c, hw, bs in ((3, main_tile, 1), (2, (37, 53), 2)):
-        args = _splat_inputs(rng, bs, c, *hw, 21, torch.bfloat16, False)
-        err = max(err, _compare(ops, args))
-        cases += 1
+    # Two channels (the kernel's other template instance), then every shape
+    # the paths give the kernel, from the initial state (a frame's first
+    # sample) and from a random one.
+    args = _splat_inputs(rng, 2, 2, 37, 53, 21, torch.bfloat16, False)
+    err = max(err, _compare(ops, args))
+    cases += 1
+    for bs, c, h, w, dtype in PATH_SHAPES:
+        for init in (True, False):
+            args = _splat_inputs(rng, bs, c, h, w, 21, dtype, init)
+            err = max(err, _compare(ops, args))
+            cases += 1
     print("kernel check: %d cases, max abs err %.3g (tolerance %.0e + %.0e"
           " * |plain|)" % (cases, err, ATOL, RTOL))
     args = _splat_inputs(rng, 1, 3, *main_tile, 21, torch.bfloat16, False)
@@ -133,29 +242,236 @@ def _kernel_phase(ops, main_tile):
           "%.4f ms" % (*main_tile, _time_ms(
               lambda: ops.progressive_splat_update(*args), 3, 50)))
 
-    # Flagship tile: 1080x2048, k = 21, bf16 logits, bs 1, 3 channels.
-    bs, c, h, w, k = 1, 3, 1080, 2048, 21
-    args = _splat_inputs(rng, bs, c, h, w, k, torch.bfloat16, False)
-    err = max(err, _compare(ops, args))
-    ms = _time_ms(lambda: ops.progressive_splat_update(*args), 3, 20)
-    plain_ms = _time_ms(lambda: ops.progressive_splat_update_ref(*args), 1,
-                        3)
-    hw_ = h * w
-    logits_bytes = bs * k * k * hw_ * 2
-    # Each input read once (data, logits, three state planes), each
-    # output written once (three state planes).
-    nbytes = logits_bytes + bs * hw_ * 4 * (c + (c + 2) + (c + 2))
-    # Per tap: subtract, exp, add to sum_w, and one FMA per channel.
-    flops = bs * k * k * hw_ * (3 + 2 * c)
-    bound_ms = max(nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS) * 1e3
-    bound_by = ("bytes" if nbytes / H100_BYTES_PER_S
-                >= flops / H100_F32_FLOPS else "operations")
-    print("kernel time at (1, 3, 1080, 2048), k=21, bf16: %.4f ms; plain "
-          "version %.4f ms; bound %.4f ms (%s: %.4g GB, logits alone "
-          "%.4f ms)" % (ms, plain_ms, bound_ms, bound_by, nbytes / 1e9,
-                        logits_bytes / H100_BYTES_PER_S * 1e3))
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    # Times: the flagship tile (1080x2048, k = 21, bf16 logits, bs 1, 3
+    # channels), then a training batch in both logit types.
+    rows = []
+    for (bs, c, h, w), dtype in (((1, 3, 1080, 2048), torch.bfloat16),
+                                 ((4, 3, 128, 128), torch.float32),
+                                 ((4, 3, 128, 128), torch.bfloat16)):
+        args = _splat_inputs(rng, bs, c, h, w, 21, dtype, False)
+        err = max(err, _compare(ops, args))
+        ms = _time_ms(lambda: ops.progressive_splat_update(*args), 3, 20)
+        plain_ms = _time_ms(
+            lambda: ops.progressive_splat_update_ref(*args), 1, 3)
+        px = bs * h * w
+        logits_bytes = args[1].numel() * args[1].element_size()
+        # Each input read once (data, logits, three state planes), each
+        # output written once (three state planes); per tap a subtract, an
+        # exp, an add to sum_w and one FMA per channel.
+        nbytes = logits_bytes + px * 4 * (c + (c + 2) + (c + 2))
+        bound_ms, by = _bound(nbytes, px * 21 * 21 * (3 + 2 * c))
+        tag = "%dx%dx%dx%d %s" % (bs, c, h, w,
+                                  str(dtype).replace("torch.", ""))
+        print("kernel time at (%s), k=21: %.4f ms; plain version %.4f ms; "
+              "bound %.4f ms (%s: %.4g GB, logits alone %.4f ms)"
+              % (tag, ms, plain_ms, bound_ms, by, nbytes / 1e9,
+                 logits_bytes / H100_BYTES_PER_S * 1e3))
+        rows.append({"shape": tag, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": by})
+        del args
+        torch.cuda.empty_cache()
+    return dict(rows[0], max_abs_err=err, other_shapes=rows[1:])
+
+# Backward kernels against their plain version: the absolute part is the JAX
+# package's bound for its fused backward against the composed version
+# (tests/test_ops.py); a bfloat16 gradient may also sit on the neighbouring
+# bfloat16 value (2**-7 relative).
+BWD_ATOL, BWD_RTOL, BF16_RTOL = 3e-4, 2e-5, 2.0 ** -7
+# Flagship gradients on the card against the CPU, float32 convs, per tensor:
+# |card - cpu| <= GRAD_RTOL * max|cpu| + GRAD_ATOL (float32 sums in another
+# order through three U-Nets, the 441-tap splat and their backward).
+GRAD_RTOL, GRAD_ATOL = 2e-3, 1e-7
+
+
+def _bwd_inputs(ops, rng, bs, c, h, w, k, dtype):
+    """Inputs of the backward kernels: data, logits, the running max of a
+    real forward from a random state (so every exponent is <= 0) and random
+    cotangents."""
+    data, logits, sr, sw, mw = _splat_inputs(rng, bs, c, h, w, k, dtype,
+                                             False)
+    new_max = ops.progressive_splat_update(data, logits, sr, sw, mw)[2]
+    dev = data.device
+    d_r = torch.tensor(rng.randn(bs, c, h, w), dtype=torch.float32,
+                       device=dev)
+    d_w = torch.tensor(rng.randn(bs, 1, h, w), dtype=torch.float32,
+                       device=dev)
+    return data, logits, new_max, d_r, d_w
+
+
+def _compare_bwd(ops, inputs):
+    """Max abs error of (d_data, d_logits); raises beyond the tolerance."""
+    data, logits, new_max, d_r, d_w = inputs
+    for name in ("progressive_splat_ddata", "progressive_splat_dlogits"):
+        _COMPARED[name].add(_case(data, logits))
+    got = (ops._ddata_cuda(logits, new_max, d_r),
+           ops._dlogits_cuda(data, logits, new_max, d_r, d_w))
+    want = ops.progressive_splat_bwd_ref(data, logits, new_max, d_r, d_w)
+    torch.cuda.synchronize()
+    if got[1].dtype != logits.dtype or got[0].dtype != torch.float32:
+        raise AssertionError("backward kernels returned %s / %s" % (
+            got[0].dtype, got[1].dtype))
+    rtols = (BWD_RTOL, BF16_RTOL if logits.dtype == torch.bfloat16
+             else BWD_RTOL)
+    errs = []
+    for name, g, r, rt in zip(("d_data", "d_logits"), got, want, rtols):
+        g, r = g.float(), r.float()
+        if not bool(torch.all((g - r).abs() <= BWD_ATOL + rt * r.abs())):
+            raise AssertionError(
+                "%s kernel disagrees with its plain version: max abs err "
+                "%.3g" % (name, float((g - r).abs().max())))
+        errs.append(float((g - r).abs().max()))
+    return errs
+
+
+def _time_bwd(ops, inputs, plain_iters):
+    """(ms, plain ms, bound ms, bound by) of each backward kernel on these
+    inputs."""
+    data, logits, new_max, d_r, d_w = inputs
+    bs, c, h, w = data.shape
+    k2 = logits.shape[1]
+    px = bs * h * w
+    lbytes = logits.numel() * logits.element_size()
+    out = {}
+    # d_data: reads the logits, the max plane and c cotangent planes, writes
+    # c planes; per tap a subtract, an exp and one FMA per channel.
+    out["progressive_splat_ddata"] = (
+        _time_ms(lambda: ops._ddata_cuda(logits, new_max, d_r), 3, 20),
+        _time_ms(lambda: ops.reference.progressive_splat_ddata_ref(
+            logits, new_max, d_r), 1, plain_iters),
+    ) + _bound(lbytes + px * 4 * (1 + 2 * c), px * k2 * (2 + 2 * c))
+    # d_logits: reads the logits, data, max and the c + 1 cotangent planes,
+    # writes a gradient of the logits' size and type; per tap a subtract, an
+    # exp, c FMAs and a multiply.
+    out["progressive_splat_dlogits"] = (
+        _time_ms(lambda: ops._dlogits_cuda(data, logits, new_max, d_r, d_w),
+                 3, 20),
+        _time_ms(lambda: ops.reference.progressive_splat_dlogits_ref(
+            data, logits, new_max, d_r, d_w), 1, plain_iters),
+    ) + _bound(2 * lbytes + px * 4 * (2 + 2 * c), px * k2 * (3 + 2 * c))
+    return out
+
+
+def _bwd_kernel_phase(ops):
+    rng = np.random.RandomState(1)
+    err = [0.0, 0.0]
+    cases = 0
+    for k in (3, 5, 21):
+        for c, hw in ((3, (37, 53)), (3, (130, 3)), (2, (5, 7))):
+            for dtype in (torch.float32, torch.bfloat16):
+                e = _compare_bwd(ops, _bwd_inputs(ops, rng, 2, c, *hw, k,
+                                                  dtype))
+                err = [max(a, b) for a, b in zip(err, e)]
+                cases += 1
+    for bs, c, h, w, dtype in PATH_SHAPES:
+        e = _compare_bwd(ops, _bwd_inputs(ops, rng, bs, c, h, w, 21, dtype))
+        err = [max(a, b) for a, b in zip(err, e)]
+        cases += 1
+    print("backward kernel check: %d cases, max abs err d_data %.3g, "
+          "d_logits %.3g (tolerance %.0e + %.0e * |plain|; bf16 d_logits "
+          "%.0e + 2^-7 * |plain|)" % (cases, err[0], err[1], BWD_ATOL,
+                                      BWD_RTOL, BWD_ATOL))
+    numbers = {}
+    # The training path's shape (batch 4 of 128x128 tiles, k = 21) in both
+    # logit types, then one full 1080x2048 tile beside the forward's row.
+    for shape, dtype, iters in (((4, 3, 128, 128), torch.float32, 3),
+                                ((4, 3, 128, 128), torch.bfloat16, 3),
+                                ((1, 3, 1080, 2048), torch.bfloat16, 2)):
+        inputs = _bwd_inputs(ops, rng, *shape, 21, dtype)
+        e = _compare_bwd(ops, inputs)
+        err = [max(a, b) for a, b in zip(err, e)]
+        tag = "%s %s" % ("x".join(map(str, shape)),
+                         str(dtype).replace("torch.", ""))
+        for (name, (ms, plain_ms, bound_ms, by)), kerr in zip(
+                sorted(_time_bwd(ops, inputs, iters).items()), err):
+            print("%s at (%s), k=21: %.4f ms; plain version %.4f ms; bound "
+                  "%.4f ms (%s)" % (name, tag, ms, plain_ms, bound_ms, by))
+            entry = numbers.setdefault(name, {"other_shapes": []})
+            row = {"shape": tag, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": by}
+            if "ms" not in entry:  # the first shape is the main path's
+                entry.update(row)
+            else:
+                entry["other_shapes"].append(row)
+            entry["max_abs_err"] = kerr
+        del inputs
+        torch.cuda.empty_cache()
+    return numbers
+
+
+def _gradient_phase(ops, checkpoint):
+    """Loss and gradients of the flagship model (float32 convs) on the card,
+    through the three kernels, against the CPU's plain versions. Returns the
+    card's launch counts."""
+    from sbmc_tpu_torch import losses
+    from sbmc_tpu_torch.models.build import build_model
+    from sbmc_tpu_torch.params import load_jax_params
+    from sbmc_tpu_torch.train.checkpointer import Checkpointer
+    from sbmc_tpu_torch.utils.image import crop_like
+
+    meta = Checkpointer.load_meta(checkpoint)
+    tree, _ = Checkpointer(checkpoint).load_params()
+    params = dict(meta["model_params"], conv_dtype=None)
+    model = load_jax_params(build_model(dict(meta, model_params=params)),
+                            tree)
+    rng = np.random.RandomState(2)
+    spp = 2
+    batch = {"radiance": rng.rand(1, spp, 3, 48, 48),
+             "features": rng.rand(1, spp, 93, 48, 48),
+             "global_features": rng.rand(1, 3, 1, 1),
+             "target_image": rng.rand(1, 3, 48, 48)}
+    results = []
+    launches = None
+    for dev in ("cpu", "cuda"):
+        model.to(dev).train()
+        model.zero_grad(set_to_none=True)
+        b = {k: torch.tensor(v, dtype=torch.float32, device=dev)
+             for k, v in batch.items()}
+        b["radiance"].requires_grad_()
+        ops.reset_launch_counts()
+        with _record_shapes(ops) as seen:
+            out = model(b)["radiance"]
+            loss = losses.tonemapped_relative_mse(
+                out, crop_like(b["target_image"], out))
+            loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(ops.launch_counts)
+            _check_shapes("gradient", seen, [name for name, _, _ in KERNELS])
+        grads = {n: p.grad.detach().cpu() for n, p in
+                 model.named_parameters()}
+        grads["<input radiance>"] = b["radiance"].grad.detach().cpu()
+        results.append((loss.item(), grads))
+    if launches != {"progressive_splat": spp,
+                    "progressive_splat_ddata": spp,
+                    "progressive_splat_dlogits": spp}:
+        raise AssertionError("gradient phase launched %s, expected %d of "
+                             "each kernel" % (launches, spp))
+    (cpu_loss, cpu_g), (gpu_loss, gpu_g) = results
+    worst, worst_name = 0.0, ""
+    for name, want in cpu_g.items():
+        got = gpu_g[name]
+        scale = float(want.abs().max())
+        diff = float((got - want).abs().max())
+        if not (bool(torch.isfinite(got).all())
+                and diff <= GRAD_RTOL * scale + GRAD_ATOL):
+            raise AssertionError(
+                "gradient of %s on the card disagrees with the CPU: max abs "
+                "%.3g against max |cpu| %.3g" % (name, diff, scale))
+        if scale > 0 and diff / scale > worst:
+            worst, worst_name = diff / scale, name
+    if abs(gpu_loss - cpu_loss) > 1e-4 * abs(cpu_loss):
+        raise AssertionError("loss on the card %.8g, on the CPU %.8g"
+                             % (gpu_loss, cpu_loss))
+    rad = "<input radiance>"
+    print("gradient: flagship float32 on 1x%dx48x48, card vs CPU: loss %.6g "
+          "vs %.6g; %d gradients, worst max-abs difference %.3g of the "
+          "tensor's largest (%s); input radiance %.3g (tolerance %.0e * "
+          "max|cpu| + %.0e); launches %s"
+          % (spp, gpu_loss, cpu_loss, len(cpu_g), worst, worst_name,
+             float((gpu_g[rad] - cpu_g[rad]).abs().max())
+             / float(cpu_g[rad].abs().max()), GRAD_RTOL, GRAD_ATOL,
+             json.dumps(launches)))
+    return launches
 
 
 def _reference_phase(checkpoint):
@@ -235,8 +551,10 @@ def _main_phase(ops, checkpoint, tmp, tile, pad):
             str(pad), "--spp", str(spp), "--device", "cuda"]
     warm = denoise.main(denoise.parse_args(argv))
     ops.reset_launch_counts()
-    res = denoise.main(denoise.parse_args(argv))
+    with _record_shapes(ops) as seen:
+        res = denoise.main(denoise.parse_args(argv))
     launches = dict(ops.launch_counts)
+    _check_shapes("denoise", seen, ["progressive_splat"])
     tiles = res[0]["tiles"]
     if launches["progressive_splat"] != tiles * spp:
         raise AssertionError("splat kernel launched %d times, expected "
@@ -261,6 +579,136 @@ def _main_phase(ops, checkpoint, tmp, tile, pad):
           % (crop, _psnr(img[inner], gt), _psnr(noisy, gt)))
     return launches
 
+def _train_phase(ops, tmp, steps=10, spp=8, bs=4):
+    """The training path at full flagship width through its entry point,
+    in float32 and with ``--bf16``; then train -> checkpoint -> denoise.
+    Returns the launch counts of each run."""
+    from sbmc_tpu_torch import denoise, train_cli
+    from sbmc_tpu_torch.data.synthetic import generate_dataset
+    from sbmc_tpu_torch.train.checkpointer import Checkpointer
+    from sbmc_tpu_torch.train.interface import DenoiserInterface
+    from sbmc_tpu_torch.utils import exr
+
+    data_dir = os.path.join(tmp, "train_data")
+    t0 = time.perf_counter()
+    generate_dataset(data_dir, n_scenes=8, ts=128, tiles_per_side=1, spp=spp,
+                     gt_spp=64, seed=0)
+    print("training data: 8 tiles of 128x128 at %d spp written in %.1f s"
+          % (spp, time.perf_counter() - t0))
+
+    # Time every step on the host clock between two synchronisations, and
+    # count the launches made inside the steps (the display callback's
+    # forward at the end of an epoch launches the forward kernel too).
+    step_ms, in_steps = [], {}
+    plain_step = DenoiserInterface.train_step
+
+    def timed_step(self, batch):
+        before = dict(ops.launch_counts)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = plain_step(self, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        for name, n in ops.launch_counts.items():
+            in_steps[name] = in_steps.get(name, 0) + n - before[name]
+        return metrics
+
+    launches = {}
+    DenoiserInterface.train_step = timed_step
+    try:
+        for tag, flags in (("train", []), ("train_bf16", ["--bf16"])):
+            ckpt = os.path.join(tmp, "ckpt_" + tag)
+            del step_ms[:]
+            in_steps.clear()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            with _record_shapes(ops) as seen:
+                iface = train_cli.main(train_cli.parse_args(
+                    [data_dir, ckpt, "--spp", str(spp), "--bs", str(bs),
+                     "--ksize", "21", "--max_steps", str(steps),
+                     "--log_interval", "1", "--num_worker_threads", "2",
+                     "--device", "cuda"] + flags))
+            torch.cuda.synchronize()
+            counts = dict(ops.launch_counts)
+            _check_shapes(tag, seen, ["progressive_splat",
+                                      "progressive_splat_dlogits"])
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            launches[tag] = counts
+            mp = Checkpointer.load_meta(ckpt)["model_params"]
+            if (iface.step != steps or mp["n_features"] != 93
+                    or mp["ksize"] != 21
+                    or sum(p.numel() for p in iface.model.parameters())
+                    < 30e6):
+                raise AssertionError("the training run was not %d steps of "
+                                     "the flagship architecture" % steps)
+            # Every sample slot of every step launches the forward and the
+            # logits-gradient kernel (masked samples too); nothing asks for
+            # the gradient to the radiance, a batch input.
+            want = {"progressive_splat": steps * spp,
+                    "progressive_splat_ddata": 0,
+                    "progressive_splat_dlogits": steps * spp}
+            if in_steps != want:
+                raise AssertionError("%s: kernel launches inside the train "
+                                     "steps %s, expected %s"
+                                     % (tag, in_steps, want))
+            epochs = len(os.listdir(os.path.join(ckpt, "viz")))
+            want["progressive_splat"] += epochs * spp  # the display strips
+            if counts != want:
+                raise AssertionError("%s: kernel launches %s, expected %s"
+                                     % (tag, counts, want))
+            with open(os.path.join(ckpt, "train_log.csv")) as f:
+                rows = list(csv.DictReader(f))
+            loss = [float(r["loss"]) for r in rows]
+            if len(rows) != steps or not all(
+                    np.isfinite(float(r[k])) for r in rows
+                    for k in ("loss", "rmse", "input_loss", "wall_time")):
+                raise AssertionError("%s: train_log.csv has %d rows or a "
+                                     "non-finite value" % (tag, len(rows)))
+            files = os.listdir(ckpt)
+            if not ("final.msgpack" in files and "meta.json" in files
+                    and "ckpt_%09d.msgpack" % steps in files):
+                raise AssertionError("%s: no checkpoint written: %s"
+                                     % (tag, files))
+            rest = sorted(step_ms[1:])
+            print("%s: %d steps of the flagship architecture, batch %d x %d "
+                  "spp x 128x128 (randomized sample counts): first step "
+                  "%.2f ms, then median %.2f ms/step (min %.2f, max %.2f); "
+                  "peak device memory %.2f GB; loss %.5g -> %.5g (%s, input "
+                  "baseline %.5g); launches %s"
+                  % (tag, steps, bs, spp, step_ms[0], rest[len(rest) // 2],
+                     rest[0], rest[-1], peak_gb, loss[0], loss[-1],
+                     "fell" if loss[-1] < loss[0] else "did not fall",
+                     float(rows[-1]["input_loss"]), json.dumps(counts)))
+            del iface
+    finally:
+        DenoiserInterface.train_step = plain_step
+
+    # train -> checkpoint -> denoise: the bf16 run's checkpoint denoises the
+    # tiles it trained on, one 128x128 frame per scene.
+    ckpt = os.path.join(tmp, "ckpt_train_bf16")
+    out = os.path.join(tmp, "trained", "frame.exr")
+    ops.reset_launch_counts()
+    with _record_shapes(ops) as seen:
+        res = denoise.main(denoise.parse_args(
+            ["--input", data_dir, "--checkpoint", ckpt, "--output", out,
+             "--uniform_tiles", "--tile_size", "128", "--tile_pad", "32",
+             "--device", "cuda"]))
+    _check_shapes("trained-checkpoint denoise", seen, ["progressive_splat"])
+    if len(res) != 8 or ops.launch_counts["progressive_splat"] != 8 * spp:
+        raise AssertionError("denoising with the trained checkpoint: %d "
+                             "scenes, %s launches" % (len(res),
+                                                      ops.launch_counts))
+    for r in res:
+        img = exr.read(r["output"])
+        if img.shape != (128, 128, 3) or not np.isfinite(img).all():
+            raise AssertionError("trained checkpoint wrote %s, finite: %s"
+                                 % (img.shape, bool(np.isfinite(img).all())))
+    print("trained checkpoint (step %d, bf16 convs) denoised %d frames of "
+          "128x128 at %d spp: finite EXRs, %d forward-kernel launches"
+          % (steps, len(res), spp, ops.launch_counts["progressive_splat"]))
+    return launches
+
 
 def main():
     _device_phase()
@@ -278,25 +726,30 @@ def main():
 
     tile, pad = 160, 32
     with torch.inference_mode():
-        numbers = _kernel_phase(ops, (tile, tile))
+        numbers = {"progressive_splat": _kernel_phase(ops, (tile, tile))}
+        numbers.update(_bwd_kernel_phase(ops))
     checkpoint = os.path.join(ROOT, "weights", "flagship_f16")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _reference_phase(checkpoint)
+    by_path = {"gradient": _gradient_phase(ops, checkpoint)}
     with tempfile.TemporaryDirectory() as tmp:
-        launches = _main_phase(ops, checkpoint, tmp, tile, pad)
+        by_path["denoise"] = _main_phase(ops, checkpoint, tmp, tile, pad)
+        by_path.update(_train_phase(ops, tmp))
     _scale_phase(checkpoint)
 
-    kernels = [dict(
-        name="progressive_splat", route="cuda",
-        source="sbmc_tpu_torch/ops/csrc/progressive_splat.cu",
-        replaces="sbmc_tpu/ops/pallas_kernels.py:535",
-        launches=launches["progressive_splat"], library_ms=None,
-        **numbers)]
-    for k in kernels:
-        if k["launches"] <= 0:
-            raise AssertionError("kernel %s never launched on the main path"
-                                 % k["name"])
+    kernels = []
+    for name, source, replaces in KERNELS:
+        launches = {path: counts[name] for path, counts in by_path.items()}
+        if not any(launches.values()):
+            raise AssertionError("kernel %s was launched by no phase" % name)
+        for path in MUST_LAUNCH[name]:
+            if launches[path] <= 0:
+                raise AssertionError("kernel %s never launched on the %s "
+                                     "path" % (name, path))
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces, launches=launches,
+                            library_ms=None, **numbers[name]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

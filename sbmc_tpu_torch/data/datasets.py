@@ -4,11 +4,13 @@
 ``TilesDataset`` reads per-sample ``.bin`` tiles from a folder of scene
 folders, selects the feature subsets and log-compresses the radiance
 inputs. ``FullImagesDataset`` assembles all tiles of a scene into
-full-resolution buffers. Items are dicts of numpy arrays; device placement
-is the caller's.
+full-resolution buffers, and ``MultiSampleCountDataset`` concatenates
+datasets at spp 2..N for variable-sample-count training. Items are dicts of
+numpy arrays; batching is :mod:`sbmc_tpu_torch.data.loader`'s and device
+placement the caller's.
 
-The "kpcn" and "raw" modes, ``.txt`` filelists and the variable-spp
-training datasets come with the slices that port KPCN and training.
+The "kpcn" and "raw" modes and ``.txt`` filelists come with the slice that
+ports KPCN.
 """
 
 import os
@@ -17,7 +19,7 @@ import numpy as np
 
 from sbmc_tpu_torch.data import bin_format
 
-__all__ = ["TilesDataset", "FullImagesDataset"]
+__all__ = ["TilesDataset", "FullImagesDataset", "MultiSampleCountDataset"]
 
 #: Records beyond this magnitude are treated as corrupt and zeroed on read
 #: (no legitimate channel approaches it), as in the JAX package.
@@ -36,15 +38,24 @@ class TilesDataset:
       load_ld: include the light-direction features.
       load_bt: include the decoded bounce-type features.
       mode: must be "sbmc" (log-compressed radiance inputs).
+      cache_preprocessed: keep every preprocessed item in RAM, its features
+        as float16, so that epochs after the first only stack cached
+        arrays.
     """
 
     PATH_DEPTH = bin_format.PATH_DEPTH
+    SBMC_MODE = "sbmc"
+    KPCN_MODE = "kpcn"
 
     def __init__(self, path, spp=None, load_coords=True, load_gbuffer=True,
-                 load_p=True, load_ld=True, load_bt=True, mode="sbmc"):
-        if mode != "sbmc":
+                 load_p=True, load_ld=True, load_bt=True, mode="sbmc",
+                 cache_preprocessed=False):
+        if mode != self.SBMC_MODE:
             raise NotImplementedError(
                 f"dataset mode {mode!r} is not ported yet (slice 3: KPCN)")
+        self.mode = mode
+        self.cache_preprocessed = cache_preprocessed
+        self._cache = {}
         self.load_coords = load_coords
         self.load_gbuffer = load_gbuffer
         self.load_p = load_p
@@ -132,8 +143,22 @@ class TilesDataset:
     def num_global_features(self):
         return len(self.glabels)
 
+    def __repr__(self):
+        return ("TilesDataset(v%d, %dx%d image, tile %d, %d/%d spp, "
+                "%d features + %d global)" %
+                (self.version, self.image_width, self.image_height,
+                 self.tile_size, self.spp, self.sample_count,
+                 len(self.labels), len(self.glabels)))
+
     def __getitem__(self, idx):
-        return self._preprocess_standard(self._get_raw_data(idx))
+        if self.cache_preprocessed and idx in self._cache:
+            return self._cache[idx]
+        sample = self._preprocess_standard(self._get_raw_data(idx))
+        if self.cache_preprocessed:
+            if sample["features"].dtype == np.float32:
+                sample["features"] = sample["features"].astype(np.float16)
+            self._cache[idx] = sample
+        return sample
 
     def _get_raw_data(self, idx):
         fname = self.files[idx]
@@ -263,3 +288,37 @@ class FullImagesDataset:
     @property
     def num_global_features(self):
         return self.tiles_dset.num_global_features
+
+
+class MultiSampleCountDataset:
+    """Concatenation of TilesDatasets at spp 2..N for variable-sample-count
+    training. Use with the padded collation of
+    :mod:`sbmc_tpu_torch.data.loader`, which masks the unused sample slots
+    so that every batch has one shape."""
+
+    def __init__(self, *args, **kwargs):
+        spp = kwargs.get("spp", None)
+        if spp is None:
+            raise RuntimeError("spp not provided.")
+        if spp < 2:
+            raise RuntimeError("spp too low to randomize sample count, "
+                               "should be at least 2.")
+        self.datasets = []
+        for _s in range(2, spp + 1):
+            kwargs["spp"] = _s
+            self.datasets.append(TilesDataset(*args, **kwargs))
+        self._cum = np.cumsum([len(d) for d in self.datasets])
+        self.max_spp = spp
+        self.labels = self.datasets[0].labels
+        self.glabels = self.datasets[0].glabels
+        self.version = self.datasets[0].version
+        self.num_features = self.datasets[0].num_features
+        self.num_global_features = self.datasets[0].num_global_features
+
+    def __len__(self):
+        return int(self._cum[-1])
+
+    def __getitem__(self, idx):
+        d = int(np.searchsorted(self._cum, idx, side="right"))
+        base = 0 if d == 0 else int(self._cum[d - 1])
+        return self.datasets[d][idx - base]

@@ -3,7 +3,7 @@
 
 from sbmc_tpu_torch.models.multisteps import Multisteps
 
-__all__ = ["build_model"]
+__all__ = ["build_model", "model_meta"]
 
 
 def build_model(meta):
@@ -22,3 +22,16 @@ def build_model(meta):
     if arch != "sbmc":
         raise ValueError(f"unknown arch {arch!r}")
     return Multisteps(**params)
+
+
+def model_meta(kpcn_mode, model_params, data_params, arch=None):
+    """Assemble the meta dict persisted with checkpoints (the JAX package's
+    layout, so either package's inference reads it)."""
+    if arch is None:
+        arch = "kpcn" if kpcn_mode else "sbmc"
+    return {
+        "arch": arch,
+        "kpcn_mode": arch == "kpcn",
+        "model_params": dict(model_params),
+        "data_params": dict(data_params),
+    }

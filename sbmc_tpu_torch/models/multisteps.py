@@ -7,12 +7,16 @@ per sample and accumulates the samples with the fused progressive splat.
 A Python loop over samples takes the place of ``nn.scan``: the state
 ``(sum_r, sum_w, max_w)`` stays O(1) in the sample count.
 
-Inference only in this slice: the splat op refuses tensors that require
-grad, so call the model under ``torch.inference_mode()``.
+The model trains as well as infers: the splat op is differentiable (its
+backward runs the hand-written backward kernels on the card). With
+``remat`` the embedding and propagation stacks recompute their activations
+in the backward pass (``torch.utils.checkpoint``), as ``nn.remat`` does in
+the JAX model.
 """
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from sbmc_tpu_torch.nn.kernel_apply import (progressive_init,
                                             progressive_kernel_apply)
@@ -60,8 +64,9 @@ class Multisteps(nn.Module):
       return_kernels: also return the per-sample kernel logits.
       conv_dtype: compute dtype of the conv stacks (e.g. "bfloat16"); the
         parameters stay float32 and the splat accumulates in float32.
-      remat: accepted for checkpoint-meta compatibility; it only changes
-        training memory, so inference ignores it.
+      remat: recompute each embedding and propagation stack's activations
+        in the backward pass instead of keeping them (less training memory
+        for more compute; no effect without gradients).
       kernel_dtype: dtype of the logits fed to the splat (e.g. "bfloat16").
 
     Call with a dict:
@@ -93,7 +98,7 @@ class Multisteps(nn.Module):
         self.return_kernels = return_kernels
         self.conv_dtype = dtype_of(conv_dtype)
         self.kernel_dtype = dtype_of(kernel_dtype)
-        del remat
+        self.remat = remat
         for step in range(nsteps):
             cin = (n_features + n_global_features if step == 0
                    else embedding_width + width)
@@ -107,6 +112,12 @@ class Multisteps(nn.Module):
         self.kernel_stage = _KernelStage(embedding_width + width,
                                          ksize * ksize, width,
                                          self.conv_dtype)
+
+    def _stack(self, name, x):
+        module = getattr(self, name)
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(module, x, use_reentrant=False)
+        return module(x)
 
     def forward(self, samples):
         radiance = samples["radiance"].float()
@@ -142,13 +153,13 @@ class Multisteps(nn.Module):
             extra = gf if step == 0 else propagated
             extra = extra[:, None].expand(bs, spp, extra.shape[1], h, w)
             flat = torch.cat([feats, extra], dim=2)
-            flat = getattr(self, f"embedding_{step:02d}")(
-                flat.reshape(bs * spp, -1, h, w))
+            flat = self._stack(f"embedding_{step:02d}",
+                               flat.reshape(bs * spp, -1, h, w))
             feats = flat.reshape(bs, spp, -1, h, w)
             # Permutation-invariant masked mean over samples.
             reduced = ((feats * mask_f[:, :, None, None, None]).sum(dim=1)
                        / n_valid[:, None, None, None])
-            propagated = getattr(self, f"propagation_{step:02d}")(reduced)
+            propagated = self._stack(f"propagation_{step:02d}", reduced)
 
         regressor = self.kernel_stage.kernel_regressor
         state = progressive_init(bs, radiance.shape[2], h, w,

@@ -5,7 +5,9 @@
 running online-softmax state ``(sum_r, sum_w, max_w)``, so the SBMC model's
 memory stays O(1) in the sample count. A state starting at
 ``max_w = -1e30`` makes the first update reproduce the reference's separate
-initialisation step exactly.
+initialisation step exactly. The update is differentiable: gradients flow
+to the sample's data and kernels and to the incoming sums, never to the
+running max.
 """
 
 from typing import NamedTuple

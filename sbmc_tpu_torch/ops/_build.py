@@ -1,10 +1,12 @@
 """Builds the port's hand-written kernels and loads them with ctypes.
 
-The CUDA sources under ``csrc/`` compile with ``nvcc`` into a shared
-library with a plain C interface (no PyTorch headers, so a build takes
-seconds), at first use, into ``_build/`` beside this file. The library name
-carries a hash of the sources, so an edited source is rebuilt and a stale
-library is never loaded. Nothing here runs at import time.
+The CUDA sources under ``csrc/`` compile with ``nvcc`` into shared
+libraries with a plain C interface (no PyTorch headers, so a build takes
+seconds), at first use, into ``_build/`` beside this file: one library per
+source, all compilers started together. A library's name carries a hash of
+every file under ``csrc/`` and of the flags, so an edited source or header
+is rebuilt and a stale library is never loaded. Nothing here runs at import
+time.
 """
 
 import ctypes
@@ -13,6 +15,7 @@ import os
 import shutil
 import subprocess
 import threading
+import types
 
 __all__ = ["load_cuda", "load_host", "CSRC", "BUILD_DIR"]
 
@@ -21,12 +24,34 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+HOST_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: sbmc_progressive_splat(data, logits, logits_bf16, sum_r, sum_w, max_w,
 #:                        out_r, out_w, out_m, bs, c, h, w, k[, stream])
 _PSF_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
+#: sbmc_progressive_splat_ddata(logits, logits_bf16, new_max, d_r, d_data,
+#:                              bs, c, h, w, k[, stream])
+_DDATA_ARGS = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I]
+#: sbmc_progressive_splat_dlogits(data, logits, logits_bf16, new_max, d_r,
+#:                                d_w, d_logits, bs, c, h, w, k[, stream])
+_DLOGITS_ARGS = [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I]
+
+#: source -> {exported function: argument types}; the CUDA entry points take
+#: the stream as one more pointer.
+_CUDA = {
+    "progressive_splat.cu": {"sbmc_progressive_splat": _PSF_ARGS + [_P]},
+    "progressive_splat_bwd.cu": {
+        "sbmc_progressive_splat_ddata": _DDATA_ARGS + [_P],
+        "sbmc_progressive_splat_dlogits": _DLOGITS_ARGS + [_P]},
+}
+_HOST = {
+    "progressive_splat_host.cpp": {"sbmc_progressive_splat_host": _PSF_ARGS},
+    "progressive_splat_bwd_host.cpp": {
+        "sbmc_progressive_splat_ddata_host": _DDATA_ARGS,
+        "sbmc_progressive_splat_dlogits_host": _DLOGITS_ARGS},
+}
 
 _lock = threading.Lock()
 _loaded = {}
@@ -44,62 +69,76 @@ def _nvcc():
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _digest(names, flags):
+def _digest(flags):
+    """Hash of the flags and of every file under ``csrc/``: any source may
+    include any header, so an edit anywhere rebuilds everything."""
     h = hashlib.sha256(" ".join(flags).encode())
-    for name in names:
+    for name in sorted(os.listdir(CSRC)):
+        h.update(name.encode())
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]
 
 
-def _compile(cmd_head, source, deps, stem, flags):
-    """Compile ``source`` (plus header ``deps``) into a cached library."""
+def _build(compiler, table, flags):
+    """Compile each source of ``table`` into its own cached library (the
+    missing ones in parallel), load them, and return a namespace of the
+    exported functions with their argument types set."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    out = os.path.join(BUILD_DIR, "%s_%s.so" % (
-        stem, _digest([source] + deps, flags)))
-    if os.path.exists(out):
-        return out
-    # Build to a private name and rename, so concurrent builders never load
-    # a half-written library.
-    tmp = "%s.%d.tmp" % (out, os.getpid())
-    proc = subprocess.run(
-        cmd_head + flags + ["-o", tmp, os.path.join(CSRC, source)],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("building %s failed:\n%s%s" % (
-            source, proc.stdout, proc.stderr))
-    os.replace(tmp, out)
-    return out
+    digest = _digest(flags)
+    running = []
+    paths = {}
+    for source in table:
+        stem = "lib" + os.path.splitext(source)[0]
+        out = os.path.join(BUILD_DIR, "%s_%s.so" % (stem, digest))
+        paths[source] = out
+        if os.path.exists(out):
+            continue
+        # Build to a private name and rename, so concurrent processes never
+        # load a half-written library.
+        tmp = "%s.%d.tmp" % (out, os.getpid())
+        proc = subprocess.Popen(
+            [compiler] + flags + ["-o", tmp, os.path.join(CSRC, source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((source, proc, tmp, out))
+    failures = []
+    for source, proc, tmp, out in running:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append("building %s failed:\n%s" % (source, log))
+        else:
+            os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    fns = types.SimpleNamespace()
+    for source, exported in table.items():
+        lib = ctypes.CDLL(paths[source])
+        for name, argtypes in exported.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _I
+            setattr(fns, name, fn)
+    return fns
 
 
 def load_cuda():
-    """Build (once) and load the CUDA kernels; returns the ``ctypes.CDLL``."""
+    """Build (once) and load the CUDA kernels; returns a namespace holding
+    ``sbmc_progressive_splat``, ``sbmc_progressive_splat_ddata`` and
+    ``sbmc_progressive_splat_dlogits``."""
     with _lock:
         if "cuda" not in _loaded:
-            path = _compile([_nvcc()], "progressive_splat.cu",
-                            ["progressive_splat.cuh"], "libsbmc_kernels",
-                            NVCC_FLAGS)
-            lib = ctypes.CDLL(path)
-            lib.sbmc_progressive_splat.argtypes = _PSF_ARGS + [_P]
-            lib.sbmc_progressive_splat.restype = _I
-            _loaded["cuda"] = lib
+            _loaded["cuda"] = _build(_nvcc(), _CUDA, NVCC_FLAGS)
         return _loaded["cuda"]
 
 
 def load_host():
-    """Build (once) and load the host build of the splat kernel's per-pixel
-    function (``csrc/progressive_splat_host.cpp``) with the system C++
-    compiler; the CPU tests hold it against the plain PyTorch version."""
+    """Build (once) and load the host builds of the kernels' per-pixel
+    functions (``csrc/*_host.cpp``) with the system C++ compiler; the CPU
+    tests hold them against the plain PyTorch versions."""
     with _lock:
         if "host" not in _loaded:
             cxx = shutil.which("g++") or shutil.which("c++")
             if cxx is None:
                 raise RuntimeError("no C++ compiler (g++/c++) on PATH")
-            path = _compile([cxx], "progressive_splat_host.cpp",
-                            ["progressive_splat.cuh"], "libsbmc_psf_host",
-                            ["-O2", "-std=c++17", "-shared", "-fPIC"])
-            lib = ctypes.CDLL(path)
-            lib.sbmc_progressive_splat_host.argtypes = _PSF_ARGS
-            lib.sbmc_progressive_splat_host.restype = _I
-            _loaded["host"] = lib
+            _loaded["host"] = _build(cxx, _HOST, HOST_FLAGS)
         return _loaded["host"]

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the splat/gather operators (forward only).
+"""Plain PyTorch versions of the splat/gather operators.
 
 They are the port's counterpart of ``sbmc_tpu/ops/reference.py``: the
 obviously-correct algorithm that the CPU path runs and that the CUDA kernel
@@ -30,6 +30,10 @@ __all__ = [
     "scatter2gather_max_ref",
     "kernel_weighting_exp_ref",
     "progressive_splat_update_ref",
+    "kernel_weighting_dw_ref",
+    "progressive_splat_ddata_ref",
+    "progressive_splat_dlogits_ref",
+    "progressive_splat_bwd_ref",
     "ksize_of",
 ]
 
@@ -117,3 +121,66 @@ def progressive_splat_update_ref(data, klogits, sum_r, sum_w, max_w):
     scaler = torch.exp(max_w - new_max)
     r, w = kernel_weighting_exp_ref(data, g, new_max[:, 0])
     return sum_r * scaler + r, sum_w * scaler + w[:, None], new_max
+
+
+def kernel_weighting_dw_ref(data, d_output, d_sum_w, k):
+    """Gradient of kernel weighting to its weights, ``[bs, k*k, h, w]``:
+    ``d_w[n, i, y, x] = d_sum_w[n, y, x] + sum_c data_pad[n, c, y+dy-o,
+    x+dx-o] * d_output[n, c, y, x]``. A loop over taps, as in
+    :func:`kernel_weighting_ref`."""
+    bs, _, h, w = data.shape
+    o = (k - 1) // 2
+    dp = F.pad(data.float(), (o, o, o, o))
+    out = torch.empty((bs, k * k, h, w), dtype=torch.float32,
+                      device=data.device)
+    for i in range(k * k):
+        dy, dx = divmod(i, k)
+        out[:, i] = (dp[:, :, dy:dy + h, dx:dx + w] * d_output).sum(1) \
+            + d_sum_w
+    return out
+
+
+def _splat_weights(klogits, new_max):
+    """``exp(g - m)``: the gather-form weights of the forward, float32."""
+    return torch.exp(scatter2gather_ref(klogits.float()) - new_max)
+
+
+def progressive_splat_ddata_ref(klogits, new_max, d_r):
+    """Gradient of one progressive splat step to ``data``: the forward
+    weighting applied to the cotangent with the weights transposed back to
+    splat form, ``kw(d_r, s2g(exp(s2g(L) - m)))``."""
+    e = _splat_weights(klogits, new_max)
+    return kernel_weighting_ref(d_r, scatter2gather_ref(e))[0]
+
+
+def progressive_splat_dlogits_ref(data, klogits, new_max, d_r, d_w):
+    """Gradient of one progressive splat step to ``klogits`` (in their
+    dtype): ``s2g(e * d_e)`` with ``e = exp(s2g(L) - m)`` and ``d_e`` the
+    weights' gradient of kernel weighting."""
+    e = _splat_weights(klogits, new_max)
+    d_e = kernel_weighting_dw_ref(data, d_r, d_w[:, 0], ksize_of(klogits))
+    return scatter2gather_ref(e * d_e).to(klogits.dtype)
+
+
+def progressive_splat_bwd_ref(data, klogits, new_max, d_r, d_w):
+    """Backward of :func:`progressive_splat_update_ref` with the running max
+    held constant, composed exactly as the ``xla`` branch of
+    ``sbmc_tpu.ops._psu_bwd``.
+
+    Autograd through the forward would also differentiate the max; that
+    contribution cancels in ``sum_r / sum_w`` (softmax shift invariance), so
+    the op drops it.
+
+    Args:
+      data: ``[bs, c, h, w]`` sample radiance.
+      klogits: ``[bs, k2, h, w]`` splat logits (f32 or bf16).
+      new_max: ``[bs, 1, h, w]`` the forward's running max after the update.
+      d_r: ``[bs, c, h, w]`` cotangent of the new ``sum_r``.
+      d_w: ``[bs, 1, h, w]`` cotangent of the new ``sum_w``.
+
+    Returns:
+      ``(d_data [bs, c, h, w] float32, d_klogits [bs, k2, h, w]`` in the
+      logits' dtype ``)``.
+    """
+    return (progressive_splat_ddata_ref(klogits, new_max, d_r),
+            progressive_splat_dlogits_ref(data, klogits, new_max, d_r, d_w))

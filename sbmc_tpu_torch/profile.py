@@ -1,13 +1,19 @@
-"""Where the flagship forward spends its device time.
+"""Where the flagship forward, or a train step, spends its device time.
 
     python -m sbmc_tpu_torch.profile [--checkpoint weights/flagship_f16] \\
         [--size 1080x2048] [--spp 4]
+    python -m sbmc_tpu_torch.profile --train [--bf16] [--size 128x128] \\
+        [--spp 8] [--bs 4]
 
 Builds the checkpoint's model on the GPU, runs one tile of random inputs
 once to warm up, then once under ``torch.profiler``, and prints the wall
 time, the device's busy share of it, device time by kernel class
-(convolutions and GEMMs, the splat kernel, elementwise and copies, other)
-and the top kernels by device time.
+(convolutions and GEMMs, the splat kernels, the optimizer, elementwise and
+copies, other) and the top kernels by device time. With ``--train`` the
+profiled unit is one optimization step of ``DenoiserInterface`` (forward,
+loss, backward, clip, Adam) at the checkpoint's architecture on a random
+batch with random sample masks; ``--bf16`` runs the conv stacks in bfloat16
+as ``python -m sbmc_tpu_torch.train --bf16`` does, else they are float32.
 """
 
 import argparse
@@ -16,12 +22,15 @@ import time
 import torch
 
 from sbmc_tpu_torch.denoise import load_model
+from sbmc_tpu_torch.models.build import build_model
+from sbmc_tpu_torch.train.checkpointer import Checkpointer
+from sbmc_tpu_torch.train.interface import DenoiserInterface
 from sbmc_tpu_torch.utils.device import resolve_device
 
 __all__ = ["classify", "main"]
 
 _CONV = ("conv", "gemm", "xmma", "cutlass", "cudnn", "wgmma", "sm90",
-         "implicit", "winograd", "fft")
+         "implicit", "winograd", "fft", "wgrad", "dgrad", "fprop")
 _ELEMENTWISE = ("elementwise", "vectorized", "copy", "cat", "reduce",
                 "pool", "upsample", "index", "fill", "memcpy", "memset")
 
@@ -31,6 +40,10 @@ def classify(name):
     low = name.lower()
     if "psf_kernel" in low:
         return "splat kernel"
+    if "psb_ddata" in low or "psb_dlogits" in low:
+        return "splat backward kernels"
+    if "multi_tensor" in low or "foreach" in low:
+        return "optimizer/clip (foreach)"
     if any(k in low for k in _CONV):
         return "conv/gemm"
     if any(k in low for k in _ELEMENTWISE):
@@ -45,55 +58,108 @@ def _device_us(evt):
     return 0.0
 
 
+def _random_batch(dev, bs, spp, nf, ngf, h, w, train):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batch = {
+        "radiance": torch.rand(bs, spp, 3, h, w, device=dev, generator=gen),
+        "features": torch.rand(bs, spp, nf, h, w, device=dev,
+                               generator=gen).half(),
+        "global_features": torch.rand(bs, ngf, 1, 1, device=dev,
+                                      generator=gen)}
+    if train:
+        batch["target_image"] = torch.rand(bs, 3, h, w, device=dev,
+                                           generator=gen)
+        # Randomized sample counts: 2..spp valid samples per item.
+        n_valid = torch.randint(2, spp + 1, (bs, 1), device=dev,
+                                generator=gen)
+        batch["sample_mask"] = torch.arange(spp, device=dev)[None] < n_valid
+    return batch
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--checkpoint", default="weights/flagship_f16")
-    p.add_argument("--size", default="1080x2048",
-                   help="tile height x width")
-    p.add_argument("--spp", type=int, default=4)
+    p.add_argument("--size", default=None,
+                   help="tile height x width (default 1080x2048, or 128x128 "
+                   "with --train)")
+    p.add_argument("--spp", type=int, default=None,
+                   help="samples per pixel (default 4, or 8 with --train)")
+    p.add_argument("--train", action="store_true",
+                   help="profile one train step instead of one forward")
+    p.add_argument("--bs", type=int, default=4,
+                   help="batch size of the train step")
+    p.add_argument("--bf16", action="store_true",
+                   help="with --train: bfloat16 conv stacks")
     p.add_argument("--top", type=int, default=12)
     args = p.parse_args(argv)
-    h, w = (int(v) for v in args.size.split("x"))
+    size = args.size or ("128x128" if args.train else "1080x2048")
+    spp = args.spp or (8 if args.train else 4)
+    h, w = (int(v) for v in size.split("x"))
     dev = resolve_device("cuda")
-    model, meta, _ = load_model(args.checkpoint, dev)
-    nf = meta["model_params"]["n_features"]
-    ngf = meta["model_params"]["n_global_features"]
-    gen = torch.Generator(device=dev).manual_seed(0)
-    batch = {
-        "radiance": torch.rand(1, args.spp, 3, h, w, device=dev,
-                               generator=gen),
-        "features": torch.rand(1, args.spp, nf, h, w, device=dev,
-                               generator=gen).half(),
-        "global_features": torch.rand(1, ngf, 1, 1, device=dev,
-                                      generator=gen)}
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.inference_mode():
-        model(batch)
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
+    if args.train:
+        # The checkpoint's architecture with freshly initialised weights,
+        # as a training run starts.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.manual_seed(0)
+        meta = Checkpointer.load_meta(args.checkpoint)
+        params = dict(meta["model_params"],
+                      conv_dtype="bfloat16" if args.bf16 else None)
+        iface = DenoiserInterface(
+            build_model(dict(meta, model_params=params)), device=dev)
+        batch = _random_batch(dev, args.bs, spp, params["n_features"],
+                              params["n_global_features"], h, w, True)
+        what = "train step, batch %d, %s convs" % (
+            args.bs, "bf16" if args.bf16 else "float32")
+        for _ in range(3):
+            iface.train_step(batch)
+
+        def run():
+            iface.train_step(batch)
+    else:
+        model, meta, _ = load_model(args.checkpoint, dev)
+        batch = _random_batch(dev, 1, spp,
+                              meta["model_params"]["n_features"],
+                              meta["model_params"]["n_global_features"], h,
+                              w, False)
+        what = "forward"
+        with torch.inference_mode():
             model(batch)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+
+        def run():
+            with torch.inference_mode():
+                model(batch)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     by_class, kernels = {}, []
     for evt in prof.key_averages():
         us = _device_us(evt)
         if us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
+        # A labelled range (such as "Optimizer.step#Adam.step") spans
+        # kernels that are counted on their own.
+        if getattr(evt, "is_user_annotation", False) \
+                or evt.key.startswith(("Optimizer.", "ProfilerStep")):
+            continue
         kernels.append((us, evt.count, evt.key))
         cls = classify(evt.key)
         by_class[cls] = by_class.get(cls, 0.0) + us
     busy_ms = sum(by_class.values()) / 1e3
-    print("%s: %dx%d tile, %d spp: wall %.2f ms (profiled), device busy "
-          "%.2f ms (%.1f%%)" % (torch.cuda.get_device_name(0), h, w,
-                                args.spp, wall_ms, busy_ms,
+    print("%s: %s, %dx%d tile, %d spp: wall %.2f ms (profiled), device busy "
+          "%.2f ms (%.1f%%)" % (torch.cuda.get_device_name(0), what, h, w,
+                                spp, wall_ms, busy_ms,
                                 100 * busy_ms / wall_ms))
     if not kernels:
         print("the profiler recorded no device time")
         return
     for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
-        print("  %-17s %9.2f ms  %5.1f%%" % (cls, us / 1e3,
+        print("  %-24s %9.2f ms  %5.1f%%" % (cls, us / 1e3,
                                               100 * us / 1e3 / busy_ms))
     print("top kernels (device ms, launches, name):")
     for us, count, key in sorted(kernels, reverse=True)[:args.top]:

@@ -1,0 +1,152 @@
+"""Training interface: train/eval steps, optimizer, guards (counterpart of
+``sbmc_tpu/train/interface.py``).
+
+Adam(lr=1e-4), the tonemapped relative MSE as training loss, the relative
+MSE as the reported metric, gradient-norm clipping at 1000 and a fail-fast
+NaN/Inf loss guard. Where the JAX interface is functional (a ``TrainState``
+goes in and comes out), this one is PyTorch's idiom: it owns the model, the
+``torch.optim.Adam`` optimizer and the step count, and ``state_tree`` /
+``load_state_tree`` carry them to and from the JAX package's checkpoint
+layout.
+"""
+
+import numpy as np
+import torch
+
+from sbmc_tpu_torch import losses as losses_mod
+from sbmc_tpu_torch.params import (export_adam_state, export_jax_params,
+                                   load_adam_state, load_jax_params)
+from sbmc_tpu_torch.utils.device import resolve_device
+from sbmc_tpu_torch.utils.image import crop_like
+
+__all__ = ["DenoiserInterface"]
+
+LOSS_FNS = {
+    "tonemapped_relative_mse": losses_mod.tonemapped_relative_mse,
+    "relative_mse": losses_mod.relative_mse,
+    "smape": losses_mod.smape,
+    "tonemapped_mse": losses_mod.tonemapped_mse,
+}
+
+
+class DenoiserInterface:
+    """Runs train/eval steps for a denoiser model.
+
+    Args:
+      model: a module whose ``model(batch)`` returns a dict with "radiance".
+        It is moved to ``device``.
+      lr: Adam learning rate.
+      loss: one of ``LOSS_FNS`` keys (default: the training loss).
+      grad_clip: global-norm clip.
+      device: torch device; a CUDA device that is missing raises.
+    """
+
+    def __init__(self, model, lr=1e-4, loss="tonemapped_relative_mse",
+                 grad_clip=1000.0, device="cuda"):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.loss_name = loss
+        self.loss_fn = LOSS_FNS[loss]
+        self.rmse_fn = losses_mod.relative_mse
+        self.grad_clip = float(grad_clip)
+        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=lr,
+                                          betas=(0.9, 0.999), eps=1e-8)
+        self.step = 0
+
+    def _losses(self, batch):
+        radiance = self.model(batch)["radiance"].float()
+        tgt = crop_like(batch["target_image"], radiance)
+        loss = self.loss_fn(radiance, tgt)
+        with torch.no_grad():
+            rmse = self.rmse_fn(radiance, tgt)
+            base = self._input_baseline(batch, tgt)
+        return loss, rmse, base
+
+    def _input_baseline(self, batch, tgt):
+        """Training-sanity reference: the loss of the trivial predictor
+        (the masked per-pixel sample mean, i.e. the noisy input itself) on
+        the same batch. A healthy run drops below it within a few hundred
+        steps."""
+        if "radiance" not in batch:
+            return torch.zeros((), device=tgt.device)
+        rad = batch["radiance"].float()
+        if "sample_mask" in batch:
+            m = batch["sample_mask"].float()[:, :, None, None, None]
+            mean = (rad * m).sum(1) / m.sum(1).clamp(min=1.0)
+        else:
+            mean = rad.mean(1)
+        return self.loss_fn(crop_like(mean, tgt), tgt)
+
+    def _clip_gradients(self):
+        """Global-norm clip with optax's arithmetic: gradients are left
+        untouched while ``norm < grad_clip`` and become ``(g / norm) *
+        grad_clip`` otherwise (``torch.nn.utils.clip_grad_norm_`` divides by
+        ``norm + 1e-6`` instead). Stays on the device: no host read."""
+        grads = [p.grad for p in self.model.parameters()
+                 if p.grad is not None]
+        norm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)))
+        clip = ~(norm < self.grad_clip)
+        one = torch.ones_like(norm)
+        torch._foreach_div_(grads, torch.where(clip, norm, one))
+        torch._foreach_mul_(grads, torch.where(clip, self.grad_clip * one,
+                                               one))
+
+    @staticmethod
+    def _arrays_only(batch):
+        """Drop non-array metadata (e.g. file paths)."""
+        return {k: v for k, v in batch.items()
+                if hasattr(v, "ndim") or np.isscalar(v)}
+
+    def _to_device(self, batch):
+        out = {}
+        for k, v in self._arrays_only(batch).items():
+            if not isinstance(v, torch.Tensor):
+                v = torch.from_numpy(np.ascontiguousarray(v))
+            out[k] = v.to(self.device)
+        return out
+
+    def train_step(self, batch):
+        """One optimization step on ``batch`` (a dict of numpy arrays or
+        tensors). Returns a dict of 0-dim tensors on the device: read them a
+        step late so the host does not wait on every step."""
+        batch = self._to_device(batch)
+        self.model.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, rmse, base = self._losses(batch)
+        loss.backward()
+        self._clip_gradients()
+        self.optimizer.step()
+        self.step += 1
+        return {"loss": loss.detach(), "rmse": rmse, "input_loss": base}
+
+    def eval_step(self, batch):
+        batch = self._to_device(batch)
+        self.model.eval()
+        with torch.no_grad():
+            loss, rmse, base = self._losses(batch)
+        return {"loss": loss, "rmse": rmse, "input_loss": base}
+
+    @staticmethod
+    def check_finite(metrics):
+        """Fail fast on a NaN/Inf loss."""
+        loss = float(metrics["loss"])
+        if not np.isfinite(loss):
+            raise RuntimeError(
+                "Loss is not finite (%r), there might be outliers in the "
+                "data." % loss)
+        return loss
+
+    def state_tree(self):
+        """Parameters, Adam state and step as the JAX package's checkpoint
+        tree (nested dicts of numpy arrays)."""
+        return {"params": export_jax_params(self.model),
+                "opt_state": export_adam_state(self.model, self.optimizer),
+                "step": np.asarray(self.step, np.int32)}
+
+    def load_state_tree(self, tree):
+        """Load a checkpoint tree (in place); raises ``ValueError`` when it
+        does not match the model."""
+        load_jax_params(self.model, tree["params"])
+        load_adam_state(self.model, self.optimizer, tree["opt_state"])
+        self.step = int(np.asarray(tree["step"]))

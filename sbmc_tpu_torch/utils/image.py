@@ -4,8 +4,9 @@ import struct
 import zlib
 
 import numpy as np
+import torch
 
-__all__ = ["crop_like", "write_png"]
+__all__ = ["crop_like", "tonemap", "write_png"]
 
 
 def crop_like(src, tgt):
@@ -22,6 +23,13 @@ def crop_like(src, tgt):
                          f"{tuple(tgt.shape)}")
     dy, dx = (sh - th) // 2, (sw - tw) // 2
     return src[..., dy:dy + th, dx:dx + tw]
+
+
+def tonemap(im):
+    """Reinhard tonemap ``x / (1 + x)`` of a tensor after clamping
+    negatives."""
+    im = torch.clamp(im, min=0)
+    return im / (1.0 + im)
 
 
 def write_png(path, img):

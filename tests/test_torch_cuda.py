@@ -5,11 +5,14 @@ GPU with ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda``
 (``--noconftest``: ``tests/conftest.py`` imports JAX, which the GPU machine
 need not have; this file imports nothing of it).
 
-Tolerance: ``|kernel - plain| <= 2e-4 + 2e-5 * |plain|``. The absolute part
-is the JAX package's own bound for its fused splat kernel against the
-composed version (``test_fused_full_update_matches_oracle`` in
+Tolerance of the forward: ``|kernel - plain| <= 2e-4 + 2e-5 * |plain|``. The
+absolute part is the JAX package's own bound for its fused splat kernel
+against the composed version (``test_fused_full_update_matches_oracle`` in
 tests/test_ops.py); the relative part covers float32 sums over up to 441
-taps taken in another order (sum_w reaches tens at k = 21).
+taps taken in another order (sum_w reaches tens at k = 21). The backward
+kernels: ``3e-4 + 2e-5 * |plain|`` (the JAX package's bound for its fused
+backward); a bfloat16 ``d_klogits`` may also sit on the neighbouring
+bfloat16 value, ``2**-7`` relative.
 """
 
 import numpy as np
@@ -79,6 +82,84 @@ def test_splat_kernel_rejects_bad_inputs(device):
             d5, l5, r5, w5, m5 = _inputs(rng, 1, 5, 8, 9, 3, torch.float32,
                                          True, device)
             ops.progressive_splat_update(d5, l5, r5, w5, m5)
-    with pytest.raises(RuntimeError):
-        ops.progressive_splat_update(data.requires_grad_(), logits, sr, sw,
-                                     mw)
+    # Tensors that require grad are taken: the op is differentiable, and a
+    # CUDA tensor launches the backward kernels.
+    ops.reset_launch_counts()
+    out = ops.progressive_splat_update(data.requires_grad_(), logits, sr, sw,
+                                       mw)
+    out[0].sum().backward()
+    assert data.grad.shape == data.shape
+    assert ops.launch_counts == {"progressive_splat": 1,
+                                 "progressive_splat_ddata": 1,
+                                 "progressive_splat_dlogits": 0}
+
+
+BWD_ATOL, BWD_RTOL = 3e-4, 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,hw,k", [(3, (37, 53), 3), (3, (130, 3), 5),
+                                    (2, (5, 7), 21), (3, (37, 53), 21)])
+def test_backward_kernels_match_plain(device, c, hw, k, dtype):
+    rng = np.random.RandomState(k * 100 + hw[0] + 1)
+    data, logits, sr, sw, mw = _inputs(rng, 2, c, *hw, k, dtype, False,
+                                       device)
+    d_r = torch.tensor(rng.randn(2, c, *hw), dtype=torch.float32,
+                       device=device)
+    d_w = torch.tensor(rng.randn(2, 1, *hw), dtype=torch.float32,
+                       device=device)
+    with torch.inference_mode():
+        new_max = ops.progressive_splat_update(data, logits, sr, sw, mw)[2]
+        ops.reset_launch_counts()
+        got_data = ops._ddata_cuda(logits, new_max, d_r)
+        got_logits = ops._dlogits_cuda(data, logits, new_max, d_r, d_w)
+        assert ops.launch_counts == {"progressive_splat": 0,
+                                     "progressive_splat_ddata": 1,
+                                     "progressive_splat_dlogits": 1}
+        want_data, want_logits = ops.progressive_splat_bwd_ref(
+            data, logits, new_max, d_r, d_w)
+        torch.cuda.synchronize()
+    assert got_data.dtype == torch.float32 and got_logits.dtype == dtype
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else BWD_RTOL
+    for g, r, rt in ((got_data, want_data, BWD_RTOL),
+                     (got_logits.float(), want_logits.float(), rtol)):
+        assert torch.all((g - r).abs() <= BWD_ATOL + rt * r.abs()), \
+            float((g - r).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_function_backward_on_the_card_matches_cpu(device, dtype):
+    """The autograd.Function end to end: gradients through two chained
+    steps and the normalisation, kernels on the card against the plain
+    versions on the CPU."""
+    from sbmc_tpu_torch.nn.kernel_apply import (progressive_init,
+                                                progressive_kernel_apply)
+    rng = np.random.RandomState(3)
+    bs, k, h, w = 2, 5, 21, 34
+    data = rng.randn(2, bs, 3, h, w)
+    logits = 3 * rng.randn(2, bs, k * k, h, w)
+    valid = torch.tensor([[True, True], [False, True]])
+    grads = []
+    for dev in (torch.device("cpu"), device):
+        leaves = []
+        state = progressive_init(bs, 3, h, w, dev)
+        for s in range(2):
+            d = torch.tensor(data[s], dtype=torch.float32, device=dev,
+                             requires_grad=True)
+            lg = torch.tensor(logits[s], dtype=torch.float32).to(dtype).to(
+                dev).requires_grad_()
+            leaves += [d, lg]
+            state = progressive_kernel_apply(d, lg, state,
+                                             valid=valid[s].to(dev))
+        ops.reset_launch_counts()
+        (state.sum_r / (state.sum_w + 1e-8)).square().sum().backward()
+        if dev.type == "cuda":
+            assert ops.launch_counts["progressive_splat_ddata"] == 2
+            assert ops.launch_counts["progressive_splat_dlogits"] == 2
+        grads.append([t.grad.float().cpu() for t in leaves])
+    for i, (g, r) in enumerate(zip(grads[1], grads[0])):
+        rt = 2.0 ** -7 if (dtype == torch.bfloat16 and i % 2) else 1e-4
+        assert torch.all((g - r).abs() <= BWD_ATOL + rt * r.abs()), \
+            (i, float((g - r).abs().max()))

@@ -139,9 +139,12 @@ def test_unported_options_raise():
     with torch.inference_mode(), pytest.raises(NotImplementedError,
                                                match="slice 3"):
         model({k: torch.from_numpy(v) for k, v in batch.items()})
-    with pytest.raises(RuntimeError, match="inference_mode"):
-        model.splat = True
-        model({k: torch.from_numpy(v) for k, v in batch.items()})
+    # With splat kernels the model runs with gradients enabled and trains.
+    model.splat = True
+    out = model({k: torch.from_numpy(v) for k, v in batch.items()})
+    out["radiance"].sum().backward()
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in model.parameters())
 
 
 @pytest.fixture(scope="module")

@@ -196,8 +196,12 @@ def test_cpu_tensors_take_the_plain_version():
     assert ops.launch_counts["progressive_splat"] == 0
     for g, r in zip(got, want):
         assert torch.equal(g, r)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        ops.progressive_splat_update(args[0].requires_grad_(), *args[1:])
+    # A tensor that requires grad is taken (the op is differentiable), still
+    # on the plain versions and without a counted launch.
+    out = ops.progressive_splat_update(args[0].requires_grad_(), *args[1:])
+    out[0].sum().backward()
+    assert args[0].grad.shape == args[0].shape
+    assert set(ops.launch_counts.values()) == {0}
 
 
 def test_kernel_wrapper_checks_inputs():
