@@ -40,11 +40,38 @@ Phases, each printing one line (or a few) before the last:
    CSV log, then denoises with the trained checkpoint;
 9. scale: times the flagship forward on one full 1080x2048 tile at 4 spp.
 
-Every path records the shapes and logit types it gives the splat step; the
-run fails if a kernel met a shape on a path at which it was not held against
-its plain version. Then one JSON line with each kernel's numbers
-(``launches`` by path) and, last, the device line. Any failure raises and exits non-zero without
-printing a result.
+The composed kernels' phases run between these (4b after 4, 6b after 6, 8b
+to 8d after 8):
+
+4b. composed kernels: holds kernel weighting, its gradient to the weights
+    and scatter2gather against their plain versions (k in {3, 5, 21}, odd
+    shapes, 2 and 3 channels, float32 and bfloat16 weights, and the shapes
+    of the paths below; scatter2gather bit-exact in both types); times each
+    at KPCN's training shape (4, 3, 92, 92) and at (1, 3, 1080, 2048),
+    k = 21;
+6b. gradient, composed: ``kernel_apply(splat=True)`` and KPCN at full width
+    (float32) with the buffers requiring a gradient, card against CPU: loss,
+    every parameter gradient and the gradient to the buffers, which is where
+    scatter2gather and kernel weighting's gradient to the data run inside a
+    model;
+8b. KPCN path: trains ``sbmc_tpu_torch.train --kpcn_mode`` at full width
+    (depth 9, width 100, ksize 21) on the 128x128 tiles, batch 4, in float32
+    and with ``--bf16``; checks losses, launches (two weightings and two
+    weight gradients per step, no transpose), checkpoint and CSV log; then
+    denoises the 256x256 frame with each checkpoint through
+    ``sbmc_tpu_torch.denoise`` (two weightings per tile) and checks the EXR;
+8c. gather path: trains ``sbmc_tpu_torch.train --gather`` at the flagship
+    architecture for a few steps: every sample slot launches kernel
+    weighting and its weight gradient, none the fused splat;
+8d. LBF: two training steps and one denoise at its default window radius 8;
+    it launches none of the hand-written kernels, and the run checks that.
+
+Every path records the shapes and logit or weight types it gives the splat
+step, kernel weighting and scatter2gather; the run fails if a kernel met a
+shape on a path at which it was not held against its plain version. Then
+one JSON line with each kernel's numbers (``launches`` by path) and, last,
+the device line. Any failure raises and exits non-zero without printing a
+result.
 """
 
 import csv
@@ -80,15 +107,33 @@ KERNELS = (
      "sbmc_tpu/ops/pallas_kernels.py:728"),
     ("progressive_splat_dlogits", _CSRC + "progressive_splat_bwd.cu",
      "sbmc_tpu/ops/pallas_kernels.py:755"),
+    ("kernel_weighting", _CSRC + "kernel_weighting.cu",
+     "sbmc_tpu/ops/pallas_kernels.py:151"),
+    ("kernel_weighting_dw", _CSRC + "kernel_weighting.cu",
+     "sbmc_tpu/ops/pallas_kernels.py:321"),
+    ("scatter2gather", _CSRC + "scatter2gather.cu",
+     "sbmc_tpu/ops/pallas_kernels.py:393"),
 )
 #: The paths on which a kernel must have launched. The data-gradient kernel
 #: lies on neither main path by nature (its gradient goes to a batch input,
 #: which nothing asks for): the gradient phase runs it inside the model.
+#: Likewise scatter2gather: KPCN and the gather model predict gather kernels,
+#: so only the composed gradient phase (splat kernels through
+#: ``kernel_apply``, and every backward to the data) transposes any.
 MUST_LAUNCH = {
     "progressive_splat": ("denoise", "train", "train_bf16", "gradient"),
     "progressive_splat_ddata": ("gradient",),
     "progressive_splat_dlogits": ("train", "train_bf16", "gradient"),
+    "kernel_weighting": ("kpcn_train", "kpcn_train_bf16", "kpcn_denoise",
+                         "gather_train", "gradient_composed"),
+    "kernel_weighting_dw": ("kpcn_train", "kpcn_train_bf16", "gather_train",
+                            "gradient_composed"),
+    "scatter2gather": ("gradient_composed",),
 }
+#: The wrapped op whose recorded cases speak for each kernel.
+_OP_OF = {"progressive_splat": "splat", "progressive_splat_ddata": "splat",
+          "progressive_splat_dlogits": "splat", "kernel_weighting": "kw",
+          "kernel_weighting_dw": "kw", "scatter2gather": "s2g"}
 
 #: (bs, c, h, w, logit type) the paths give the splat step, k = 21: the
 #: denoise path's tile, a training batch in float32 and with --bf16, a frame
@@ -101,7 +146,24 @@ PATH_SHAPES = (
     (1, 3, 128, 128, torch.bfloat16),
     (1, 3, 48, 48, torch.float32),
 )
-#: kernel -> {(data shape, k2, logit type)} held against the plain version
+#: (bs, c, h, w, weight type) the paths give kernel weighting, k = 21: a
+#: KPCN training batch of 128x128 tiles less the 36 px the valid convs take
+#: (float32, and bfloat16 kernels with --bf16), a KPCN tile of the denoised
+#: frame (160 less 36) from either checkpoint, a gather-model training batch
+#: (its weights are exp(logits - max), float32), and the composed gradient
+#: phase's KPCN tile (64 less 36) and kernel_apply input.
+KW_PATH_SHAPES = (
+    (4, 3, 92, 92, torch.float32),
+    (4, 3, 92, 92, torch.bfloat16),
+    (1, 3, 124, 124, torch.float32),
+    (1, 3, 124, 124, torch.bfloat16),
+    (4, 3, 128, 128, torch.float32),
+    (1, 3, 28, 28, torch.float32),
+    (2, 3, 37, 53, torch.float32),
+)
+#: kernel -> {(data shape, k2, logit or weight type)} held against the plain
+#: version. scatter2gather sees no data: its cases carry (bs, h, w); the
+#: weight gradient's output is float32 whatever the weights are.
 _COMPARED = {name: set() for name, _, _ in KERNELS}
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
@@ -162,40 +224,71 @@ def _case(data, logits):
     return tuple(data.shape), logits.shape[1], str(logits.dtype)
 
 
+def _s2g_case(weights):
+    bs, k2, h, w = weights.shape
+    return (bs, h, w), k2, str(weights.dtype)
+
+
 class _record_shapes:
-    """While active, notes every (data shape, k2, logit type) the model
-    gives the splat step. The call itself goes through unchanged."""
+    """While active, notes every case the models give the splat step
+    (``seen["splat"]``), kernel weighting (``seen["kw"]``) and
+    scatter2gather (``seen["s2g"]``) on the card. The calls themselves go
+    through unchanged."""
 
     def __init__(self, ops):
-        self.ops, self.seen = ops, set()
+        self.ops = ops
+        self.seen = {"splat": set(), "kw": set(), "s2g": set()}
 
     def __enter__(self):
-        self.plain = self.ops.progressive_splat_update
+        ops, seen = self.ops, self.seen
+        self.plain = (ops.progressive_splat_update, ops.kernel_weighting,
+                      ops.scatter2gather)
+        splat, kw, s2g = self.plain
 
-        def recording(data, klogits, *state):
+        def rec_splat(data, klogits, *state):
             if data.is_cuda:
-                self.seen.add(_case(data, klogits))
-            return self.plain(data, klogits, *state)
+                seen["splat"].add(_case(data, klogits))
+            return splat(data, klogits, *state)
 
-        self.ops.progressive_splat_update = recording
-        return self.seen
+        def rec_kw(data, weights):
+            if data.is_cuda:
+                seen["kw"].add(_case(data, weights))
+            return kw(data, weights)
+
+        def rec_s2g(weights):
+            if weights.is_cuda:
+                seen["s2g"].add(_s2g_case(weights))
+            return s2g(weights)
+
+        ops.progressive_splat_update = rec_splat
+        ops.kernel_weighting = rec_kw
+        ops.scatter2gather = rec_s2g
+        return seen
 
     def __exit__(self, *exc):
-        self.ops.progressive_splat_update = self.plain
+        (self.ops.progressive_splat_update, self.ops.kernel_weighting,
+         self.ops.scatter2gather) = self.plain
 
 
 def _check_shapes(path, seen, kernels):
-    """Fails if the path met a shape at which one of ``kernels`` was not
-    compared with its plain version."""
-    if not seen:
-        raise AssertionError("the %s path never reached the splat step"
-                             % path)
+    """Fails if the path did not reach the op of one of ``kernels``, or met
+    a case at which that kernel was not compared with its plain version."""
     for name in kernels:
-        missing = seen - _COMPARED[name]
+        cases = seen[_OP_OF[name]]
+        if not cases:
+            raise AssertionError("the %s path never reached the op of %s"
+                                 % (path, name))
+        if name == "kernel_weighting_dw":
+            cases = {c[:2] + ("torch.float32",) for c in cases}
+        missing = cases - _COMPARED[name]
         if missing:
             raise AssertionError(
                 "%s ran on the %s path at %s, where it was not held against "
                 "its plain version" % (name, path, sorted(missing)))
+
+
+def _nonzero(counts):
+    return {name: n for name, n in counts.items() if n}
 
 
 def _compare(ops, args):
@@ -351,6 +444,21 @@ def _time_bwd(ops, inputs, plain_iters):
     return out
 
 
+def _record_times(numbers, name, tag, ms, plain_ms, bound_ms, by):
+    """Prints one kernel's times at one shape and files them in
+    ``numbers[name]``: the first shape is the main path's, the others go
+    under ``other_shapes``."""
+    print("%s at (%s), k=21: %.4f ms; plain version %.4f ms; bound %.4f ms "
+          "(%s)" % (name, tag, ms, plain_ms, bound_ms, by))
+    entry = numbers.setdefault(name, {"other_shapes": []})
+    row = {"shape": tag, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": by}
+    if "ms" not in entry:
+        entry.update(row)
+    else:
+        entry["other_shapes"].append(row)
+
+
 def _bwd_kernel_phase(ops):
     rng = np.random.RandomState(1)
     err = [0.0, 0.0]
@@ -381,18 +489,10 @@ def _bwd_kernel_phase(ops):
         err = [max(a, b) for a, b in zip(err, e)]
         tag = "%s %s" % ("x".join(map(str, shape)),
                          str(dtype).replace("torch.", ""))
-        for (name, (ms, plain_ms, bound_ms, by)), kerr in zip(
+        for (name, times), kerr in zip(
                 sorted(_time_bwd(ops, inputs, iters).items()), err):
-            print("%s at (%s), k=21: %.4f ms; plain version %.4f ms; bound "
-                  "%.4f ms (%s)" % (name, tag, ms, plain_ms, bound_ms, by))
-            entry = numbers.setdefault(name, {"other_shapes": []})
-            row = {"shape": tag, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bound_ms, "bound_by": by}
-            if "ms" not in entry:  # the first shape is the main path's
-                entry.update(row)
-            else:
-                entry["other_shapes"].append(row)
-            entry["max_abs_err"] = kerr
+            _record_times(numbers, name, tag, *times)
+            numbers[name]["max_abs_err"] = kerr
         del inputs
         torch.cuda.empty_cache()
     return numbers
@@ -436,14 +536,16 @@ def _gradient_phase(ops, checkpoint):
         if dev == "cuda":
             torch.cuda.synchronize()
             launches = dict(ops.launch_counts)
-            _check_shapes("gradient", seen, [name for name, _, _ in KERNELS])
+            _check_shapes("gradient", seen, [
+                "progressive_splat", "progressive_splat_ddata",
+                "progressive_splat_dlogits"])
         grads = {n: p.grad.detach().cpu() for n, p in
                  model.named_parameters()}
         grads["<input radiance>"] = b["radiance"].grad.detach().cpu()
         results.append((loss.item(), grads))
-    if launches != {"progressive_splat": spp,
-                    "progressive_splat_ddata": spp,
-                    "progressive_splat_dlogits": spp}:
+    if _nonzero(launches) != {"progressive_splat": spp,
+                              "progressive_splat_ddata": spp,
+                              "progressive_splat_dlogits": spp}:
         raise AssertionError("gradient phase launched %s, expected %d of "
                              "each kernel" % (launches, spp))
     (cpu_loss, cpu_g), (gpu_loss, gpu_g) = results
@@ -579,14 +681,106 @@ def _main_phase(ops, checkpoint, tmp, tile, pad):
           % (crop, _psnr(img[inner], gt), _psnr(noisy, gt)))
     return launches
 
+class _timed_steps:
+    """While active, every ``DenoiserInterface.train_step`` is timed on the
+    host clock between two synchronisations (``ms``), and the launches made
+    inside the steps are counted (``launches``): the display callback's
+    forward at the end of an epoch launches forward kernels too."""
+
+    def __init__(self, ops):
+        self.ops, self.ms, self.launches = ops, [], {}
+
+    def __enter__(self):
+        from sbmc_tpu_torch.train.interface import DenoiserInterface
+        self.cls = DenoiserInterface
+        self.plain = plain = DenoiserInterface.train_step
+        ops, ms, launches = self.ops, self.ms, self.launches
+
+        def timed_step(iface, batch):
+            before = dict(ops.launch_counts)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            metrics = plain(iface, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            for name, n in ops.launch_counts.items():
+                launches[name] = launches.get(name, 0) + n - before[name]
+            return metrics
+
+        DenoiserInterface.train_step = timed_step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.train_step = self.plain
+
+
+def _run_training(ops, tag, what, argv, steps, kernels, in_steps_want,
+                  display_want, arch):
+    """Run ``sbmc_tpu_torch.train`` with ``argv`` for ``steps`` steps and
+    check it: the launches inside the steps (``in_steps_want``) and in all
+    (plus ``display_want`` per display strip), the shapes met by
+    ``kernels``, finite losses in the CSV log, and the checkpoint. Prints
+    one line; returns ``(interface, launch counts)``."""
+    from sbmc_tpu_torch import train_cli
+    from sbmc_tpu_torch.train.checkpointer import Checkpointer
+
+    ckpt = argv[1]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with _timed_steps(ops) as timed, _record_shapes(ops) as seen:
+        iface = train_cli.main(train_cli.parse_args(
+            argv + ["--max_steps", str(steps), "--log_interval", "1",
+                    "--num_worker_threads", "2", "--device", "cuda"]))
+    torch.cuda.synchronize()
+    counts = dict(ops.launch_counts)
+    _check_shapes(tag, seen, kernels)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if iface.step != steps or Checkpointer.load_meta(ckpt)["arch"] != arch:
+        raise AssertionError("%s: not %d steps of arch %s" % (tag, steps,
+                                                              arch))
+    if _nonzero(timed.launches) != in_steps_want:
+        raise AssertionError("%s: kernel launches inside the train steps %s, "
+                             "expected %s" % (tag, _nonzero(timed.launches),
+                                              in_steps_want))
+    viz = os.path.join(ckpt, "viz")
+    epochs = len(os.listdir(viz)) if os.path.isdir(viz) else 0
+    want = dict(in_steps_want)
+    for name, n in display_want.items():
+        want[name] = want.get(name, 0) + epochs * n
+    if _nonzero(counts) != want:
+        raise AssertionError("%s: kernel launches %s, expected %s"
+                             % (tag, _nonzero(counts), want))
+    with open(os.path.join(ckpt, "train_log.csv")) as f:
+        rows = list(csv.DictReader(f))
+    loss = [float(r["loss"]) for r in rows]
+    if len(rows) != steps or not all(
+            np.isfinite(float(r[k])) for r in rows
+            for k in ("loss", "rmse", "input_loss", "wall_time")):
+        raise AssertionError("%s: train_log.csv has %d rows or a "
+                             "non-finite value" % (tag, len(rows)))
+    files = os.listdir(ckpt)
+    if not ("final.msgpack" in files and "meta.json" in files
+            and "ckpt_%09d.msgpack" % steps in files):
+        raise AssertionError("%s: no checkpoint written: %s" % (tag, files))
+    rest = sorted(timed.ms[1:])
+    print("%s: %d steps of %s: first step %.2f ms, then median %.2f ms/step "
+          "(min %.2f, max %.2f); peak device memory %.2f GB; loss %.5g -> "
+          "%.5g (%s, input baseline %.5g); launches %s"
+          % (tag, steps, what, timed.ms[0], rest[len(rest) // 2], rest[0],
+             rest[-1], peak_gb, loss[0], loss[-1],
+             "fell" if loss[-1] < loss[0] else "did not fall",
+             float(rows[-1]["input_loss"]), json.dumps(_nonzero(counts))))
+    return iface, counts
+
+
 def _train_phase(ops, tmp, steps=10, spp=8, bs=4):
     """The training path at full flagship width through its entry point,
     in float32 and with ``--bf16``; then train -> checkpoint -> denoise.
     Returns the launch counts of each run."""
-    from sbmc_tpu_torch import denoise, train_cli
+    from sbmc_tpu_torch import denoise
     from sbmc_tpu_torch.data.synthetic import generate_dataset
     from sbmc_tpu_torch.train.checkpointer import Checkpointer
-    from sbmc_tpu_torch.train.interface import DenoiserInterface
     from sbmc_tpu_torch.utils import exr
 
     data_dir = os.path.join(tmp, "train_data")
@@ -596,93 +790,27 @@ def _train_phase(ops, tmp, steps=10, spp=8, bs=4):
     print("training data: 8 tiles of 128x128 at %d spp written in %.1f s"
           % (spp, time.perf_counter() - t0))
 
-    # Time every step on the host clock between two synchronisations, and
-    # count the launches made inside the steps (the display callback's
-    # forward at the end of an epoch launches the forward kernel too).
-    step_ms, in_steps = [], {}
-    plain_step = DenoiserInterface.train_step
-
-    def timed_step(self, batch):
-        before = dict(ops.launch_counts)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        metrics = plain_step(self, batch)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t) * 1e3)
-        for name, n in ops.launch_counts.items():
-            in_steps[name] = in_steps.get(name, 0) + n - before[name]
-        return metrics
-
     launches = {}
-    DenoiserInterface.train_step = timed_step
-    try:
-        for tag, flags in (("train", []), ("train_bf16", ["--bf16"])):
-            ckpt = os.path.join(tmp, "ckpt_" + tag)
-            del step_ms[:]
-            in_steps.clear()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            ops.reset_launch_counts()
-            with _record_shapes(ops) as seen:
-                iface = train_cli.main(train_cli.parse_args(
-                    [data_dir, ckpt, "--spp", str(spp), "--bs", str(bs),
-                     "--ksize", "21", "--max_steps", str(steps),
-                     "--log_interval", "1", "--num_worker_threads", "2",
-                     "--device", "cuda"] + flags))
-            torch.cuda.synchronize()
-            counts = dict(ops.launch_counts)
-            _check_shapes(tag, seen, ["progressive_splat",
-                                      "progressive_splat_dlogits"])
-            peak_gb = torch.cuda.max_memory_allocated() / 1e9
-            launches[tag] = counts
-            mp = Checkpointer.load_meta(ckpt)["model_params"]
-            if (iface.step != steps or mp["n_features"] != 93
-                    or mp["ksize"] != 21
-                    or sum(p.numel() for p in iface.model.parameters())
-                    < 30e6):
-                raise AssertionError("the training run was not %d steps of "
-                                     "the flagship architecture" % steps)
-            # Every sample slot of every step launches the forward and the
-            # logits-gradient kernel (masked samples too); nothing asks for
-            # the gradient to the radiance, a batch input.
-            want = {"progressive_splat": steps * spp,
-                    "progressive_splat_ddata": 0,
-                    "progressive_splat_dlogits": steps * spp}
-            if in_steps != want:
-                raise AssertionError("%s: kernel launches inside the train "
-                                     "steps %s, expected %s"
-                                     % (tag, in_steps, want))
-            epochs = len(os.listdir(os.path.join(ckpt, "viz")))
-            want["progressive_splat"] += epochs * spp  # the display strips
-            if counts != want:
-                raise AssertionError("%s: kernel launches %s, expected %s"
-                                     % (tag, counts, want))
-            with open(os.path.join(ckpt, "train_log.csv")) as f:
-                rows = list(csv.DictReader(f))
-            loss = [float(r["loss"]) for r in rows]
-            if len(rows) != steps or not all(
-                    np.isfinite(float(r[k])) for r in rows
-                    for k in ("loss", "rmse", "input_loss", "wall_time")):
-                raise AssertionError("%s: train_log.csv has %d rows or a "
-                                     "non-finite value" % (tag, len(rows)))
-            files = os.listdir(ckpt)
-            if not ("final.msgpack" in files and "meta.json" in files
-                    and "ckpt_%09d.msgpack" % steps in files):
-                raise AssertionError("%s: no checkpoint written: %s"
-                                     % (tag, files))
-            rest = sorted(step_ms[1:])
-            print("%s: %d steps of the flagship architecture, batch %d x %d "
-                  "spp x 128x128 (randomized sample counts): first step "
-                  "%.2f ms, then median %.2f ms/step (min %.2f, max %.2f); "
-                  "peak device memory %.2f GB; loss %.5g -> %.5g (%s, input "
-                  "baseline %.5g); launches %s"
-                  % (tag, steps, bs, spp, step_ms[0], rest[len(rest) // 2],
-                     rest[0], rest[-1], peak_gb, loss[0], loss[-1],
-                     "fell" if loss[-1] < loss[0] else "did not fall",
-                     float(rows[-1]["input_loss"]), json.dumps(counts)))
-            del iface
-    finally:
-        DenoiserInterface.train_step = plain_step
+    for tag, flags in (("train", []), ("train_bf16", ["--bf16"])):
+        ckpt = os.path.join(tmp, "ckpt_" + tag)
+        # Every sample slot of every step launches the forward and the
+        # logits-gradient kernel (masked samples too); nothing asks for the
+        # gradient to the radiance, a batch input.
+        iface, launches[tag] = _run_training(
+            ops, tag, "the flagship architecture, batch %d x %d spp x "
+            "128x128 (randomized sample counts)" % (bs, spp),
+            [data_dir, ckpt, "--spp", str(spp), "--bs", str(bs), "--ksize",
+             "21"] + flags, steps,
+            ["progressive_splat", "progressive_splat_dlogits"],
+            {"progressive_splat": steps * spp,
+             "progressive_splat_dlogits": steps * spp},
+            {"progressive_splat": spp}, "sbmc")
+        mp = Checkpointer.load_meta(ckpt)["model_params"]
+        if (mp["n_features"] != 93 or mp["ksize"] != 21
+                or sum(p.numel() for p in iface.model.parameters()) < 30e6):
+            raise AssertionError("the training run was not the flagship "
+                                 "architecture")
+        del iface
 
     # train -> checkpoint -> denoise: the bf16 run's checkpoint denoises the
     # tiles it trained on, one 128x128 frame per scene.
@@ -695,7 +823,8 @@ def _train_phase(ops, tmp, steps=10, spp=8, bs=4):
              "--uniform_tiles", "--tile_size", "128", "--tile_pad", "32",
              "--device", "cuda"]))
     _check_shapes("trained-checkpoint denoise", seen, ["progressive_splat"])
-    if len(res) != 8 or ops.launch_counts["progressive_splat"] != 8 * spp:
+    if len(res) != 8 or _nonzero(ops.launch_counts) != {
+            "progressive_splat": 8 * spp}:
         raise AssertionError("denoising with the trained checkpoint: %d "
                              "scenes, %s launches" % (len(res),
                                                       ops.launch_counts))
@@ -708,6 +837,378 @@ def _train_phase(ops, tmp, steps=10, spp=8, bs=4):
           "128x128 at %d spp: finite EXRs, %d forward-kernel launches"
           % (steps, len(res), spp, ops.launch_counts["progressive_splat"]))
     return launches
+
+
+def _kw_inputs(rng, bs, c, h, w, k, dtype):
+    """data, weights, and the cotangents of kernel weighting, on the card."""
+    dev = torch.device("cuda")
+
+    def t(a, dt=torch.float32):
+        return torch.tensor(a, dtype=torch.float32).to(dt).to(dev)
+
+    return (t(rng.randn(bs, c, h, w)), t(rng.randn(bs, k * k, h, w), dtype),
+            t(rng.randn(bs, c, h, w)), t(rng.randn(bs, h, w)))
+
+
+def _compare_composed(ops, inputs):
+    """Max abs errors of (kernel_weighting, kernel_weighting_dw); raises
+    beyond ``ATOL + RTOL * |plain|``, and if scatter2gather is not exact."""
+    data, weights, d_out, d_sw = inputs
+    k2 = weights.shape[1]
+    k = int(round(k2 ** 0.5))
+    case = _case(data, weights)
+    _COMPARED["kernel_weighting"].add(case)
+    _COMPARED["kernel_weighting_dw"].add(case[:2] + ("torch.float32",))
+    _COMPARED["scatter2gather"].add(_s2g_case(weights))
+    out, sum_w = ops.kernel_weighting(data, weights)
+    d_w = ops._kernel_weighting_dw_cuda(data, d_out, d_sw, k)
+    g = ops.scatter2gather(weights)
+    want_out, want_sw = ops.kernel_weighting_ref(data, weights)
+    want_dw = ops.kernel_weighting_dw_ref(data, d_out, d_sw, k)
+    want_g = ops.scatter2gather_ref(weights)
+    torch.cuda.synchronize()
+    if g.dtype != weights.dtype or not torch.equal(g, want_g):
+        raise AssertionError("scatter2gather kernel is not bit-exact at %s"
+                             % (case,))
+    del g, want_g
+    errs = []
+    for name, pairs in (("kernel_weighting", ((out, want_out),
+                                              (sum_w, want_sw))),
+                        ("kernel_weighting_dw", ((d_w, want_dw),))):
+        err = 0.0
+        for got, want in pairs:
+            if got.dtype != torch.float32 or got.shape != want.shape:
+                raise AssertionError("%s returned %s %s" % (
+                    name, got.dtype, tuple(got.shape)))
+            if not bool(torch.all((got - want).abs()
+                                  <= ATOL + RTOL * want.abs())):
+                raise AssertionError(
+                    "%s kernel disagrees with its plain version at %s: max "
+                    "abs err %.3g" % (name, case,
+                                      float((got - want).abs().max())))
+            err = max(err, float((got - want).abs().max()))
+        errs.append(err)
+    return errs
+
+
+def _time_composed(ops, inputs, plain_iters):
+    """{kernel: (ms, plain ms, bound ms, bound by)} on these inputs."""
+    data, weights, d_out, d_sw = inputs
+    bs, c, h, w = data.shape
+    k2 = weights.shape[1]
+    k = int(round(k2 ** 0.5))
+    px = bs * h * w
+    wbytes = weights.numel() * weights.element_size()
+    out = {}
+    # Forward: reads the weights and c data planes, writes c + 1 planes; per
+    # tap an add to sum_w and one FMA per channel.
+    out["kernel_weighting"] = (
+        _time_ms(lambda: ops.kernel_weighting(data, weights), 3, 20),
+        _time_ms(lambda: ops.kernel_weighting_ref(data, weights), 1,
+                 plain_iters),
+    ) + _bound(wbytes + px * 4 * (2 * c + 1), px * k2 * (2 * c + 1))
+    # Transpose: reads and writes the k2 planes; no arithmetic.
+    out["scatter2gather"] = (
+        _time_ms(lambda: ops.scatter2gather(weights), 3, 20),
+        _time_ms(lambda: ops.scatter2gather_ref(weights), 1, plain_iters),
+    ) + _bound(2 * wbytes, 0)
+    if weights.dtype == torch.float32:
+        # Weight gradient: reads 2c + 1 planes, writes k2 float32 planes;
+        # per tap c FMAs and an add.
+        out["kernel_weighting_dw"] = (
+            _time_ms(lambda: ops._kernel_weighting_dw_cuda(
+                data, d_out, d_sw, k), 3, 20),
+            _time_ms(lambda: ops.kernel_weighting_dw_ref(
+                data, d_out, d_sw, k), 1, plain_iters),
+        ) + _bound(px * 4 * (k2 + 2 * c + 1), px * k2 * (2 * c + 1))
+    return out
+
+
+def _composed_kernel_phase(ops):
+    """Kernel weighting, its weight gradient and scatter2gather against
+    their plain versions, then their times."""
+    rng = np.random.RandomState(3)
+    err = [0.0, 0.0]
+    cases = 0
+
+    def check(inputs):
+        nonlocal err, cases
+        err = [max(a, b) for a, b in zip(err, _compare_composed(ops,
+                                                                inputs))]
+        cases += 1
+
+    for k in (3, 5, 21):
+        for c, hw in ((3, (37, 53)), (3, (130, 3)), (2, (5, 7))):
+            for dtype in (torch.float32, torch.bfloat16):
+                check(_kw_inputs(rng, 2, c, *hw, k, dtype))
+    for bs, c, h, w, dtype in KW_PATH_SHAPES:
+        check(_kw_inputs(rng, bs, c, h, w, 21, dtype))
+    print("composed kernel check: %d cases, max abs err kernel_weighting "
+          "%.3g, kernel_weighting_dw %.3g (tolerance %.0e + %.0e * |plain|); "
+          "scatter2gather bit-exact in float32 and bfloat16"
+          % (cases, err[0], err[1], ATOL, RTOL))
+    numbers = {}
+    # KPCN's training shape first (the main path's), then one full 1080x2048
+    # tile in both weight types.
+    for shape, dtype, iters in (((4, 3, 92, 92), torch.float32, 3),
+                                ((4, 3, 92, 92), torch.bfloat16, 3),
+                                ((1, 3, 1080, 2048), torch.float32, 2),
+                                ((1, 3, 1080, 2048), torch.bfloat16, 2)):
+        inputs = _kw_inputs(rng, *shape, 21, dtype)
+        check(inputs)
+        tag = "%s %s" % ("x".join(map(str, shape)),
+                         str(dtype).replace("torch.", ""))
+        for name, times in sorted(_time_composed(ops, inputs,
+                                                 iters).items()):
+            _record_times(numbers, name, tag, *times)
+        del inputs
+        torch.cuda.empty_cache()
+    numbers["kernel_weighting"]["max_abs_err"] = err[0]
+    numbers["kernel_weighting_dw"]["max_abs_err"] = err[1]
+    numbers["scatter2gather"]["max_abs_err"] = 0.0
+    return numbers
+
+
+# KPCN gradients on the card against the CPU, float32 convs, per tensor as
+# GRAD_RTOL above but wider: each of its 18 valid 5x5 convs sums 2500 terms
+# per output (the flagship's 3x3 convs 1152) in another order, cuDNN picks
+# other algorithms for 5x5 filters than for 3x3, and the gradients of the
+# deep layers are small (max 4e-4) beside the rounding of the 441-way softmax
+# they pass through; measured 3.3e-3 to 3.5e-3 of a tensor's largest.
+KPCN_GRAD_RTOL = 1e-2
+
+
+def _grad_against_cpu(what, run, leaves_of, rtol=GRAD_RTOL):
+    """Runs ``run(device)`` -> (loss, {name: gradient}) on the CPU and on
+    the card and holds the card to the CPU per tensor: ``|card - cpu| <=
+    rtol * max|cpu| + GRAD_ATOL``, as the flagship gradient phase does."""
+    (cpu_loss, cpu_g), (gpu_loss, gpu_g) = run("cpu"), run("cuda")
+    worst, worst_name, failed = 0.0, "", []
+    for name, want in cpu_g.items():
+        got = gpu_g[name]
+        scale = float(want.abs().max())
+        diff = float((got - want).abs().max())
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError("%s: gradient of %s on the card is not "
+                                 "finite" % (what, name))
+        if diff > rtol * scale + GRAD_ATOL:
+            failed.append(name)
+        if scale > 0 and diff / scale > worst:
+            worst, worst_name = diff / scale, name
+    print("gradient, composed: %s, card vs CPU: loss %.6g vs %.6g; %d "
+          "gradients (%s), worst max-abs difference %.3g of the tensor's "
+          "largest (%s) (tolerance %.0e * max|cpu| + %.0e)"
+          % (what, gpu_loss, cpu_loss, len(cpu_g), leaves_of, worst,
+             worst_name, rtol, GRAD_ATOL))
+    if failed:
+        raise AssertionError("%s: gradients of %s on the card disagree with "
+                             "the CPU" % (what, failed))
+    if abs(gpu_loss - cpu_loss) > 1e-4 * abs(cpu_loss):
+        raise AssertionError("%s: loss on the card %.8g, on the CPU %.8g"
+                             % (what, gpu_loss, cpu_loss))
+
+
+def _composed_gradient_phase(ops):
+    """``kernel_apply(splat=True)`` and the full-width KPCN model (float32)
+    with the buffers requiring a gradient, card against CPU: the place where
+    scatter2gather and kernel weighting's gradient to the data run inside a
+    model. Returns the card's launch counts over both."""
+    from sbmc_tpu_torch import losses
+    from sbmc_tpu_torch.models import KPCN
+    from sbmc_tpu_torch.nn.kernel_apply import kernel_apply
+    from sbmc_tpu_torch.utils.image import crop_like
+
+    rng = np.random.RandomState(4)
+    data = rng.randn(2, 3, 37, 53)
+    kernels = rng.randn(2, 441, 37, 53)
+    total = {}
+
+    def tally(seen, path, kernels_):
+        torch.cuda.synchronize()
+        _check_shapes(path, seen, kernels_)
+        for name, n in ops.launch_counts.items():
+            total[name] = total.get(name, 0) + n
+
+    def run_apply(dev):
+        d = torch.tensor(data, dtype=torch.float32, device=dev,
+                         requires_grad=True)
+        kn = torch.tensor(kernels, dtype=torch.float32, device=dev,
+                          requires_grad=True)
+        ops.reset_launch_counts()
+        with _record_shapes(ops) as seen:
+            out, sum_w = kernel_apply(d, kn, softmax=True, splat=True)
+            loss = out.square().mean() + (sum_w * out[:, :1]).mean()
+            loss.backward()
+        if dev == "cuda":
+            # Forward: transpose + weighting. Backward: the weight gradient,
+            # transpose + weighting for the data, transpose of the cotangent.
+            if _nonzero(ops.launch_counts) != {
+                    "scatter2gather": 3, "kernel_weighting": 2,
+                    "kernel_weighting_dw": 1}:
+                raise AssertionError("kernel_apply launched %s"
+                                     % _nonzero(ops.launch_counts))
+            tally(seen, "gradient_composed", [
+                "kernel_weighting", "kernel_weighting_dw", "scatter2gather"])
+        return loss.item(), {"data": d.grad.cpu(), "kernels": kn.grad.cpu()}
+
+    _grad_against_cpu("kernel_apply(softmax, splat) on 2x3x37x53, k=21",
+                      run_apply, "data, kernels")
+
+    torch.manual_seed(0)
+    model = KPCN()  # full width: depth 9, width 100, ksize 21
+    size = 64
+    batch = {k: rng.rand(1, 27 if k.endswith("_in") else 3, size, size)
+             for k in ("kpcn_diffuse_in", "kpcn_specular_in",
+                       "kpcn_diffuse_buffer", "kpcn_specular_buffer",
+                       "kpcn_albedo")}
+    batch["target_image"] = rng.rand(1, 3, size, size)
+    buffers = ("kpcn_diffuse_buffer", "kpcn_specular_buffer")
+
+    def run_kpcn(dev):
+        model.to(dev).train()
+        model.zero_grad(set_to_none=True)
+        b = {k: torch.tensor(v, dtype=torch.float32, device=dev)
+             for k, v in batch.items()}
+        for k in buffers:
+            b[k].requires_grad_()
+        ops.reset_launch_counts()
+        with _record_shapes(ops) as seen:
+            out = model(b)["radiance"]
+            loss = losses.tonemapped_relative_mse(
+                out, crop_like(b["target_image"], out))
+            loss.backward()
+        if dev == "cuda":
+            # Per stream: weighting forward, weight gradient, and transpose
+            # + weighting for the gradient to the buffer.
+            if _nonzero(ops.launch_counts) != {
+                    "scatter2gather": 2, "kernel_weighting": 4,
+                    "kernel_weighting_dw": 2}:
+                raise AssertionError("KPCN gradient launched %s"
+                                     % _nonzero(ops.launch_counts))
+            tally(seen, "gradient_composed", ["kernel_weighting",
+                                              "kernel_weighting_dw"])
+        grads = {n: p.grad.detach().cpu()
+                 for n, p in model.named_parameters()}
+        for k in buffers:
+            grads["<%s>" % k] = b[k].grad.cpu()
+        return loss.item(), grads
+
+    _grad_against_cpu("KPCN float32 at full width on 1x%dx%d" % (size, size),
+                      run_kpcn, "parameters and both buffers", KPCN_GRAD_RTOL)
+    return total
+
+
+def _kpcn_phase(ops, tmp, steps=10, bs=4):
+    """KPCN at its full published width through both entry points: trains
+    on the 128x128 tiles in float32 and with ``--bf16``, then denoises the
+    256x256 frame with each checkpoint. Returns the launch counts by
+    path."""
+    from sbmc_tpu_torch import denoise
+    from sbmc_tpu_torch.utils import exr
+
+    data_dir = os.path.join(tmp, "train_data")
+    frame_dir = os.path.join(tmp, "data")
+    launches = {}
+    for tag, flags in (("kpcn_train", []), ("kpcn_train_bf16", ["--bf16"])):
+        ckpt = os.path.join(tmp, "ckpt_" + tag)
+        # Two streams: two weighting forwards and two weight gradients per
+        # step; nothing asks for the gradient to the buffers (batch inputs),
+        # so nothing is transposed, and KPCN writes no display strip.
+        iface, launches[tag] = _run_training(
+            ops, tag, "KPCN at full width (depth 9, width 100, ksize 21), "
+            "batch %d x 128x128" % bs,
+            [data_dir, ckpt, "--kpcn_mode", "--spp", "8", "--bs", str(bs),
+             "--ksize", "21"] + flags, steps,
+            ["kernel_weighting", "kernel_weighting_dw"],
+            {"kernel_weighting": 2 * steps, "kernel_weighting_dw": 2 * steps},
+            {}, "kpcn")
+        shapes = {n: tuple(p.shape) for n, p in iface.model.named_parameters()}
+        if (len(shapes) != 36
+                or shapes["diffuse.layer_0.v"] != (100, 27, 5, 5)
+                or shapes["specular.prediction.v"] != (441, 100, 5, 5)):
+            raise AssertionError("the KPCN run was not at full width")
+        del iface
+
+        out = os.path.join(tmp, "out_" + tag, "frame.exr")
+        argv = ["--input", frame_dir, "--checkpoint", ckpt, "--output", out,
+                "--uniform_tiles", "--tile_size", "160", "--tile_pad", "32",
+                "--spp", "4", "--device", "cuda"]
+        warm = denoise.main(denoise.parse_args(argv))
+        ops.reset_launch_counts()
+        with _record_shapes(ops) as seen:
+            res = denoise.main(denoise.parse_args(argv))
+        _check_shapes(tag + " denoise", seen, ["kernel_weighting"])
+        tiles = res[0]["tiles"]
+        if _nonzero(ops.launch_counts) != {"kernel_weighting": 2 * tiles}:
+            raise AssertionError("KPCN denoise launched %s, expected 2 x %d "
+                                 "tiles of kernel_weighting"
+                                 % (_nonzero(ops.launch_counts), tiles))
+        img = exr.read(out)
+        if img.shape != (256, 256, 3) or not np.isfinite(img).all():
+            raise AssertionError("KPCN denoised EXR is %s, finite: %s" % (
+                img.shape, bool(np.isfinite(img).all())))
+        # The 18 px the valid convs take stay zero along the frame's border.
+        if np.abs(img[:18]).max() != 0 or not np.abs(img[18:-18,
+                                                         18:-18]).max() > 0:
+            raise AssertionError("KPCN frame: unexpected border or empty "
+                                 "interior")
+        print("%s checkpoint denoised the 256x256 frame at 4 spp in %d "
+              "uniform tiles of 160 (pad 32): %.2f ms/frame (first run %.2f "
+              "ms), kernel_weighting launches %d"
+              % (tag, tiles, res[0]["ms"], warm[0]["ms"],
+                 ops.launch_counts["kernel_weighting"]))
+        launches[tag.replace("train", "denoise")] = dict(ops.launch_counts)
+    return launches
+
+
+def _gather_phase(ops, tmp, steps=5, spp=8, bs=4):
+    """The gather ablation of the flagship architecture through the train
+    entry point: every sample slot goes through the composed kernel
+    weighting and its weight gradient, none through the fused splat."""
+    data_dir = os.path.join(tmp, "train_data")
+    ckpt = os.path.join(tmp, "ckpt_gather")
+    iface, counts = _run_training(
+        ops, "gather_train", "the flagship architecture with gather kernels "
+        "(--gather), batch %d x %d spp x 128x128 (randomized sample counts)"
+        % (bs, spp),
+        [data_dir, ckpt, "--gather", "--spp", str(spp), "--bs", str(bs),
+         "--ksize", "21"], steps,
+        ["kernel_weighting", "kernel_weighting_dw"],
+        {"kernel_weighting": steps * spp, "kernel_weighting_dw": steps * spp},
+        {"kernel_weighting": spp}, "sbmc")
+    if iface.model.splat or sum(
+            p.numel() for p in iface.model.parameters()) < 30e6:
+        raise AssertionError("the gather run was not the flagship "
+                             "architecture with splat=False")
+    return {"gather_train": counts}
+
+
+def _lbf_phase(ops, tmp, bs=4):
+    """LBF at its default width and window (radius 8): two training steps
+    and one denoise; it runs none of the hand-written kernels."""
+    from sbmc_tpu_torch import denoise
+    from sbmc_tpu_torch.utils import exr
+
+    ckpt = os.path.join(tmp, "ckpt_lbf")
+    _, counts = _run_training(
+        ops, "lbf_train", "LBF (window radius 8), batch %d x 8 spp x 128x128"
+        % bs, [os.path.join(tmp, "train_data"), ckpt, "--lbf_mode", "--spp",
+               "8", "--bs", str(bs)], 2, [], {}, {}, "lbf")
+    out = os.path.join(tmp, "out_lbf", "frame.exr")
+    ops.reset_launch_counts()
+    res = denoise.main(denoise.parse_args(
+        ["--input", os.path.join(tmp, "data"), "--checkpoint", ckpt,
+         "--output", out, "--uniform_tiles", "--tile_size", "160",
+         "--tile_pad", "32", "--spp", "4", "--device", "cuda"]))
+    img = exr.read(out)
+    if img.shape != (256, 256, 3) or not np.isfinite(img).all() \
+            or _nonzero(ops.launch_counts):
+        raise AssertionError("LBF denoise: EXR %s, launches %s" % (
+            img.shape, _nonzero(ops.launch_counts)))
+    print("lbf checkpoint denoised the 256x256 frame in %d tiles: %.2f "
+          "ms/frame; no hand-written kernel launched" % (res[0]["tiles"],
+                                                         res[0]["ms"]))
+    return {"lbf_train": counts, "lbf_denoise": dict(ops.launch_counts)}
 
 
 def main():
@@ -728,14 +1229,19 @@ def main():
     with torch.inference_mode():
         numbers = {"progressive_splat": _kernel_phase(ops, (tile, tile))}
         numbers.update(_bwd_kernel_phase(ops))
+        numbers.update(_composed_kernel_phase(ops))
     checkpoint = os.path.join(ROOT, "weights", "flagship_f16")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _reference_phase(checkpoint)
-    by_path = {"gradient": _gradient_phase(ops, checkpoint)}
+    by_path = {"gradient": _gradient_phase(ops, checkpoint),
+               "gradient_composed": _composed_gradient_phase(ops)}
     with tempfile.TemporaryDirectory() as tmp:
         by_path["denoise"] = _main_phase(ops, checkpoint, tmp, tile, pad)
         by_path.update(_train_phase(ops, tmp))
+        by_path.update(_kpcn_phase(ops, tmp))
+        by_path.update(_gather_phase(ops, tmp))
+        by_path.update(_lbf_phase(ops, tmp))
     _scale_phase(checkpoint)
 
     kernels = []

@@ -1,16 +1,23 @@
 """sbmc_tpu_torch: the PyTorch/CUDA port of sbmc_tpu.
 
-The port runs SBMC inference on an NVIDIA Hopper GPU. Its module tree mirrors
-``sbmc_tpu`` so each counterpart is easy to find; it imports neither JAX nor
-anything of ``sbmc_tpu``.
+The port denoises and trains on an NVIDIA Hopper GPU: the SBMC model and its
+gather-kernel ablation, the KPCN baseline and the LBF learned bilateral
+filter. Its module tree mirrors ``sbmc_tpu`` so each counterpart is easy to
+find; it imports neither JAX nor anything of ``sbmc_tpu``.
 
-- ``ops``: the fused progressive splat, a hand-written CUDA kernel with its
-  plain PyTorch version.
-- ``nn``: weight-normalised conv stacks, the U-Net and the progressive kernel
-  accumulator.
-- ``models``: ``Multisteps`` and the meta-driven factory.
+- ``ops``: the differentiable splat/gather operators, each a hand-written
+  CUDA kernel with its plain PyTorch version: ``progressive_splat_update``
+  (the fused progressive splat and its two backward kernels),
+  ``kernel_weighting`` (forward and weight-gradient kernels) and
+  ``scatter2gather``.
+- ``nn``: conv stacks (weight-normalised or plain, "same" or valid), the
+  U-Net, ``kernel_apply`` and the progressive kernel accumulator.
+- ``models``: ``Multisteps``, ``KPCN``, ``LBF`` and the meta-driven factory.
 - ``params``/``train.checkpointer``: loading the JAX package's checkpoints.
 - ``data``, ``parallel``, ``utils``: ``.bin`` IO, tiling and EXR output.
+- ``train``, ``losses``, ``train_cli``: the training interface, loop and
+  entry point (``python -m sbmc_tpu_torch.train``, with ``--kpcn_mode``,
+  ``--lbf_mode`` and ``--gather``).
 - ``denoise``: the inference entry point
   (``python -m sbmc_tpu_torch.denoise``); ``profile``: device time by
   kernel class.

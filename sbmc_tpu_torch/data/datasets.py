@@ -1,16 +1,15 @@
 """Datasets of ``.bin`` sample tiles (counterpart of
-``sbmc_tpu/data/datasets.py`` in "sbmc" mode).
+``sbmc_tpu/data/datasets.py``).
 
-``TilesDataset`` reads per-sample ``.bin`` tiles from a folder of scene
-folders, selects the feature subsets and log-compresses the radiance
-inputs. ``FullImagesDataset`` assembles all tiles of a scene into
-full-resolution buffers, and ``MultiSampleCountDataset`` concatenates
+``TilesDataset`` reads per-sample ``.bin`` tiles (a ``.txt`` filelist or a
+folder of scene folders), selects the feature subsets and preprocesses them
+into what the models expect: "sbmc" (log-compressed radiance inputs),
+"kpcn" (the pixel statistics of Bako et al. 2017) or "raw" (untouched).
+``FullImagesDataset`` assembles all tiles of a scene into full-resolution
+buffers, and ``MultiSampleCountDataset`` concatenates
 datasets at spp 2..N for variable-sample-count training. Items are dicts of
 numpy arrays; batching is :mod:`sbmc_tpu_torch.data.loader`'s and device
 placement the caller's.
-
-The "kpcn" and "raw" modes and ``.txt`` filelists come with the slice that
-ports KPCN.
 """
 
 import os
@@ -30,29 +29,35 @@ class TilesDataset:
     """Fetches preprocessed sample tiles stored in ``.bin`` files.
 
     Args:
-      path: a root folder of scene folders.
+      path: a ``.txt`` filelist or a root folder of scene folders.
       spp: number of samples per pixel to load (file may contain more).
       load_coords: include the subpixel/lens/time coordinate features.
       load_gbuffer: include depth/normals/albedo/visibility features.
       load_p: include the path-sampling probability features.
       load_ld: include the light-direction features.
       load_bt: include the decoded bounce-type features.
-      mode: must be "sbmc" (log-compressed radiance inputs).
+      mode: "sbmc" (log-compressed radiance inputs), "kpcn" (pixel
+        statistics; 27 input channels per stream, no global features) or
+        "raw" (no transformation). "kpcn" and "raw" load the g-buffer and
+        none of the other optional features, whatever the flags say.
       cache_preprocessed: keep every preprocessed item in RAM, its features
         as float16, so that epochs after the first only stack cached
         arrays.
     """
 
+    FILELIST_MODE = 0
+    FOLDERS_MODE = 1
+
     PATH_DEPTH = bin_format.PATH_DEPTH
     SBMC_MODE = "sbmc"
+    RAW_MODE = "raw"
     KPCN_MODE = "kpcn"
 
     def __init__(self, path, spp=None, load_coords=True, load_gbuffer=True,
                  load_p=True, load_ld=True, load_bt=True, mode="sbmc",
                  cache_preprocessed=False):
-        if mode != self.SBMC_MODE:
-            raise NotImplementedError(
-                f"dataset mode {mode!r} is not ported yet (slice 3: KPCN)")
+        if mode not in (self.SBMC_MODE, self.RAW_MODE, self.KPCN_MODE):
+            raise RuntimeError("Unknown dataset loading mode %s" % mode)
         self.mode = mode
         self.cache_preprocessed = cache_preprocessed
         self._cache = {}
@@ -61,6 +66,12 @@ class TilesDataset:
         self.load_p = load_p
         self.load_ld = load_ld
         self.load_bt = load_bt
+        if self.mode != self.SBMC_MODE:
+            self.load_coords = False
+            self.load_gbuffer = True
+            self.load_p = False
+            self.load_ld = False
+            self.load_bt = False
 
         self._init_filelist(path)
         self.image_channels = list(bin_format.PIXEL_CHANNEL_LABELS)
@@ -69,19 +80,29 @@ class TilesDataset:
         self._init_metadata(spp)
 
     def _init_filelist(self, path):
-        if not os.path.isdir(path):
+        if os.path.splitext(path)[-1] == ".txt":
+            self.io_mode = self.FILELIST_MODE
+            self.root = os.path.dirname(path)
+            with open(path) as fid:
+                self.files = [os.path.join(self.root, line.strip())
+                              for line in fid if line.strip()]
+            self.scenes = None
+            self.indices = None
+        elif os.path.isdir(path):
+            self.io_mode = self.FOLDERS_MODE
+            self.root = path
+            scenes = sorted(os.path.join(path, d) for d in os.listdir(path))
+            self.scenes = [s for s in scenes if os.path.isdir(s)]
+            self.files = []
+            self.indices = {}
+            for s in self.scenes:
+                beg = len(self.files)
+                for f in sorted(os.listdir(s)):
+                    if os.path.splitext(f)[-1] == ".bin":
+                        self.files.append(os.path.join(s, f))
+                self.indices[s] = (beg, len(self.files))
+        else:
             raise RuntimeError("Incorrect data path.")
-        self.root = path
-        scenes = sorted(os.path.join(path, d) for d in os.listdir(path))
-        self.scenes = [s for s in scenes if os.path.isdir(s)]
-        self.files = []
-        self.indices = {}
-        for s in self.scenes:
-            beg = len(self.files)
-            for f in sorted(os.listdir(s)):
-                if os.path.splitext(f)[-1] == ".bin":
-                    self.files.append(os.path.join(s, f))
-            self.indices[s] = (beg, len(self.files))
         if not self.files:
             raise RuntimeError("Empty dataset")
 
@@ -137,11 +158,11 @@ class TilesDataset:
 
     @property
     def num_features(self):
-        return len(self.labels)
+        return 27 if self.mode == self.KPCN_MODE else len(self.labels)
 
     @property
     def num_global_features(self):
-        return len(self.glabels)
+        return 0 if self.mode == self.KPCN_MODE else len(self.glabels)
 
     def __repr__(self):
         return ("TilesDataset(v%d, %dx%d image, tile %d, %d/%d spp, "
@@ -153,9 +174,14 @@ class TilesDataset:
     def __getitem__(self, idx):
         if self.cache_preprocessed and idx in self._cache:
             return self._cache[idx]
-        sample = self._preprocess_standard(self._get_raw_data(idx))
+        sample = self._get_raw_data(idx)
+        if self.mode == self.KPCN_MODE:
+            sample = self._preprocess_kpcn(sample)
+        elif self.mode == self.SBMC_MODE:
+            sample = self._preprocess_standard(sample)
         if self.cache_preprocessed:
-            if sample["features"].dtype == np.float32:
+            if "features" in sample \
+                    and sample["features"].dtype == np.float32:
                 sample["features"] = sample["features"].astype(np.float16)
             self._cache[idx] = sample
         return sample
@@ -235,12 +261,85 @@ class TilesDataset:
         sample["features"] = feats
         return sample
 
+    def _preprocess_kpcn(self, sample):
+        """Build the pixel-statistics inputs of Bako et al. 2017: per
+        stream the colour, the gradients of normals, depth, albedo and
+        colour, and the variances of all five (27 channels)."""
+        src_f = sample["features"]
+        spp = src_f.shape[0]
+
+        idx = self.labels.index("depth")
+        depth = src_f[:, idx:idx + 1].mean(0)
+        depth_v = src_f[:, idx:idx + 1].var(0)
+        max_depth = depth.max()
+        if max_depth > 0:
+            depth /= max_depth
+            depth_v /= max_depth * max_depth * spp
+        depth = np.clip(depth, 0, 1)
+
+        idx = self.labels.index("albedo_r")
+        albedo = src_f[:, idx:idx + 3].mean(0) + 0.00316
+        albedo_v = src_f[:, idx:idx + 3].var(0).mean(0, keepdims=True) / spp
+        albedo_sqr = (albedo * albedo).mean(0, keepdims=True)
+
+        idx = self.labels.index("diffuse_r")
+        diffuse = np.maximum(src_f[:, idx:idx + 3].mean(0), 0)
+        diffuse_v = src_f[:, idx:idx + 3].var(0).mean(0, keepdims=True) / spp
+
+        idx = self.labels.index("specular_r")
+        specular = np.maximum(src_f[:, idx:idx + 3].mean(0), 0)
+        specular_v = src_f[:, idx:idx + 3].var(0).mean(0, keepdims=True) / spp
+
+        diffuse = diffuse / albedo
+        diffuse_v = diffuse_v / albedo_sqr
+
+        specular = np.log(1 + specular)
+        specular_v = specular_v / (
+            ((1 + specular) * (1 + specular)).mean(0, keepdims=True) + 1e-5)
+
+        idx = self.labels.index("normal_x")
+        normals = src_f[:, idx:idx + 3].mean(0)
+        normals_v = src_f[:, idx:idx + 3].var(0).mean(0, keepdims=True) / spp
+
+        normals_g = self._gradients(normals)
+        depth_g = self._gradients(depth)
+        albedo_g = self._gradients(albedo)
+        specular_g = self._gradients(specular)
+        diffuse_g = self._gradients(diffuse)
+
+        out = {
+            "kpcn_diffuse_in": np.concatenate(
+                [diffuse, normals_g, normals_v, depth_g, depth_v, albedo_g,
+                 albedo_v, diffuse_g, diffuse_v], 0),
+            "kpcn_specular_in": np.concatenate(
+                [specular, normals_g, normals_v, depth_g, depth_v, albedo_g,
+                 albedo_v, specular_g, specular_v], 0),
+            "kpcn_diffuse_buffer": diffuse,
+            "kpcn_specular_buffer": specular,
+            "kpcn_albedo": albedo,
+        }
+        for k in ["target_image", "low_spp", "spp", "block_x", "block_y"]:
+            out[k] = sample[k]
+        return out
+
+    @staticmethod
+    def _gradients(buf):
+        """Horizontal and vertical forward differences, zero-padded at the
+        leading edge."""
+        dy = buf[:, 1:] - buf[:, :-1]
+        dx = buf[:, :, 1:] - buf[:, :, :-1]
+        dx = np.pad(dx, [[0, 0], [0, 0], [1, 0]], mode="constant")
+        dy = np.pad(dy, [[0, 0], [1, 0], [0, 0]], mode="constant")
+        return np.concatenate([dx, dy], 0)
+
 
 class FullImagesDataset:
     """Assembles all tiles of each scene folder into full-res buffers."""
 
     def __init__(self, *args, **kwargs):
         self.tiles_dset = TilesDataset(*args, **kwargs)
+        if self.tiles_dset.io_mode != TilesDataset.FOLDERS_MODE:
+            raise RuntimeError("TilesDataset should be in folder mode.")
         self.scenes = self.tiles_dset.scenes
 
     def __len__(self):

@@ -4,13 +4,13 @@
     python -m sbmc_tpu_torch.denoise --input DATA_DIR \\
         --checkpoint weights/flagship_f16 --output out.exr --uniform_tiles
 
-The model and dataset configuration come from the checkpoint's meta, so no
-model flags are needed. A frame is processed in overlapping tiles, one tile
-on the device at a time: ``--uniform_tiles`` stacks equal-size tiles (the
-frame zero-padded to the grid) and ships the feature stacks to the device
-as float16; the default path cuts ragged tiles. Runs on ``--device cuda``
-unless told otherwise, and raises when that device is missing. Times are
-fenced with ``torch.cuda.synchronize()``.
+The model (SBMC, KPCN or LBF) and the dataset configuration come from the
+checkpoint's meta, so no model flags are needed. A frame is processed in
+overlapping tiles, one tile on the device at a time: ``--uniform_tiles``
+stacks equal-size tiles (the frame zero-padded to the grid) and ships the
+feature stacks to the device as float16; the default path cuts ragged
+tiles. Runs on ``--device cuda`` unless told otherwise, and raises when that
+device is missing. Times are fenced with ``torch.cuda.synchronize()``.
 """
 
 import argparse
@@ -68,7 +68,8 @@ def _denoise_uniform(model, batch, args, device):
         for k in stacked:
             if "features" in k or k.endswith("_in"):
                 stacked[k] = stacked[k].astype(np.float16)
-    n_tiles = stacked["features"].shape[0]
+    n_tiles = stacked["features" if "features" in stacked
+                      else "kpcn_diffuse_in"].shape[0]
     dev = _to_device(stacked, device)
     _sync(device)
     t0 = time.perf_counter()
@@ -126,7 +127,8 @@ def main(args):
     if args.spp:
         data_params["spp"] = args.spp
     data = FullImagesDataset(args.input, **data_params)
-    log.info("Denoising input with %d spp (SBMC) on %s", data.spp, device)
+    log.info("Denoising input with %d spp (%s) on %s", data.spp,
+             meta.get("arch", "sbmc").upper(), device)
     log.info("setup time %.1f ms", (time.perf_counter() - start) * 1000)
 
     results = []

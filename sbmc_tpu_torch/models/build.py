@@ -1,27 +1,25 @@
 """Model construction from checkpoint metadata, so inference needs no flags
 (counterpart of ``sbmc_tpu/models/build.py``)."""
 
+from sbmc_tpu_torch.models.kpcn import KPCN
+from sbmc_tpu_torch.models.lbf import LBF
 from sbmc_tpu_torch.models.multisteps import Multisteps
 
 __all__ = ["build_model", "model_meta"]
 
 
 def build_model(meta):
-    """Instantiate the model described by a checkpoint ``meta`` dict.
-
-    Only the SBMC ``Multisteps`` model is ported; KPCN and LBF come with
-    slice 3 and raise ``NotImplementedError`` here.
-    """
+    """Instantiate the model described by a checkpoint ``meta`` dict
+    (``arch``: "sbmc", "kpcn" or "lbf"); raises ``ValueError`` on another
+    arch."""
     params = dict(meta["model_params"])
     arch = meta.get("arch")
     if arch is None:  # round-1 checkpoints carry only kpcn_mode
         arch = "kpcn" if meta.get("kpcn_mode", False) else "sbmc"
-    if arch in ("kpcn", "lbf"):
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (slice 3: KPCN and LBF)")
-    if arch != "sbmc":
+    models = {"sbmc": Multisteps, "kpcn": KPCN, "lbf": LBF}
+    if arch not in models:
         raise ValueError(f"unknown arch {arch!r}")
-    return Multisteps(**params)
+    return models[arch](**params)
 
 
 def model_meta(kpcn_mode, model_params, data_params, arch=None):

@@ -3,7 +3,9 @@
 
 ``Multisteps`` alternates per-sample 1x1-conv embeddings with a pixel-space
 U-Net for ``nsteps`` rounds, then regresses a ``ksize x ksize`` splat kernel
-per sample and accumulates the samples with the fused progressive splat.
+per sample and accumulates the samples with the fused progressive splat
+(or, with ``splat=False``, a gather kernel per sample, accumulated through
+the composed kernel-weighting op).
 A Python loop over samples takes the place of ``nn.scan``: the state
 ``(sum_r, sum_w, max_w)`` stays O(1) in the sample count.
 
@@ -57,7 +59,7 @@ class Multisteps(nn.Module):
       width: channels per conv layer.
       embedding_width: per-sample embedding channels.
       ksize: spatial extent of the square splat kernel (odd, >= 3).
-      splat: must be True in this slice (gather kernels come with slice 3).
+      splat: if False, predicts gather kernels instead (ablation).
       nsteps: number of sample/pixel coordination steps.
       pixel: average the samples into a 1-spp image first (ablation).
       eps: normaliser epsilon of ``sum_r / (sum_w + eps)``.

@@ -1,5 +1,8 @@
 from sbmc_tpu_torch.nn.kernel_apply import (  # noqa: F401
+    KernelApply,
+    ProgressiveKernelApply,
     ProgressiveState,
+    kernel_apply,
     progressive_init,
     progressive_kernel_apply,
 )

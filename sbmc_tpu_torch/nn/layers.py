@@ -54,26 +54,34 @@ def _activation(name):
 
 
 class WNConv2D(nn.Module):
-    """Weight-normalised 2D convolution with stride 1 and "same" padding
-    (the only geometry the SBMC model uses), NCHW.
+    """2D convolution with optional weight normalisation, stride 1, NCHW;
+    "same" padding with ``pad``, else a valid convolution that shrinks the
+    image by ``ksize - 1``.
 
-    Parameters: ``v`` ``[out, in, k, k]``, ``g`` ``[out]`` and ``bias``
-    ``[out]``, all float32. ``dtype`` is the compute dtype (None: the
-    input's).
+    Parameters: ``v`` ``[out, in, k, k]``, ``g`` ``[out]`` (only with
+    ``weight_norm``) and ``bias`` ``[out]``, all float32; without weight
+    normalisation ``v`` is the kernel itself. ``dtype`` is the compute
+    dtype (None: the input's).
     """
 
     def __init__(self, in_features, features, ksize,
-                 init_gain_nonlinearity="linear", dtype=None):
+                 init_gain_nonlinearity="linear", dtype=None, pad=True,
+                 weight_norm=True):
         super().__init__()
         self.ksize = ksize
         self.dtype = dtype
+        self.pad = pad
+        self.weight_norm = weight_norm
         v = torch.empty(features, in_features, ksize, ksize)
         nn.init.xavier_uniform_(v, gain=_gain(init_gain_nonlinearity))
         self.v = nn.Parameter(v)
-        self.g = nn.Parameter(v.flatten(1).norm(dim=1))
+        if weight_norm:
+            self.g = nn.Parameter(v.flatten(1).norm(dim=1))
         self.bias = nn.Parameter(torch.zeros(features))
 
     def weight(self):
+        if not self.weight_norm:
+            return self.v
         norm = self.v.flatten(1).norm(dim=1) + 1e-12
         return self.v * (self.g / norm)[:, None, None, None]
 
@@ -82,18 +90,21 @@ class WNConv2D(nn.Module):
         if self.dtype is not None:
             x = x.to(self.dtype)
             kernel = kernel.to(self.dtype)
-        y = F.conv2d(x, kernel, padding=(self.ksize - 1) // 2)
+        y = F.conv2d(x, kernel,
+                     padding=(self.ksize - 1) // 2 if self.pad else 0)
         return y + self.bias.to(y.dtype)[:, None, None]
 
 
 class ConvChain(nn.Module):
     """``depth - 1`` conv + activation blocks at ``width`` channels, then a
     prediction conv to ``noutputs`` channels with ``output_type`` applied
-    unless it is linear. Module names follow the flax keys (``layer_0``,
-    ..., ``prediction``)."""
+    unless it is linear; all layers share ``ksize``, ``pad`` and
+    ``weight_norm``. Module names follow the flax keys (``layer_0``, ...,
+    ``prediction``)."""
 
     def __init__(self, in_features, noutputs, ksize=3, width=64, depth=3,
-                 output_type="linear", activation="relu", dtype=None):
+                 output_type="linear", activation="relu", dtype=None,
+                 pad=True, weight_norm=True):
         super().__init__()
         if depth <= 0:
             raise ValueError("negative network depth.")
@@ -108,13 +119,13 @@ class ConvChain(nn.Module):
         for d in range(depth - 1):
             self.add_module(f"layer_{d}", WNConv2D(
                 cin, width, ksize, init_gain_nonlinearity=activation,
-                dtype=dtype))
+                dtype=dtype, pad=pad, weight_norm=weight_norm))
             cin = width
         out_gain = "relu" if output_type in ("elu", "softplus") \
             else output_type
         self.prediction = WNConv2D(
             cin, noutputs, ksize, init_gain_nonlinearity=out_gain,
-            dtype=dtype)
+            dtype=dtype, pad=pad, weight_norm=weight_norm)
 
     def forward(self, x):
         for d in range(self.depth - 1):

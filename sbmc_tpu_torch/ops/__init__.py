@@ -1,7 +1,17 @@
 """Splat/gather operators: device dispatch between the hand-written CUDA
 kernels and their plain PyTorch versions.
 
-``progressive_splat_update`` is a ``torch.autograd.Function``. For CUDA
+``kernel_weighting`` and ``scatter2gather`` are ``torch.autograd.Function``s
+mirroring the ``custom_vjp``s of ``sbmc_tpu.ops``. For CUDA tensors
+``kernel_weighting`` launches ``kw_fwd`` of ``csrc/kernel_weighting.cu`` (the
+port of the Pallas kernel ``_kw_fwd_kernel``); its backward gives ``d_data``
+as the forward kernel applied to the cotangent with the weights transposed
+by ``csrc/scatter2gather.cu`` (the port of ``_s2g_kernel``), and
+``d_weights`` from ``kw_dw`` (the port of ``_kw_dw_kernel``), each only when
+its gradient is asked for. ``scatter2gather`` is its own adjoint: its
+backward is the same kernel on the cotangent.
+
+``progressive_splat_update`` is a ``torch.autograd.Function`` too. For CUDA
 tensors its forward launches ``csrc/progressive_splat.cu`` (the port of the
 Pallas kernel ``_psf_kernel``) and its backward launches the two kernels of
 ``csrc/progressive_splat_bwd.cu`` (the ports of ``_psb_ddata_kernel`` and
@@ -17,10 +27,18 @@ a zero gradient and the new max is not differentiable.
 import torch
 
 from sbmc_tpu_torch.ops import reference
-from sbmc_tpu_torch.ops.reference import (progressive_splat_bwd_ref,
-                                          progressive_splat_update_ref)
+from sbmc_tpu_torch.ops.reference import (kernel_weighting_dw_ref,
+                                          kernel_weighting_ref,
+                                          progressive_splat_bwd_ref,
+                                          progressive_splat_update_ref,
+                                          scatter2gather_ref)
 
 __all__ = [
+    "kernel_weighting",
+    "scatter2gather",
+    "kernel_weighting_ref",
+    "kernel_weighting_dw_ref",
+    "scatter2gather_ref",
     "progressive_splat_update",
     "progressive_splat_update_ref",
     "progressive_splat_bwd_ref",
@@ -32,7 +50,8 @@ __all__ = [
 #: Kernel launches since the last reset, by kernel name. Each wrapper adds
 #: one where it launches its kernel, and nowhere else.
 launch_counts = {"progressive_splat": 0, "progressive_splat_ddata": 0,
-                 "progressive_splat_dlogits": 0}
+                 "progressive_splat_dlogits": 0, "kernel_weighting": 0,
+                 "kernel_weighting_dw": 0, "scatter2gather": 0}
 
 _CHANNELS = (2, 3)  # the kernels' template set
 
@@ -40,6 +59,42 @@ _CHANNELS = (2, 3)  # the kernels' template set
 def reset_launch_counts():
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def kernel_weighting(data, weights):
+    """Locally-weighted sum of ``data`` with per-pixel kernels
+    (differentiable in both arguments).
+
+    Args:
+      data: ``[bs, c, h, w]`` float32 values.
+      weights: ``[bs, k2, h, w]`` kernels, float32 or bfloat16; tap ``i``
+        unflattens to ``(dy, dx) = divmod(i, k)`` and ``output[n, c, y, x] =
+        sum_i weights[n, i, y, x] * data[n, c, y + dy - o, x + dx - o]``
+        with zero outside the image.
+
+    Returns:
+      ``(output [bs, c, h, w], sum_w [bs, h, w])`` in float32; ``sum_w``
+      sums every tap. The gradient to bfloat16 weights is computed in
+      float32 and rounded to bfloat16.
+    """
+    return _KernelWeighting.apply(data, weights)
+
+
+def scatter2gather(weights):
+    """Transpose splat kernels into gather kernels, and back
+    (differentiable; self-adjoint).
+
+    The weight at ``(y, x)`` for offset ``(dy, dx)`` moves to
+    ``(y + dy - o, x + dx - o)`` at the flipped tap ``(k-1-dy, k-1-dx)``;
+    what would come from outside the image is 0.
+
+    Args:
+      weights: ``[bs, k2, h, w]``, float32 or bfloat16.
+
+    Returns:
+      ``[bs, k2, h, w]`` transposed kernels of the same dtype.
+    """
+    return _Scatter2Gather.apply(weights)
 
 
 def progressive_splat_update(data, klogits, sum_r, sum_w, max_w):
@@ -68,6 +123,61 @@ def _device_of(*tensors):
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+def _on_cpu(*tensors):
+    return _device_of(*tensors).type == "cpu"
+
+
+def _kw_fwd(data, weights):
+    return (kernel_weighting_ref if _on_cpu(data, weights)
+            else _kernel_weighting_cuda)(data, weights)
+
+
+def _s2g(weights):
+    return (scatter2gather_ref if _on_cpu(weights)
+            else _scatter2gather_cuda)(weights)
+
+
+class _KernelWeighting(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, data, weights):
+        ctx.save_for_backward(data, weights)
+        return _kw_fwd(data, weights)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, d_output, d_sum_w):
+        data, weights = ctx.saved_tensors
+        need_data, need_weights = ctx.needs_input_grad
+        # Cotangents may arrive strided or as expanded zeros.
+        d_output = d_output.contiguous()
+        d_sum_w = d_sum_w.contiguous()
+        d_data = d_weights = None
+        if need_data:
+            # The forward applied to the cotangent with the kernels
+            # transposed to the other form.
+            d_data = _kw_fwd(d_output, _s2g(weights))[0]
+        if need_weights:
+            dw = (kernel_weighting_dw_ref
+                  if _on_cpu(data, d_output, d_sum_w)
+                  else _kernel_weighting_dw_cuda)
+            d_weights = dw(data, d_output, d_sum_w,
+                           reference.ksize_of(weights)).to(weights.dtype)
+        return d_data, d_weights
+
+
+class _Scatter2Gather(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, weights):
+        return _s2g(weights)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, d_out):
+        return _s2g(d_out.contiguous())
 
 
 class _ProgressiveSplat(torch.autograd.Function):
@@ -199,3 +309,100 @@ def _dlogits_cuda(data, klogits, new_max, d_r, d_w):
             d_r.data_ptr(), d_w.data_ptr(), d_logits.data_ptr(), bs, c, h, w,
             k)
     return d_logits
+
+
+def _check_planes(name, t, dtypes):
+    if t.dtype not in dtypes:
+        raise TypeError("%s must be %s, got %s" % (
+            name, " or ".join(str(d).replace("torch.", "") for d in dtypes),
+            t.dtype))
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_weights(weights):
+    """Checks a ``[bs, k2, h, w]`` tap tensor; returns ``(bs, h, w, k)``."""
+    if weights.dim() != 4:
+        raise ValueError("weights must be [bs, k2, h, w], got "
+                         f"{tuple(weights.shape)}")
+    k = reference.ksize_of(weights)
+    _check_planes("weights", weights, (torch.float32, torch.bfloat16))
+    bs, _, h, w = weights.shape
+    if bs > 65535:
+        raise ValueError(f"batch {bs} exceeds the kernel's grid limit 65535")
+    return bs, h, w, k
+
+
+def _check_data(name, t, like=None):
+    """Checks a float32 ``[bs, c, h, w]`` tensor of 2 or 3 channels; its
+    batch and image sizes (and channels, for a 4-tuple) against ``like``."""
+    if t.dim() != 4:
+        raise ValueError(f"{name} must be [bs, c, h, w], got "
+                         f"{tuple(t.shape)}")
+    if like is not None:
+        want = tuple(like) if len(like) == 4 else \
+            (like[0], t.shape[1]) + tuple(like[1:])
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{want}")
+    _check_planes(name, t, (torch.float32,))
+    if t.shape[1] not in _CHANNELS:
+        raise ValueError(f"the kernel-weighting kernels take {_CHANNELS} "
+                         f"channels, got {t.shape[1]}")
+
+
+def _kernel_weighting_cuda(data, weights):
+    """Kernel weighting on the card (kernel ``kw_fwd``); the arguments and
+    results are those of ``reference.kernel_weighting_ref``."""
+    from sbmc_tpu_torch.ops import _build
+    _device_of(data, weights)
+    bs, h, w, k = _check_weights(weights)
+    _check_data("data", data, (bs, h, w))
+    c = data.shape[1]
+    lib = _build.load_cuda()
+    out = torch.empty_like(data)
+    sum_w = torch.empty((bs, h, w), dtype=torch.float32, device=data.device)
+    _launch("kernel_weighting", lib.sbmc_kernel_weighting, data.device,
+            data.data_ptr(), weights.data_ptr(),
+            int(weights.dtype == torch.bfloat16), out.data_ptr(),
+            sum_w.data_ptr(), bs, c, h, w, k)
+    return out, sum_w
+
+
+def _kernel_weighting_dw_cuda(data, d_output, d_sum_w, k):
+    """Gradient of kernel weighting to its weights on the card (kernel
+    ``kw_dw``), float32; the arguments are those of
+    ``reference.kernel_weighting_dw_ref``."""
+    from sbmc_tpu_torch.ops import _build
+    _device_of(data, d_output, d_sum_w)
+    _check_data("data", data)
+    bs, c, h, w = data.shape
+    _check_data("d_output", d_output, (bs, c, h, w))
+    if tuple(d_sum_w.shape) != (bs, h, w):
+        raise ValueError(f"d_sum_w has shape {tuple(d_sum_w.shape)}, "
+                         f"expected {(bs, h, w)}")
+    _check_planes("d_sum_w", d_sum_w, (torch.float32,))
+    if k < 1 or k % 2 == 0:
+        raise ValueError("kernel size must be odd")
+    if bs > 65535:
+        raise ValueError(f"batch {bs} exceeds the kernel's grid limit 65535")
+    lib = _build.load_cuda()
+    d_w = torch.empty((bs, k * k, h, w), dtype=torch.float32,
+                      device=data.device)
+    _launch("kernel_weighting_dw", lib.sbmc_kernel_weighting_dw, data.device,
+            data.data_ptr(), d_output.data_ptr(), d_sum_w.data_ptr(),
+            d_w.data_ptr(), bs, c, h, w, k)
+    return d_w
+
+
+def _scatter2gather_cuda(weights):
+    """scatter2gather on the card (kernel ``s2g``), in the input's dtype."""
+    from sbmc_tpu_torch.ops import _build
+    _device_of(weights)
+    bs, h, w, k = _check_weights(weights)
+    lib = _build.load_cuda()
+    out = torch.empty_like(weights)
+    _launch("scatter2gather", lib.sbmc_scatter2gather, weights.device,
+            weights.data_ptr(), weights.element_size(), out.data_ptr(), bs,
+            h, w, k)
+    return out

@@ -37,6 +37,14 @@ _DDATA_ARGS = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I]
 #: sbmc_progressive_splat_dlogits(data, logits, logits_bf16, new_max, d_r,
 #:                                d_w, d_logits, bs, c, h, w, k[, stream])
 _DLOGITS_ARGS = [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I]
+#: sbmc_kernel_weighting(data, weights, weights_bf16, out, sum_w,
+#:                       bs, c, h, w, k[, stream])
+_KW_ARGS = [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I]
+#: sbmc_kernel_weighting_dw(data, d_out, d_sum_w, d_w,
+#:                          bs, c, h, w, k[, stream])
+_KW_DW_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I]
+#: sbmc_scatter2gather(weights, itemsize, out, bs, h, w, k[, stream])
+_S2G_ARGS = [_P, _I, _P, _I, _I, _I, _I]
 
 #: source -> {exported function: argument types}; the CUDA entry points take
 #: the stream as one more pointer.
@@ -45,12 +53,20 @@ _CUDA = {
     "progressive_splat_bwd.cu": {
         "sbmc_progressive_splat_ddata": _DDATA_ARGS + [_P],
         "sbmc_progressive_splat_dlogits": _DLOGITS_ARGS + [_P]},
+    "kernel_weighting.cu": {
+        "sbmc_kernel_weighting": _KW_ARGS + [_P],
+        "sbmc_kernel_weighting_dw": _KW_DW_ARGS + [_P]},
+    "scatter2gather.cu": {"sbmc_scatter2gather": _S2G_ARGS + [_P]},
 }
 _HOST = {
     "progressive_splat_host.cpp": {"sbmc_progressive_splat_host": _PSF_ARGS},
     "progressive_splat_bwd_host.cpp": {
         "sbmc_progressive_splat_ddata_host": _DDATA_ARGS,
         "sbmc_progressive_splat_dlogits_host": _DLOGITS_ARGS},
+    "kernel_weighting_host.cpp": {
+        "sbmc_kernel_weighting_host": _KW_ARGS,
+        "sbmc_kernel_weighting_dw_host": _KW_DW_ARGS},
+    "scatter2gather_host.cpp": {"sbmc_scatter2gather_host": _S2G_ARGS},
 }
 
 _lock = threading.Lock()
@@ -123,8 +139,8 @@ def _build(compiler, table, flags):
 
 def load_cuda():
     """Build (once) and load the CUDA kernels; returns a namespace holding
-    ``sbmc_progressive_splat``, ``sbmc_progressive_splat_ddata`` and
-    ``sbmc_progressive_splat_dlogits``."""
+    every entry point of ``_CUDA`` (``sbmc_progressive_splat``,
+    ``sbmc_kernel_weighting``, ``sbmc_scatter2gather``, ...)."""
     with _lock:
         if "cuda" not in _loaded:
             _loaded["cuda"] = _build(_nvcc(), _CUDA, NVCC_FLAGS)

@@ -17,7 +17,9 @@ Conventions (spatial-last, as in the JAX package):
   is 0 (not -inf): it adds ``exp(0 - m)`` to ``sum_w`` and nothing to
   ``sum_r``.
 
-Logits may be bfloat16; weighting and accumulation are float32.
+Logits may be bfloat16; weighting and accumulation are float32 (float64
+inputs stay float64, which is what lets ``torch.autograd.gradcheck`` run on
+these versions).
 """
 
 import torch
@@ -31,6 +33,7 @@ __all__ = [
     "kernel_weighting_exp_ref",
     "progressive_splat_update_ref",
     "kernel_weighting_dw_ref",
+    "kernel_weighting_bwd_ref",
     "progressive_splat_ddata_ref",
     "progressive_splat_dlogits_ref",
     "progressive_splat_bwd_ref",
@@ -47,6 +50,11 @@ def ksize_of(weights):
     if k % 2 == 0:
         raise ValueError("kernel size must be odd")
     return k
+
+
+def _wide(t):
+    """``t`` in the accumulation type: float32, or float64 if it is that."""
+    return t if t.dtype == torch.float64 else t.float()
 
 
 def extract_patches(data, k):
@@ -66,8 +74,8 @@ def kernel_weighting_ref(data, weights):
     k = ksize_of(weights)
     h, w = data.shape[-2:]
     o = (k - 1) // 2
-    data = data.float()
-    weights = weights.float()
+    data = _wide(data)
+    weights = _wide(weights)
     dp = F.pad(data, (o, o, o, o))
     out = torch.zeros_like(data)
     for i in range(k * k):
@@ -130,14 +138,27 @@ def kernel_weighting_dw_ref(data, d_output, d_sum_w, k):
     :func:`kernel_weighting_ref`."""
     bs, _, h, w = data.shape
     o = (k - 1) // 2
-    dp = F.pad(data.float(), (o, o, o, o))
-    out = torch.empty((bs, k * k, h, w), dtype=torch.float32,
-                      device=data.device)
+    dp = F.pad(_wide(data), (o, o, o, o))
+    out = torch.empty((bs, k * k, h, w), dtype=dp.dtype, device=data.device)
     for i in range(k * k):
         dy, dx = divmod(i, k)
         out[:, i] = (dp[:, :, dy:dy + h, dx:dx + w] * d_output).sum(1) \
             + d_sum_w
     return out
+
+
+def kernel_weighting_bwd_ref(data, weights, d_output, d_sum_w):
+    """Backward of :func:`kernel_weighting_ref`, composed exactly as the
+    ``xla`` branch of ``sbmc_tpu.ops._kernel_weighting_bwd``: ``d_data`` is
+    the forward applied to the cotangent with the kernels transposed, and
+    ``d_weights`` (float32) the weights' gradient above.
+
+    Returns:
+      ``(d_data [bs, c, h, w], d_weights [bs, k2, h, w])``.
+    """
+    d_data = kernel_weighting_ref(d_output, scatter2gather_ref(weights))[0]
+    return d_data, kernel_weighting_dw_ref(data, d_output, d_sum_w,
+                                           ksize_of(weights))
 
 
 def _splat_weights(klogits, new_max):

@@ -9,7 +9,8 @@ alone: flax stores an ndarray as msgpack ext type 1 holding
 
 ``load_jax_params`` maps the flax parameter paths onto the port's module
 names (they are the same path with ``/`` for ``.``), transposes conv
-kernels from HWIO to OIHW, upcasts to float32, and raises on a missing or
+kernels (``v`` of the conv chains, ``kernel`` of a plain flax ``nn.Conv``)
+from HWIO to OIHW, upcasts to float32, and raises on a missing or
 extra leaf or a wrong shape, as ``Checkpointer._check_compat`` does in the
 JAX package. ``export_jax_params`` is its inverse, and ``pack_msgpack``
 writes what ``read_msgpack`` reads, so a checkpoint written by either
@@ -31,6 +32,7 @@ __all__ = ["read_msgpack", "pack_msgpack", "flatten", "unflatten",
            "load_adam_state"]
 
 _EXT_NDARRAY = 1
+_CONV_KERNELS = ("v", "kernel")  # 4-D leaves stored HWIO by flax
 
 
 def _ext_hook(code, data):
@@ -92,7 +94,7 @@ def _to_flax(path, t):
     kernels OIHW -> HWIO). Always a copy: the leaf must not change when the
     model trains on."""
     arr = t.detach().to("cpu", torch.float32).numpy()
-    if path.rsplit("/", 1)[-1] == "v" and arr.ndim == 4:
+    if path.rsplit("/", 1)[-1] in _CONV_KERNELS and arr.ndim == 4:
         arr = arr.transpose(2, 3, 1, 0)
     return np.array(arr, dtype=np.float32, order="C", copy=True)
 
@@ -101,7 +103,7 @@ def _from_flax(path, arr, like):
     """The flax leaf at ``path`` in the layout of parameter ``like``; raises
     on a shape that does not match."""
     arr = np.asarray(arr)
-    if path.rsplit("/", 1)[-1] == "v" and arr.ndim == 4:
+    if path.rsplit("/", 1)[-1] in _CONV_KERNELS and arr.ndim == 4:
         arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
     if tuple(arr.shape) != tuple(like.shape):
         raise ValueError("checkpoint shape mismatch at %s: model %s vs "

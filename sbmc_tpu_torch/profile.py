@@ -3,7 +3,7 @@
     python -m sbmc_tpu_torch.profile [--checkpoint weights/flagship_f16] \\
         [--size 1080x2048] [--spp 4]
     python -m sbmc_tpu_torch.profile --train [--bf16] [--size 128x128] \\
-        [--spp 8] [--bs 4]
+        [--spp 8] [--bs 4] [--arch sbmc|gather|kpcn|lbf]
 
 Builds the checkpoint's model on the GPU, runs one tile of random inputs
 once to warm up, then once under ``torch.profiler``, and prints the wall
@@ -14,6 +14,11 @@ profiled unit is one optimization step of ``DenoiserInterface`` (forward,
 loss, backward, clip, Adam) at the checkpoint's architecture on a random
 batch with random sample masks; ``--bf16`` runs the conv stacks in bfloat16
 as ``python -m sbmc_tpu_torch.train --bf16`` does, else they are float32.
+``--arch`` picks the model as the train entry point's ``--gather``,
+``--kpcn_mode`` and ``--lbf_mode`` do: the checkpoint's architecture with
+gather kernels, KPCN at its published width on the 27-channel pixel
+statistics, or LBF at its defaults; other than ``sbmc`` they start from
+freshly initialised weights, with or without ``--train``.
 """
 
 import argparse
@@ -22,6 +27,7 @@ import time
 import torch
 
 from sbmc_tpu_torch.denoise import load_model
+from sbmc_tpu_torch.models import KPCN, LBF
 from sbmc_tpu_torch.models.build import build_model
 from sbmc_tpu_torch.train.checkpointer import Checkpointer
 from sbmc_tpu_torch.train.interface import DenoiserInterface
@@ -42,6 +48,9 @@ def classify(name):
         return "splat kernel"
     if "psb_ddata" in low or "psb_dlogits" in low:
         return "splat backward kernels"
+    if "kw_fwd_kernel" in low or "kw_dw_kernel" in low \
+            or "s2g_kernel" in low:
+        return "kernel-weighting kernels"
     if "multi_tensor" in low or "foreach" in low:
         return "optimizer/clip (foreach)"
     if any(k in low for k in _CONV):
@@ -56,6 +65,19 @@ def _device_us(evt):
         if hasattr(evt, attr):
             return float(getattr(evt, attr))
     return 0.0
+
+
+def _random_kpcn_batch(dev, bs, h, w, train):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batch = {k: torch.rand(bs, 27 if k.endswith("_in") else 3, h, w,
+                           device=dev, generator=gen)
+             for k in ("kpcn_diffuse_in", "kpcn_specular_in",
+                       "kpcn_diffuse_buffer", "kpcn_specular_buffer",
+                       "kpcn_albedo")}
+    if train:
+        batch["target_image"] = torch.rand(bs, 3, h, w, device=dev,
+                                           generator=gen)
+    return batch
 
 
 def _random_batch(dev, bs, spp, nf, ngf, h, w, train):
@@ -90,6 +112,9 @@ def main(argv=None):
                    help="batch size of the train step")
     p.add_argument("--bf16", action="store_true",
                    help="with --train: bfloat16 conv stacks")
+    p.add_argument("--arch", default="sbmc",
+                   choices=("sbmc", "gather", "kpcn", "lbf"),
+                   help="model to profile (default: the checkpoint's)")
     p.add_argument("--top", type=int, default=12)
     args = p.parse_args(argv)
     size = args.size or ("128x128" if args.train else "1080x2048")
@@ -98,33 +123,48 @@ def main(argv=None):
     dev = resolve_device("cuda")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    if args.train:
-        # The checkpoint's architecture with freshly initialised weights,
-        # as a training run starts.
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.train or args.arch != "sbmc":
+        # Freshly initialised weights, as a training run starts.
         torch.manual_seed(0)
         meta = Checkpointer.load_meta(args.checkpoint)
-        params = dict(meta["model_params"],
-                      conv_dtype="bfloat16" if args.bf16 else None)
-        iface = DenoiserInterface(
-            build_model(dict(meta, model_params=params)), device=dev)
-        batch = _random_batch(dev, args.bs, spp, params["n_features"],
-                              params["n_global_features"], h, w, True)
-        what = "train step, batch %d, %s convs" % (
-            args.bs, "bf16" if args.bf16 else "float32")
+        conv_dtype = "bfloat16" if args.bf16 else None
+        params = dict(meta["model_params"], conv_dtype=conv_dtype,
+                      splat=args.arch != "gather")
+        nf, ngf = params["n_features"], params["n_global_features"]
+        if args.arch == "kpcn":
+            model = KPCN(conv_dtype=conv_dtype)
+        elif args.arch == "lbf":
+            model = LBF(nf, ngf, conv_dtype=conv_dtype)
+        else:
+            model = build_model(dict(meta, model_params=params))
+        bs = args.bs if args.train else 1
+        if args.arch == "kpcn":
+            batch = _random_kpcn_batch(dev, bs, h, w, args.train)
+        else:
+            batch = _random_batch(dev, bs, spp, nf, ngf, h, w, args.train)
+        convs = "bf16" if args.bf16 else "float32"
+    if args.train:
+        iface = DenoiserInterface(model, device=dev)
+        what = "%s train step, batch %d, %s convs" % (args.arch, args.bs,
+                                                      convs)
         for _ in range(3):
             iface.train_step(batch)
 
         def run():
             iface.train_step(batch)
     else:
-        model, meta, _ = load_model(args.checkpoint, dev)
-        batch = _random_batch(dev, 1, spp,
-                              meta["model_params"]["n_features"],
-                              meta["model_params"]["n_global_features"], h,
-                              w, False)
-        what = "forward"
+        if args.arch == "sbmc":
+            model, meta, _ = load_model(args.checkpoint, dev)
+            batch = _random_batch(dev, 1, spp,
+                                  meta["model_params"]["n_features"],
+                                  meta["model_params"]["n_global_features"],
+                                  h, w, False)
+            what = "forward"
+        else:
+            model = model.to(dev).eval()
+            what = "%s forward, %s convs" % (args.arch, convs)
         with torch.inference_mode():
             model(batch)
 
@@ -151,9 +191,10 @@ def main(argv=None):
         cls = classify(evt.key)
         by_class[cls] = by_class.get(cls, 0.0) + us
     busy_ms = sum(by_class.values()) / 1e3
-    print("%s: %s, %dx%d tile, %d spp: wall %.2f ms (profiled), device busy "
+    samples = "" if args.arch == "kpcn" else ", %d spp" % spp
+    print("%s: %s, %dx%d tile%s: wall %.2f ms (profiled), device busy "
           "%.2f ms (%.1f%%)" % (torch.cuda.get_device_name(0), what, h, w,
-                                spp, wall_ms, busy_ms,
+                                samples, wall_ms, busy_ms,
                                 100 * busy_ms / wall_ms))
     if not kernels:
         print("the profiler recorded no device time")

@@ -1,6 +1,14 @@
-"""Train the SBMC denoiser (counterpart of ``scripts/train.py``).
+"""Train a denoiser (counterpart of ``scripts/train.py``).
 
     python -m sbmc_tpu_torch.train DATA CKPT_DIR --bs 4 --spp 8
+    python -m sbmc_tpu_torch.train DATA CKPT_DIR --bs 4 --kpcn_mode
+    python -m sbmc_tpu_torch.train DATA CKPT_DIR --bs 4 --gather
+    python -m sbmc_tpu_torch.train DATA CKPT_DIR --bs 4 --lbf_mode
+
+The default model is SBMC (``Multisteps`` with splat kernels); ``--gather``
+trains its gather-kernel ablation, ``--kpcn_mode`` the KPCN baseline on the
+pixel statistics of the same tiles (constant sample count, no display
+strip) and ``--lbf_mode`` the learned bilateral filter.
 
 (the module is ``train_cli`` because ``sbmc_tpu_torch/train/`` is the
 package of the training classes; ``python -m sbmc_tpu_torch.train`` runs
@@ -10,10 +18,8 @@ raises when that device is missing. Checkpoints are written in the JAX
 package's format, so either package resumes and denoises from them.
 
 Not ported yet, and refused rather than replaced by something else:
-``--kpcn_mode``, ``--lbf_mode`` and ``--gather`` (slice 3),
-``--device_reservoir`` and training on several GPUs (later items of slice
-2). The flags that only tune those modes (``--lbf_window_r``,
-``--kpcn_depth``, ``--kpcn_width``, ``--refresh_every``) come with them.
+``--device_reservoir`` (with ``--refresh_every``, which only tunes it) and
+training on several GPUs.
 """
 
 import argparse
@@ -23,7 +29,7 @@ import numpy as np
 import torch
 
 from sbmc_tpu_torch.data import Loader, MultiSampleCountDataset, TilesDataset
-from sbmc_tpu_torch.models import Multisteps
+from sbmc_tpu_torch.models import KPCN, LBF, Multisteps
 from sbmc_tpu_torch.models.build import model_meta
 from sbmc_tpu_torch.train import (Checkpointer, DenoiserInterface, Trainer,
                                   callbacks)
@@ -33,12 +39,6 @@ __all__ = ["main", "parse_args"]
 
 
 def _refuse_unported(args):
-    for flag, slice_ in (("kpcn_mode", "slice 3: KPCN"),
-                         ("lbf_mode", "slice 3: LBF"),
-                         ("gather", "slice 3: gather kernels")):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} is not ported yet ({slice_})")
     if args.device_reservoir > 0:
         raise NotImplementedError(
             "--device_reservoir is not ported yet (slice 2, the GPU-resident "
@@ -55,6 +55,8 @@ def main(args):
     set_logger(args.verbose)
     log = get_logger("sbmc_tpu_torch.train")
     _refuse_unported(args)
+    if args.kpcn_mode and args.lbf_mode:
+        raise SystemExit("--kpcn_mode and --lbf_mode are mutually exclusive")
     np.random.seed(0)
     torch.manual_seed(0)
     # Float32 stays float32: no TF32 in matmuls or cuDNN convolutions.
@@ -63,7 +65,8 @@ def main(args):
 
     data_args = dict(
         spp=args.spp,
-        mode=TilesDataset.SBMC_MODE,
+        mode=TilesDataset.KPCN_MODE if args.kpcn_mode
+        else TilesDataset.SBMC_MODE,
         load_coords=not args.dont_use_coords,
         load_gbuffer=not args.dont_use_gbuffer,
         load_p=not args.dont_use_p,
@@ -73,7 +76,7 @@ def main(args):
 
     pad_spp = None
     random_mask_spp = None
-    if args.randomize_spp:
+    if args.randomize_spp and not args.kpcn_mode:
         if args.cache_ram:
             # Cached mode: keep every tile at full spp (preprocessed once,
             # float16) and randomize the valid sample count per item via
@@ -95,17 +98,34 @@ def main(args):
     if args.val_data:
         val_data = TilesDataset(args.val_data, **data_args)
 
-    log.info("Model: Multisteps (SBMC), splat=True")
-    model_params = dict(
-        n_features=data.num_features,
-        n_global_features=data.num_global_features,
-        ksize=args.ksize, splat=True, pixel=args.pixel,
-        conv_dtype="bfloat16" if args.bf16 else None,
-        remat=args.remat)
-    model = Multisteps(**model_params)
+    conv_dtype = "bfloat16" if args.bf16 else None
+    if args.kpcn_mode:
+        log.info("Model: KPCN (gather baseline, [Bako2017])")
+        arch = "kpcn"
+        model_params = dict(n_in=data.num_features, ksize=args.ksize,
+                            depth=args.kpcn_depth, width=args.kpcn_width,
+                            conv_dtype=conv_dtype)
+        model = KPCN(**model_params)
+    elif args.lbf_mode:
+        log.info("Model: LBF (learned bilateral filter, [Kalantari2015])")
+        arch = "lbf"
+        model_params = dict(
+            n_features=data.num_features,
+            n_global_features=data.num_global_features,
+            window_r=args.lbf_window_r, conv_dtype=conv_dtype)
+        model = LBF(**model_params)
+    else:
+        log.info("Model: Multisteps (SBMC), splat=%s", not args.gather)
+        arch = "sbmc"
+        model_params = dict(
+            n_features=data.num_features,
+            n_global_features=data.num_global_features,
+            ksize=args.ksize, splat=not args.gather, pixel=args.pixel,
+            conv_dtype=conv_dtype, remat=args.remat)
+        model = Multisteps(**model_params)
     interface = DenoiserInterface(model, lr=args.lr, device=args.device)
 
-    meta = model_meta(False, model_params, data_args, arch="sbmc")
+    meta = model_meta(args.kpcn_mode, model_params, data_args, arch=arch)
     checkpointer = Checkpointer(args.checkpoint_dir, meta=meta)
 
     loader = Loader(data, batch_size=args.bs, shuffle=True, pad_spp=pad_spp,
@@ -130,10 +150,11 @@ def main(args):
         callbacks.ScalarLogCallback(
             os.path.join(args.checkpoint_dir, "train_log.csv"),
             interval=args.log_interval),
-        callbacks.DenoisingDisplayCallback(
-            interface, lambda: first,
-            os.path.join(args.checkpoint_dir, "viz")),
     ]
+    if not args.kpcn_mode:
+        cbs.append(callbacks.DenoisingDisplayCallback(
+            interface, lambda: first,
+            os.path.join(args.checkpoint_dir, "viz")))
     Trainer(interface, cbs).train(loader, num_epochs=args.num_epochs,
                                   val_dataloader=val_loader,
                                   max_steps=args.max_steps)
@@ -142,7 +163,7 @@ def main(args):
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("data", help=".bin data folder")
+    parser.add_argument("data", help=".bin data folder or filelist .txt")
     parser.add_argument("checkpoint_dir", help="checkpoint output directory")
     parser.add_argument("--val_data", help="validation data folder")
     parser.add_argument("--num_epochs", type=int, default=None)
@@ -154,11 +175,18 @@ def parse_args(argv=None):
     parser.add_argument("--ksize", type=int, default=21,
                         help="kernel size for the predicted kernels")
     parser.add_argument("--lbf_mode", action="store_true",
-                        help="not ported yet (slice 3)")
+                        help="train the LBF learned-bilateral-filter "
+                        "baseline [Kalantari2015] instead of SBMC")
+    parser.add_argument("--lbf_window_r", type=int, default=8,
+                        help="LBF filter window radius")
     parser.add_argument("--kpcn_mode", action="store_true",
-                        help="not ported yet (slice 3)")
+                        help="train the [Bako2017] KPCN baseline")
+    parser.add_argument("--kpcn_depth", type=int, default=9,
+                        help="KPCN conv depth (valid convs consume a "
+                        "4*depth pixel border)")
+    parser.add_argument("--kpcn_width", type=int, default=100)
     parser.add_argument("--gather", action="store_true",
-                        help="not ported yet (slice 3)")
+                        help="ablation: use gather kernels instead of splat")
     parser.add_argument("--pixel", action="store_true",
                         help="ablation: collapse samples to a 1-spp image")
     parser.add_argument("--constant_spp", dest="randomize_spp",
@@ -171,7 +199,8 @@ def parse_args(argv=None):
     parser.add_argument("--dont_use_bt", action="store_true")
     parser.add_argument("--num_worker_threads", type=int, default=4)
     parser.add_argument("--device_reservoir", type=int, default=0,
-                        help="not ported yet (slice 2, tile reservoir); "
+                        help="not ported yet (the GPU-resident tile "
+                        "reservoir); "
                         "0 disables.")
     parser.add_argument("--trust_reservoir", action="store_true",
                         help="accepted no-op, as in the JAX script.")

@@ -12,7 +12,9 @@ tests/test_ops.py); the relative part covers float32 sums over up to 441
 taps taken in another order (sum_w reaches tens at k = 21). The backward
 kernels: ``3e-4 + 2e-5 * |plain|`` (the JAX package's bound for its fused
 backward); a bfloat16 ``d_klogits`` may also sit on the neighbouring
-bfloat16 value, ``2**-7`` relative.
+bfloat16 value, ``2**-7`` relative. Kernel weighting and its weight gradient:
+the forward's bound (sums over up to 441 taps, or over the channels, in
+another order); scatter2gather only moves values: bit-exact.
 """
 
 import numpy as np
@@ -29,6 +31,11 @@ def device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def _counts():
+    """The kernels launched since the last reset, with their counts."""
+    return {name: n for name, n in ops.launch_counts.items() if n}
 
 
 def _inputs(rng, bs, c, h, w, k, dtype, init, device):
@@ -89,9 +96,8 @@ def test_splat_kernel_rejects_bad_inputs(device):
                                        mw)
     out[0].sum().backward()
     assert data.grad.shape == data.shape
-    assert ops.launch_counts == {"progressive_splat": 1,
-                                 "progressive_splat_ddata": 1,
-                                 "progressive_splat_dlogits": 0}
+    assert _counts() == {"progressive_splat": 1,
+                         "progressive_splat_ddata": 1}
 
 
 BWD_ATOL, BWD_RTOL = 3e-4, 2e-5
@@ -114,9 +120,8 @@ def test_backward_kernels_match_plain(device, c, hw, k, dtype):
         ops.reset_launch_counts()
         got_data = ops._ddata_cuda(logits, new_max, d_r)
         got_logits = ops._dlogits_cuda(data, logits, new_max, d_r, d_w)
-        assert ops.launch_counts == {"progressive_splat": 0,
-                                     "progressive_splat_ddata": 1,
-                                     "progressive_splat_dlogits": 1}
+        assert _counts() == {"progressive_splat_ddata": 1,
+                             "progressive_splat_dlogits": 1}
         want_data, want_logits = ops.progressive_splat_bwd_ref(
             data, logits, new_max, d_r, d_w)
         torch.cuda.synchronize()
@@ -163,3 +168,120 @@ def test_function_backward_on_the_card_matches_cpu(device, dtype):
         rt = 2.0 ** -7 if (dtype == torch.bfloat16 and i % 2) else 1e-4
         assert torch.all((g - r).abs() <= BWD_ATOL + rt * r.abs()), \
             (i, float((g - r).abs().max()))
+
+
+COMPOSED = [(3, (37, 53), 3), (3, (130, 3), 5), (2, (5, 7), 21),
+            (3, (37, 53), 21)]
+
+
+def _close(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.all((got - want).abs() <= ATOL + RTOL * want.abs()), \
+        float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,hw,k", COMPOSED)
+def test_kernel_weighting_kernels_match_plain(device, c, hw, k, dtype):
+    rng = np.random.RandomState(k * 100 + hw[0] + 2)
+    data = torch.tensor(rng.randn(2, c, *hw), dtype=torch.float32,
+                        device=device)
+    weights = torch.tensor(rng.randn(2, k * k, *hw),
+                           dtype=torch.float32).to(dtype).to(device)
+    d_out = torch.tensor(rng.randn(2, c, *hw), dtype=torch.float32,
+                         device=device)
+    d_sw = torch.tensor(rng.randn(2, *hw), dtype=torch.float32,
+                        device=device)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        out, sum_w = ops.kernel_weighting(data, weights)
+        d_w = ops._kernel_weighting_dw_cuda(data, d_out, d_sw, k)
+        assert _counts() == {"kernel_weighting": 1, "kernel_weighting_dw": 1}
+        want_out, want_sw = ops.kernel_weighting_ref(data, weights)
+        want_dw = ops.kernel_weighting_dw_ref(data, d_out, d_sw, k)
+        torch.cuda.synchronize()
+    _close(out, want_out)
+    _close(sum_w, want_sw)
+    _close(d_w, want_dw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,hw,k", [(2, (37, 53), 3), (1, (130, 3), 5),
+                                     (3, (5, 7), 21), (2, (37, 53), 21)])
+def test_scatter2gather_kernel_is_exact(device, bs, hw, k, dtype):
+    rng = np.random.RandomState(k * 100 + hw[0] + 3)
+    weights = torch.tensor(rng.randn(bs, k * k, *hw),
+                           dtype=torch.float32).to(dtype).to(device)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        got = ops.scatter2gather(weights)
+        assert _counts() == {"scatter2gather": 1}
+        want = ops.scatter2gather_ref(weights)
+        assert got.dtype == dtype and torch.equal(got, want)
+        # Applied twice it gives back what stays inside the image.
+        assert torch.equal(ops.scatter2gather(got),
+                           ops.scatter2gather_ref(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_composed_functions_on_the_card_match_cpu(device, dtype):
+    """``kernel_apply(splat=True)`` end to end: scatter2gather, softmax,
+    kernel weighting and their backward (d_data through B5 + B4, d_weights
+    through B6, then B5 on the cotangent), card against CPU. The bfloat16
+    case leaves the softmax out: PyTorch's bfloat16 softmax rounds at other
+    places on the card than on the CPU, which is not the kernels' doing."""
+    from sbmc_tpu_torch.nn.kernel_apply import kernel_apply
+    rng = np.random.RandomState(4)
+    bs, k, h, w = 2, 5, 21, 34
+    data = rng.randn(bs, 3, h, w)
+    kernels = rng.randn(bs, k * k, h, w)
+    grads = []
+    for dev in (torch.device("cpu"), device):
+        d = torch.tensor(data, dtype=torch.float32, device=dev,
+                         requires_grad=True)
+        kn = torch.tensor(kernels, dtype=torch.float32).to(dtype).to(
+            dev).requires_grad_()
+        ops.reset_launch_counts()
+        out, sum_w = kernel_apply(d, kn, softmax=dtype == torch.float32,
+                                  splat=True)
+        (out.square().sum() + (sum_w * out[:, :1]).sum()).backward()
+        if dev.type == "cuda":
+            assert _counts() == {"scatter2gather": 3, "kernel_weighting": 2,
+                                 "kernel_weighting_dw": 1}
+        grads.append([d.grad.cpu(), kn.grad.float().cpu()])
+    for i, (g, r) in enumerate(zip(grads[1], grads[0])):
+        rt = 2.0 ** -7 if (dtype == torch.bfloat16 and i) else 1e-4
+        assert torch.all((g - r).abs() <= BWD_ATOL + rt * r.abs()), \
+            (i, float((g - r).abs().max()))
+
+
+@pytest.mark.cuda
+def test_composed_kernels_reject_bad_inputs(device):
+    data = torch.zeros(1, 3, 8, 9, device=device)
+    weights = torch.zeros(1, 9, 8, 9, device=device)
+    with torch.inference_mode():
+        with pytest.raises(TypeError):
+            ops.kernel_weighting(data.half(), weights)
+        with pytest.raises(TypeError):
+            ops.kernel_weighting(data, weights.half())
+        with pytest.raises(TypeError):
+            ops.scatter2gather(weights.double())
+        with pytest.raises(ValueError, match="contiguous"):
+            ops.scatter2gather(
+                weights.transpose(2, 3).contiguous().transpose(2, 3))
+        with pytest.raises(ValueError, match="channels"):
+            ops.kernel_weighting(torch.zeros(1, 5, 8, 9, device=device),
+                                 weights)
+        with pytest.raises(ValueError, match="expected"):
+            ops.kernel_weighting(torch.zeros(1, 3, 8, 8, device=device),
+                                 weights)
+        with pytest.raises(ValueError, match="square"):
+            ops.scatter2gather(torch.zeros(1, 8, 8, 9, device=device))
+        with pytest.raises(ValueError, match="several devices"):
+            ops.kernel_weighting(data.cpu(), weights)
+        with pytest.raises(ValueError, match="d_sum_w"):
+            ops._kernel_weighting_dw_cuda(data, data, torch.zeros(
+                1, 1, 8, 9, device=device), 3)

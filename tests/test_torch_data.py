@@ -80,9 +80,13 @@ def test_full_images_dataset_matches_jax(jax_data, spp):
 def test_dataset_errors(jax_data, tmp_path):
     with pytest.raises(RuntimeError, match="too many"):
         TilesDataset(jax_data, spp=4)
-    for mode in ("kpcn", "raw"):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            TilesDataset(jax_data, mode=mode)
+    for mode in ("kpcn", "raw"):  # taken; g-buffer on, the extras off
+        data = TilesDataset(jax_data, mode=mode, load_gbuffer=False)
+        assert data.mode == mode and data.load_gbuffer
+        assert not (data.load_coords or data.load_p or data.load_ld
+                    or data.load_bt)
+    with pytest.raises(RuntimeError, match="Unknown dataset loading mode"):
+        TilesDataset(jax_data, mode="sbmc2")
     with pytest.raises(RuntimeError, match="Empty"):
         TilesDataset(str(tmp_path))
 

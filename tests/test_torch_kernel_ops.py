@@ -1,0 +1,489 @@
+"""The port's ``kernel_weighting`` / ``scatter2gather`` Functions and
+``kernel_apply`` against ``sbmc_tpu`` on the same numpy inputs.
+
+Tolerances:
+
+- scatter2gather, forward and backward, is data movement: exact.
+- kernel weighting and its gradients in float32: ``|port - jax| <= 1e-5 +
+  1e-5 * |jax|`` (sums over up to 441 taps, or over the batch of channels,
+  in other orders); against the Pallas kernels in interpret mode the same.
+- bfloat16 weights: both widen the weights to float32 before summing, so the
+  forward holds the float32 bound. ``sum_w`` is float32 in the port and
+  bfloat16-rounded in JAX (a divergence recorded in ROADMAP.md), so it is
+  held against the JAX sum of the widened weights. In the backward
+  ``jax.grad`` hands back a float32 ``d_weights`` for bfloat16 weights; the
+  port's is that value rounded to bfloat16 (``2**-8`` relative, half a
+  bfloat16 step), since a PyTorch gradient has its tensor's dtype.
+- the g++ host builds of the kernels' per-pixel functions against the plain
+  versions: ``2e-4 + 2e-5 * |plain|``, the bound chip_smoke.py holds the
+  kernels to; scatter2gather exact.
+- ``kernel_apply`` / the unfused progressive apply: ``1e-5 + 1e-5 * |jax|``;
+  with bfloat16 kernels the softmax rounds to bfloat16 in both frameworks at
+  places that may differ by one step (``2**-7`` of a weight), which moves an
+  output of order 1 by up to ~1e-2.
+"""
+
+import importlib
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sbmc_tpu import ops as jops
+from sbmc_tpu_torch import ops
+from sbmc_tpu_torch.ops import _build, reference
+
+# Both packages export a function of the module's name from ``nn``.
+jka = importlib.import_module("sbmc_tpu.nn.kernel_apply")
+ka = importlib.import_module("sbmc_tpu_torch.nn.kernel_apply")
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+# (shape, k): k = 21 only on tiny tiles.
+CASES = [((9, 12), 3), ((11, 7), 5), ((6, 9), 21)]
+DTYPES = [(torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)]
+
+
+def _np(t):
+    return t.detach().float().numpy() if isinstance(t, torch.Tensor) else \
+        np.asarray(jnp.asarray(t, jnp.float32))
+
+
+def _inputs(rng, bs, c, h, w, k):
+    return (rng.randn(bs, c, h, w).astype(np.float32),
+            rng.randn(bs, k * k, h, w).astype(np.float32),
+            rng.randn(bs, c, h, w).astype(np.float32),
+            rng.randn(bs, h, w).astype(np.float32))
+
+
+def _port_kw(data, wts, ct_out, ct_sw, tdt):
+    d = torch.from_numpy(data).requires_grad_()
+    w = torch.from_numpy(wts).to(tdt).requires_grad_()
+    out, sw = ops.kernel_weighting(d, w)
+    loss = (out * torch.from_numpy(ct_out)).sum() \
+        + (sw * torch.from_numpy(ct_sw)).sum()
+    return (out, sw) + torch.autograd.grad(loss, (d, w))
+
+
+def _jax_kw(data, wts, ct_out, ct_sw, jdt, backend):
+    jw = jnp.asarray(wts).astype(jdt)
+
+    def scalar(d, w):
+        out, sw = jops.kernel_weighting(d, w, backend=backend)
+        return jnp.sum(out * ct_out) + jnp.sum(sw.astype(jnp.float32)
+                                               * ct_sw)
+    out, _ = jops.kernel_weighting(jnp.asarray(data), jw, backend=backend)
+    _, sw = jops.kernel_weighting(jnp.asarray(data),
+                                  jw.astype(jnp.float32), backend=backend)
+    return (out, sw) + jax.grad(scalar, argnums=(0, 1))(jnp.asarray(data), jw)
+
+
+@pytest.mark.parametrize("shape,k", CASES)
+@pytest.mark.parametrize("tdt,jdt", DTYPES)
+def test_kernel_weighting_function_matches_jax(shape, k, tdt, jdt):
+    """Forward, ``d_data`` and ``d_weights`` with a non-zero ``d_sum_w``."""
+    rng = np.random.RandomState(60 + k)
+    args = _inputs(rng, 2, 3, *shape, k)
+    if tdt == torch.bfloat16:
+        # JAX's sum_w is bfloat16 here, so its cotangent is rounded to
+        # bfloat16 on the way in: give both one that is exact in bfloat16.
+        args = args[:3] + (_np(torch.from_numpy(args[3]).bfloat16()),)
+    out, sw, d_data, d_w = _port_kw(*args, tdt)
+    jout, jsw, jd_data, jd_w = _jax_kw(*args, jdt, "xla")
+    assert out.dtype == sw.dtype == d_data.dtype == torch.float32
+    assert d_w.dtype == tdt
+    np.testing.assert_allclose(_np(out), _np(jout), **TOL)
+    np.testing.assert_allclose(_np(sw), _np(jsw), **TOL)
+    np.testing.assert_allclose(_np(d_data), _np(jd_data), **TOL)
+    if tdt == torch.float32:
+        np.testing.assert_allclose(_np(d_w), _np(jd_w), **TOL)
+    else:
+        # jax.grad returns float32 here; the port rounds it to bfloat16.
+        assert jd_w.dtype == jnp.float32
+        np.testing.assert_allclose(_np(d_w), _np(jd_w), atol=1e-5,
+                                   rtol=2.0 ** -8)
+
+
+def test_bf16_weight_gradient_is_the_rounded_float32_one():
+    """What the port does with bfloat16 weights in the backward: the kernel's
+    float32 ``d_weights`` rounded once (to nearest even) to bfloat16."""
+    rng = np.random.RandomState(7)
+    data, wts, ct_out, ct_sw = _inputs(rng, 1, 3, 8, 9, 5)
+    _, _, _, d_w = _port_kw(data, wts, ct_out, ct_sw, torch.bfloat16)
+    full = reference.kernel_weighting_dw_ref(
+        torch.from_numpy(data), torch.from_numpy(ct_out),
+        torch.from_numpy(ct_sw), 5)
+    assert full.dtype == torch.float32
+    assert torch.equal(d_w, full.to(torch.bfloat16))
+    assert not torch.equal(d_w.float(), full)
+
+
+@pytest.mark.parametrize("shape,k", CASES)
+@pytest.mark.parametrize("tdt,jdt", DTYPES)
+def test_scatter2gather_function_matches_jax(shape, k, tdt, jdt):
+    rng = np.random.RandomState(70 + k)
+    wts = rng.randn(2, k * k, *shape).astype(np.float32)
+    ct = rng.randn(2, k * k, *shape).astype(np.float32)
+    w = torch.from_numpy(wts).to(tdt).requires_grad_()
+    out = ops.scatter2gather(w)
+    (g,) = torch.autograd.grad(out, w, torch.from_numpy(ct).to(tdt))
+    jw = jnp.asarray(wts).astype(jdt)
+    jout, vjp = jax.vjp(lambda x: jops.scatter2gather(x, backend="xla"), jw)
+    (jg,) = vjp(jnp.asarray(ct).astype(jdt))
+    assert out.dtype == g.dtype == tdt
+    np.testing.assert_array_equal(_np(out), _np(jout))
+    np.testing.assert_array_equal(_np(g), _np(jg))
+
+
+def test_functions_match_pallas_interpret():
+    """The plain versions against the Pallas kernels themselves (interpret
+    mode): ``_kw_fwd_kernel``, ``_kw_dw_kernel`` and ``_s2g_kernel``."""
+    rng = np.random.RandomState(2)
+    args = _inputs(rng, 1, 3, 10, 140, 3)
+    got = _port_kw(*args, torch.float32)
+    want = _jax_kw(*args, jnp.float32, "pallas_interpret")
+    for g, r in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(r), **TOL)
+    s2g = jops.scatter2gather(jnp.asarray(args[1]),
+                              backend="pallas_interpret")
+    np.testing.assert_array_equal(
+        _np(ops.scatter2gather(torch.from_numpy(args[1]))), _np(s2g))
+
+
+def test_kernel_weighting_impulse_all_offsets():
+    """A single weight at tap (dy, dx) fetches data from the offset pixel."""
+    k, h, w, c = 5, 12, 13, 3
+    o = (k - 1) // 2
+    y0, x0 = 6, 6
+    data = torch.tensor(np.random.RandomState(0).randn(1, c, h, w),
+                        dtype=torch.float32)
+    for dy in range(k):
+        for dx in range(k):
+            wts = torch.zeros(1, k * k, h, w)
+            wts[0, dy * k + dx, y0, x0] = 1.0
+            out, sum_w = ops.kernel_weighting(data, wts)
+            torch.testing.assert_close(
+                out[0, :, y0, x0], data[0, :, y0 + dy - o, x0 + dx - o])
+            out[0, :, y0, x0] = 0.0
+            assert out.abs().max() == 0.0
+            assert sum_w[0, y0, x0] == 1.0 and sum_w.sum() == 1.0
+
+
+def test_kernel_weighting_boundary_zero():
+    """Out-of-bounds taps read zeros, but sum_w still counts the weight."""
+    k, h, w = 5, 8, 8
+    wts = torch.zeros(1, k * k, h, w)
+    wts[0, 0, 0, 0] = 2.0  # tap (0, 0) at pixel (0, 0) reads (-2, -2)
+    out, sum_w = ops.kernel_weighting(torch.ones(1, 3, h, w), wts)
+    assert out.abs().max() == 0.0 and sum_w[0, 0, 0] == 2.0
+
+
+@pytest.mark.parametrize("k", [3, 5, 7, 9])
+def test_scatter2gather_transpose_rule(k):
+    """The weight at (y, x, dy, dx) moves to (y+dy-o, x+dx-o, k-1-dy,
+    k-1-dx), every tap."""
+    o = (k - 1) // 2
+    h = w = 2 * k + 3
+    y0 = x0 = k + 1
+    for dy in range(k):
+        for dx in range(k):
+            wts = torch.zeros(1, k * k, h, w)
+            wts[0, dy * k + dx, y0, x0] = 1.0
+            out = ops.scatter2gather(wts)
+            tap = (k - 1 - dy) * k + (k - 1 - dx)
+            assert out[0, tap, y0 + dy - o, x0 + dx - o] == 1.0
+            assert out.sum() == 1.0
+
+
+def test_scatter2gather_involution_and_splat_semantics():
+    """Applied twice it restores the interior; and ``kernel_weighting(data,
+    s2g(w))`` is true splatting: a source pixel scatters its value through
+    its own kernel."""
+    k, h, w = 5, 16, 16
+    o = (k - 1) // 2
+    wts = torch.tensor(np.random.RandomState(1).randn(1, k * k, h, w),
+                       dtype=torch.float32)
+    twice = ops.scatter2gather(ops.scatter2gather(wts))
+    inner = (slice(None), slice(None), slice(2 * o, h - 2 * o),
+             slice(2 * o, w - 2 * o))
+    assert torch.equal(twice[inner], wts[inner])
+    k, o = 3, 1
+    data = torch.zeros(1, 3, 10, 10)
+    data[:, :, 5, 5] = 2.0
+    wts = torch.zeros(1, k * k, 10, 10)
+    wts[0, :, 5, 5] = torch.arange(k * k) + 1.0
+    out, _ = ops.kernel_weighting(data, ops.scatter2gather(wts))
+    for dy in range(k):
+        for dx in range(k):
+            assert out[0, 0, 5 + dy - o, 5 + dx - o] == \
+                2.0 * (dy * k + dx + 1.0)
+
+
+def test_kernel_weighting_manual_backward():
+    """An impulse in d_output distributes d_data over the kernel footprint,
+    and d_weights there is the data at each tap's source pixel."""
+    k, h, w, c = 3, 8, 8, 3
+    o = (k - 1) // 2
+    rng = np.random.RandomState(1)
+    data = torch.tensor(rng.randn(1, c, h, w), dtype=torch.float32,
+                        requires_grad=True)
+    wts = torch.tensor(rng.randn(1, k * k, h, w), dtype=torch.float32,
+                       requires_grad=True)
+    out, _ = ops.kernel_weighting(data, wts)
+    y0, x0 = 4, 4
+    d_out = torch.zeros_like(out)
+    d_out[0, :, y0, x0] = 1.0
+    d_data, d_w = torch.autograd.grad(out, (data, wts), d_out)
+    for dy in range(k):
+        for dx in range(k):
+            yy, xx = y0 + dy - o, x0 + dx - o
+            t = dy * k + dx
+            torch.testing.assert_close(d_data[0, :, yy, xx].sum(),
+                                       wts[0, t, y0, x0].detach() * c)
+            torch.testing.assert_close(d_w[0, t, y0, x0],
+                                       data[0, :, yy, xx].sum().detach())
+    assert torch.count_nonzero(d_w[0, :, :y0]) == 0
+
+
+@pytest.mark.parametrize("k,shape", [(3, (6, 7)), (5, (5, 4))])
+def test_gradcheck_float64(k, shape):
+    """``torch.autograd.gradcheck`` through both Functions on the plain
+    path, which takes float64."""
+    rng = np.random.RandomState(k)
+    data = torch.tensor(rng.randn(2, 2, *shape), dtype=torch.float64,
+                        requires_grad=True)
+    wts = torch.tensor(rng.randn(2, k * k, *shape), dtype=torch.float64,
+                       requires_grad=True)
+    assert torch.autograd.gradcheck(ops.kernel_weighting, (data, wts))
+    assert torch.autograd.gradcheck(ops.scatter2gather, (wts,))
+    assert torch.autograd.gradcheck(
+        lambda d, w: ops.kernel_weighting(d, ops.scatter2gather(w))[0],
+        (data, wts))
+
+
+def test_plain_backward_is_composed_as_the_function():
+    rng = np.random.RandomState(5)
+    data, wts, ct_out, ct_sw = _inputs(rng, 2, 3, 7, 8, 3)
+    _, _, d_data, d_w = _port_kw(data, wts, ct_out, ct_sw, torch.float32)
+    r_data, r_w = reference.kernel_weighting_bwd_ref(
+        *(torch.from_numpy(a) for a in (data, wts, ct_out, ct_sw)))
+    assert torch.equal(d_data, r_data) and torch.equal(d_w, r_w)
+
+
+def test_backward_computes_only_what_is_asked(monkeypatch):
+    calls = []
+    for name in ("kernel_weighting_ref", "kernel_weighting_dw_ref",
+                 "scatter2gather_ref"):
+        plain = getattr(ops, name)
+        monkeypatch.setattr(ops, name, lambda *a, _p=plain, _n=name:
+                            (calls.append(_n), _p(*a))[1])
+    data = torch.randn(1, 3, 6, 7)
+    wts = torch.randn(1, 9, 6, 7)
+    out, _ = ops.kernel_weighting(data, wts.clone().requires_grad_())
+    del calls[:]
+    out.sum().backward()  # sum_w unused: its cotangent arrives as zeros
+    assert calls == ["kernel_weighting_dw_ref"]
+    out, _ = ops.kernel_weighting(data.clone().requires_grad_(), wts)
+    del calls[:]
+    out.sum().backward()
+    assert calls == ["scatter2gather_ref", "kernel_weighting_ref"]
+    with torch.no_grad():
+        assert not ops.kernel_weighting(data, wts)[0].requires_grad
+    # Strided cotangents are taken.
+    d = data.clone().requires_grad_()
+    out, sw = ops.kernel_weighting(d, wts)
+    (out.transpose(2, 3) * torch.randn(1, 3, 7, 6)).sum().backward()
+    assert d.grad.shape == d.shape
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    ops.reset_launch_counts()
+    data, wts = torch.randn(1, 3, 6, 7), torch.randn(1, 9, 6, 7)
+    out, sw = ops.kernel_weighting(data, wts)
+    want = reference.kernel_weighting_ref(data, wts)
+    assert torch.equal(out, want[0]) and torch.equal(sw, want[1])
+    assert torch.equal(ops.scatter2gather(wts),
+                       reference.scatter2gather_ref(wts))
+    assert set(ops.launch_counts.values()) == {0}
+    assert set(ops.launch_counts) >= {"kernel_weighting",
+                                      "kernel_weighting_dw",
+                                      "scatter2gather"}
+
+
+def test_kernel_wrappers_check_inputs():
+    """What the CUDA wrappers refuse, checked on CPU tensors."""
+    wts = torch.zeros(2, 9, 5, 6)
+    assert ops._check_weights(wts) == (2, 5, 6, 3)
+    assert ops._check_weights(wts.bfloat16()) == (2, 5, 6, 3)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops._check_weights(wts.half())
+    with pytest.raises(ValueError, match="square"):
+        ops._check_weights(torch.zeros(2, 8, 5, 6))
+    with pytest.raises(ValueError, match="odd"):
+        ops._check_weights(torch.zeros(2, 16, 5, 6))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops._check_weights(torch.zeros(2, 6, 5, 9).transpose(1, 3))
+    with pytest.raises(ValueError, match="k2"):
+        ops._check_weights(torch.zeros(9, 5, 6))
+    ops._check_data("data", torch.zeros(2, 3, 5, 6), (2, 5, 6))
+    ops._check_data("data", torch.zeros(2, 2, 5, 6), (2, 2, 5, 6))
+    with pytest.raises(TypeError, match="float32"):
+        ops._check_data("data", torch.zeros(2, 3, 5, 6).double())
+    with pytest.raises(ValueError, match="channels"):
+        ops._check_data("data", torch.zeros(2, 5, 5, 6))
+    with pytest.raises(ValueError, match="expected"):
+        ops._check_data("data", torch.zeros(2, 3, 5, 7), (2, 5, 6))
+    with pytest.raises(ValueError, match="expected"):
+        ops._check_data("d_output", torch.zeros(2, 2, 5, 6), (2, 3, 5, 6))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops._check_data("data", torch.zeros(2, 3, 6, 5).transpose(2, 3))
+
+
+@pytest.mark.parametrize("c,shape,k", [(3, (9, 12), 3), (2, (13, 7), 5),
+                                       (3, (23, 25), 21), (2, (5, 4), 21)])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+def test_composed_pixel_math_matches_plain(c, shape, k, tdt):
+    """The three kernels' per-pixel functions (p + d_t indexing, the flipped
+    tap, image bounds, sum_w over every tap), run on the host."""
+    lib = _build.load_host()
+    rng = np.random.RandomState(80 + k + c)
+    bs = 2
+    data, wts, d_out, d_sw = (torch.from_numpy(a)
+                              for a in _inputs(rng, bs, c, *shape, k))
+    wts = wts.to(tdt)
+    out = torch.full_like(data, float("nan"))
+    sum_w = torch.full_like(d_sw, float("nan"))
+    assert lib.sbmc_kernel_weighting_host(
+        data.data_ptr(), wts.data_ptr(), int(tdt == torch.bfloat16),
+        out.data_ptr(), sum_w.data_ptr(), bs, c, *shape, k) == 0
+    d_w = torch.full((bs, k * k, *shape), float("nan"))
+    assert lib.sbmc_kernel_weighting_dw_host(
+        data.data_ptr(), d_out.data_ptr(), d_sw.data_ptr(), d_w.data_ptr(),
+        bs, c, *shape, k) == 0
+    want = reference.kernel_weighting_ref(data, wts) + (
+        reference.kernel_weighting_dw_ref(data, d_out, d_sw, k),)
+    for g, r in zip((out, sum_w, d_w), want):
+        assert torch.all((g - r).abs() <= 2e-4 + 2e-5 * r.abs()), \
+            float((g - r).abs().max())
+    g = torch.full_like(wts, float("nan"))
+    assert lib.sbmc_scatter2gather_host(
+        wts.data_ptr(), wts.element_size(), g.data_ptr(), bs, *shape, k) == 0
+    assert torch.equal(g, reference.scatter2gather_ref(wts))
+    assert lib.sbmc_kernel_weighting_host(
+        data.data_ptr(), wts.data_ptr(), 0, out.data_ptr(), sum_w.data_ptr(),
+        bs, 5, *shape, k) == 1
+    assert lib.sbmc_scatter2gather_host(
+        wts.data_ptr(), 8, g.data_ptr(), bs, *shape, k) == 1
+
+
+# -- nn.kernel_apply --------------------------------------------------------
+
+@pytest.mark.parametrize("softmax", [True, False])
+@pytest.mark.parametrize("splat", [True, False])
+@pytest.mark.parametrize("tdt,jdt", DTYPES)
+def test_kernel_apply_matches_jax(softmax, splat, tdt, jdt):
+    rng = np.random.RandomState(90)
+    data, kernels, ct, _ = _inputs(rng, 2, 3, 9, 11, 5)
+    d = torch.from_numpy(data).requires_grad_()
+    kn = torch.from_numpy(kernels).to(tdt).requires_grad_()
+    out, sw = ka.kernel_apply(d, kn, softmax=softmax, splat=splat)
+    assert sw.shape == (2, 1, 9, 11)
+    d_data, d_k = torch.autograd.grad((out * torch.from_numpy(ct)).sum(),
+                                      (d, kn))
+    jk = jnp.asarray(kernels).astype(jdt)
+
+    def f(dd, kk):
+        return jka.kernel_apply(dd, kk, softmax=softmax, splat=splat,
+                                backend="xla")
+    (jout, jsw), vjp = jax.vjp(f, jnp.asarray(data), jk)
+    if tdt == torch.float32:
+        tol = TOL
+    elif softmax:
+        tol = dict(atol=2e-2, rtol=2e-2)
+    else:
+        tol = dict(atol=1e-5, rtol=2.0 ** -8)
+    np.testing.assert_allclose(_np(out), _np(jout), **tol)
+    np.testing.assert_allclose(_np(sw), _np(jsw),
+                               **(tol if softmax else dict(atol=2e-2,
+                                                           rtol=2.0 ** -7)))
+    if tdt == torch.bfloat16 and softmax:
+        # The JAX package cannot take this gradient: kernel weighting hands
+        # a float32 cotangent to the bfloat16 softmax (ROADMAP.md, Queue 3).
+        # The port rounds it to bfloat16; hold it to its own float32 run.
+        with pytest.raises(TypeError, match="same dtypes"):
+            vjp((jnp.asarray(ct), jnp.zeros_like(jsw)))
+        d32 = torch.from_numpy(data).requires_grad_()
+        k32 = kn.detach().float().requires_grad_()
+        out32, _ = ka.kernel_apply(d32, k32, softmax=True, splat=splat)
+        want = torch.autograd.grad((out32 * torch.from_numpy(ct)).sum(),
+                                   (d32, k32))
+        np.testing.assert_allclose(_np(d_data), _np(want[0]), **tol)
+        np.testing.assert_allclose(_np(d_k), _np(want[1]), **tol)
+    else:
+        jd_data, jd_k = vjp((jnp.asarray(ct), jnp.zeros_like(jsw)))
+        np.testing.assert_allclose(_np(d_data), _np(jd_data), **tol)
+        np.testing.assert_allclose(_np(d_k), _np(jd_k), **tol)
+    obj = ka.KernelApply(softmax=softmax, splat=splat)(d, kn)
+    assert torch.equal(obj[0], out) and torch.equal(obj[1], sw)
+
+
+@pytest.mark.parametrize("splat,fused", [(False, True), (True, False),
+                                         (True, True)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_progressive_apply_matches_jax(splat, fused, masked):
+    """Two chained samples through the gather branch, the unfused splat
+    branch and the fused one, with and without a validity mask, and the
+    gradients of the normalised result."""
+    rng = np.random.RandomState(91)
+    bs, c, h, w, k = 2, 3, 8, 9, 5
+    data = rng.randn(2, bs, c, h, w).astype(np.float32)
+    kernels = (2 * rng.randn(2, bs, k * k, h, w)).astype(np.float32)
+    valid = np.array([[True, True], [True, False]]) if masked else None
+
+    leaves = [torch.from_numpy(a).requires_grad_()
+              for s in range(2) for a in (data[s], kernels[s])]
+    state = ka.progressive_init(bs, c, h, w)
+    for s in range(2):
+        state = ka.progressive_kernel_apply(
+            leaves[2 * s], leaves[2 * s + 1], state, splat=splat,
+            valid=None if valid is None else torch.from_numpy(valid[s]),
+            fused=fused)
+    out = state.sum_r / (state.sum_w + 1e-8)
+    grads = torch.autograd.grad(out.square().sum(), leaves)
+
+    def f(*xs):
+        st = jka.progressive_init(bs, c, h, w)
+        for s in range(2):
+            st = jka.progressive_kernel_apply(
+                xs[2 * s], xs[2 * s + 1], st, splat=splat,
+                valid=None if valid is None else jnp.asarray(valid[s]),
+                backend="xla", fused=fused)
+        return st
+    jxs = [jnp.asarray(a) for s in range(2) for a in (data[s], kernels[s])]
+    jst = f(*jxs)
+    jgrads = jax.grad(lambda *xs: jnp.sum(jnp.square(
+        f(*xs).sum_r / (f(*xs).sum_w + 1e-8))), argnums=(0, 1, 2, 3))(*jxs)
+    for got, want in zip(state, jst):
+        np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    for got, want in zip(grads, jgrads):
+        np.testing.assert_allclose(_np(got), _np(want), atol=2e-5, rtol=1e-4)
+
+
+def test_progressive_wrapper_and_bf16_gather_logits():
+    """The object wrapper starts its own state (gather kernels by default),
+    and bfloat16 gather logits give float32 weights and state, as in JAX."""
+    rng = np.random.RandomState(92)
+    data = rng.randn(1, 3, 7, 8).astype(np.float32)
+    kernels = rng.randn(1, 9, 7, 8).astype(np.float32)
+    st = ka.ProgressiveKernelApply()(
+        torch.from_numpy(data), torch.from_numpy(kernels).bfloat16())
+    jst = jka.ProgressiveKernelApply()(
+        jnp.asarray(data), jnp.asarray(kernels).astype(jnp.bfloat16))
+    for got, want in zip(st, jst):
+        assert got.dtype == torch.float32 and want.dtype == jnp.float32
+        np.testing.assert_allclose(_np(got), _np(want), **TOL)

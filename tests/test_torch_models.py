@@ -128,23 +128,31 @@ def test_masked_sample_leaves_the_state_whole():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        build_model({"arch": "kpcn", "model_params": {}})
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        build_model({"arch": "lbf", "model_params": {}})
+    """What used to be refused now builds and runs: KPCN, LBF and gather
+    kernels; an unknown arch and an even kernel size still raise."""
+    from sbmc_tpu_torch.models import KPCN, LBF
+    assert isinstance(build_model({"arch": "kpcn", "model_params": {}}), KPCN)
+    assert isinstance(build_model({"arch": "lbf", "model_params": {
+        "n_features": 8, "n_global_features": 3}}), LBF)
+    with pytest.raises(ValueError, match="unknown arch"):
+        build_model({"arch": "bilateral", "model_params": {}})
     with pytest.raises(ValueError):
         Multisteps(**dict(SMALL, ksize=4))
     model = Multisteps(**SMALL, splat=False)
     batch = _batch(np.random.RandomState(5), bs=1, spp=1)
-    with torch.inference_mode(), pytest.raises(NotImplementedError,
-                                               match="slice 3"):
-        model({k: torch.from_numpy(v) for k, v in batch.items()})
-    # With splat kernels the model runs with gradients enabled and trains.
-    model.splat = True
-    out = model({k: torch.from_numpy(v) for k, v in batch.items()})
-    out["radiance"].sum().backward()
-    assert all(p.grad is not None and torch.isfinite(p.grad).all()
-               for p in model.parameters())
+    with torch.inference_mode():
+        gather = model({k: torch.from_numpy(v) for k, v in batch.items()})
+    assert gather["radiance"].shape == (1, 3, 15, 18)
+    assert torch.isfinite(gather["radiance"]).all()
+    # With either kind of kernel the model runs with gradients enabled and
+    # trains.
+    for splat in (False, True):
+        model.splat = splat
+        model.zero_grad()
+        out = model({k: torch.from_numpy(v) for k, v in batch.items()})
+        out["radiance"].sum().backward()
+        assert all(p.grad is not None and torch.isfinite(p.grad).all()
+                   for p in model.parameters())
 
 
 @pytest.fixture(scope="module")

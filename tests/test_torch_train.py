@@ -332,8 +332,13 @@ def test_collate_and_datasets_match_jax(tiles):
     assert first["features"].dtype == np.float16 and cached[1] is first
     np.testing.assert_array_equal(
         first["features"], data[1]["features"].astype(np.float16))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        TilesDataset(tiles, mode="kpcn")
+    # kpcn items carry no "features": the cache keeps them as they are.
+    kpcn = TilesDataset(tiles, mode="kpcn", cache_preprocessed=True)
+    item = kpcn[1]
+    assert kpcn[1] is item and "features" not in item
+    _assert_batches_equal(
+        collate([item, kpcn[2]]),
+        jcollate([JTilesDataset(tiles, mode="kpcn")[i] for i in (1, 2)]))
 
 
 def test_loader_matches_jax(tiles):
@@ -597,12 +602,79 @@ def test_cli_end_to_end_then_resume(tiles, tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--kpcn_mode"], "slice 3"), (["--lbf_mode"], "slice 3"),
-    (["--gather"], "slice 3"), (["--device_reservoir", "4"], "slice 2")])
+    (["--device_reservoir", "4"], "slice 2")])
 def test_cli_unported_flags_raise(tiles, tmp_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):
         train_cli.main(_cli(tiles, str(tmp_path / "c"), "--device", "cpu",
                             *flags))
+    assert not os.path.exists(str(tmp_path / "c"))
+
+
+@pytest.mark.parametrize("flags,arch", [
+    (["--kpcn_mode", "--kpcn_depth", "2", "--kpcn_width", "8", "--ksize",
+      "5"], "kpcn"),
+    (["--lbf_mode", "--lbf_window_r", "2"], "lbf"),
+    (["--gather"], "sbmc"),
+    (["--gather", "--bf16", "--constant_spp"], "sbmc")],
+    ids=["kpcn", "lbf", "gather", "gather_bf16"])
+def test_cli_modes_train_then_denoise(tiles, tmp_path, flags, arch):
+    """Each mode trains two steps on the CPU and writes a checkpoint that
+    the denoise entry point reads back, through ragged and uniform tiles."""
+    from sbmc_tpu_torch import denoise
+    from sbmc_tpu_torch.models import KPCN, LBF
+    from sbmc_tpu_torch.utils import exr
+    ckpt = str(tmp_path / "ckpt")
+    iface = train_cli.main(_cli(tiles, ckpt, "--max_steps", "2", "--device",
+                                "cpu", *flags))
+    assert iface.step == 2
+    meta = Checkpointer.load_meta(ckpt)
+    assert meta["arch"] == arch and meta["kpcn_mode"] == (arch == "kpcn")
+    files = set(os.listdir(ckpt))
+    assert {"meta.json", "train_log.csv", "final.msgpack",
+            "ckpt_000000002.msgpack"} <= files
+    # KPCN writes no display strip and trains at a constant sample count.
+    assert ("viz" in files) == (arch != "kpcn")
+    if arch == "kpcn":
+        assert isinstance(iface.model, KPCN)
+        assert meta["data_params"]["mode"] == "kpcn"
+        assert meta["model_params"] == dict(
+            n_in=27, ksize=5, depth=2, width=8, conv_dtype=None)
+        crop = 4
+    elif arch == "lbf":
+        assert isinstance(iface.model, LBF)
+        assert meta["model_params"]["window_r"] == 2
+        crop = 2
+    else:
+        assert isinstance(iface.model, Multisteps)
+        assert meta["model_params"]["splat"] is False
+        crop = 1
+    with open(os.path.join(ckpt, "train_log.csv")) as f:
+        rows = list(csv.DictReader(f))
+    assert [r["step"] for r in rows] == ["1", "2"]
+    assert all(np.isfinite(float(r["loss"])) for r in rows)
+    assert (float(rows[0]["input_loss"]) == 0.0) == (arch == "kpcn")
+    outs = []
+    for extra in ([], ["--uniform_tiles"]):
+        out = str(tmp_path / ("u" if extra else "r") / "a.exr")
+        res = denoise.main(denoise.parse_args(
+            ["--input", tiles, "--checkpoint", ckpt, "--output", out,
+             "--tile_size", "24", "--tile_pad", "8", "--device", "cpu",
+             *extra]))
+        assert len(res) == 2 and res[0]["tiles"] == 4
+        img = exr.read(res[0]["output"])
+        assert img.shape == (32, 32, 3) and np.isfinite(img).all()
+        assert np.abs(img[:crop]).max() == 0
+        assert np.abs(img[8:-8, 8:-8]).max() > 0
+        outs.append(img)
+    # Ragged and uniform tiles agree away from the frame's edge.
+    np.testing.assert_allclose(outs[0][8:-8, 8:-8], outs[1][8:-8, 8:-8],
+                               atol=2e-3, rtol=2e-3)
+
+
+def test_cli_kpcn_and_lbf_exclude_each_other(tiles, tmp_path):
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        train_cli.main(_cli(tiles, str(tmp_path / "c"), "--device", "cpu",
+                            "--kpcn_mode", "--lbf_mode"))
     assert not os.path.exists(str(tmp_path / "c"))
 
 
