@@ -38,10 +38,12 @@ Phases, each printing one line (or a few) before the last:
    logits-gradient kernels (steps x spp each; the data-gradient kernel 0:
    nothing asks for the gradient to a batch input), the checkpoint and the
    CSV log, then denoises with the trained checkpoint;
-9. scale: times the flagship forward on one full 1080x2048 tile at 4 spp.
+9. scale: times the flagship forward on one full 1080x2048 tile at 4 spp,
+   then each classical baseline on one 1080x2048 frame at 4 spp, with its
+   peak device memory.
 
-The composed kernels' phases run between these (4b after 4, 6b after 6, 8b
-to 8d after 8):
+The composed kernels' phases run between these (4b to 4d after 4, 6b after
+6, 8b to 8e after 8):
 
 4b. composed kernels: holds kernel weighting, its gradient to the weights
     and scatter2gather against their plain versions (k in {3, 5, 21}, odd
@@ -63,8 +65,24 @@ to 8d after 8):
 8c. gather path: trains ``sbmc_tpu_torch.train --gather`` at the flagship
     architecture for a few steps: every sample slot launches kernel
     weighting and its weight gradient, none the fused splat;
+4c. exp kernels: holds scatter2gather_max (bit-exact, float32 and bfloat16)
+    and kernel weighting of exp(logits - max) against their plain versions
+    (k in {3, 5, 21}, odd shapes, 2 and 3 channels, and every shape of 4d);
+    times both at (1, 3, 1080, 2048) and (4, 3, 128, 128), k = 21;
+4d. composed splat step: the step built from ``ops.scatter2gather_max`` and
+    ``ops.kernel_weighting_exp`` as the JAX package's unfused branch builds
+    it, held against the fused kernel (``ops.progressive_splat_update``) from
+    the initial and from a random state, and both timed at (1, 3, 1080,
+    2048) bf16: the path on which the two exp kernels run;
 8d. LBF: two training steps and one denoise at its default window radius 8;
-    it launches none of the hand-written kernels, and the run checks that.
+    it launches none of the hand-written kernels, and the run checks that;
+8e. evaluation path: writes two synthetic 256x256 scenes at 4 spp and runs
+    ``sbmc_tpu_torch.eval_suite`` with ``weights/flagship_f16`` and the KPCN
+    (bf16) and LBF checkpoints of 8b and 8d, in ragged tiles of 160 (pad
+    32), with the four classical baselines; checks the EXRs, ``metrics.csv``,
+    the launches (tiles x spp of the splat kernel per scene, two kernel
+    weightings per KPCN tile) and each baseline on the card against the same
+    baseline on the CPU.
 
 Every path records the shapes and logit or weight types it gives the splat
 step, kernel weighting and scatter2gather; the run fails if a kernel met a
@@ -113,31 +131,41 @@ KERNELS = (
      "sbmc_tpu/ops/pallas_kernels.py:321"),
     ("scatter2gather", _CSRC + "scatter2gather.cu",
      "sbmc_tpu/ops/pallas_kernels.py:393"),
+    ("scatter2gather_max", _CSRC + "scatter2gather.cu",
+     "sbmc_tpu/ops/pallas_kernels.py:419"),
+    ("kernel_weighting_exp", _CSRC + "kernel_weighting.cu",
+     "sbmc_tpu/ops/pallas_kernels.py:232"),
 )
 #: The paths on which a kernel must have launched. The data-gradient kernel
 #: lies on neither main path by nature (its gradient goes to a batch input,
 #: which nothing asks for): the gradient phase runs it inside the model.
 #: Likewise scatter2gather: KPCN and the gather model predict gather kernels,
 #: so only the composed gradient phase (splat kernels through
-#: ``kernel_apply``, and every backward to the data) transposes any.
+#: ``kernel_apply``, and every backward to the data) transposes any. The two
+#: exp kernels run where the op API composes them into the splat step.
 MUST_LAUNCH = {
-    "progressive_splat": ("denoise", "train", "train_bf16", "gradient"),
+    "progressive_splat": ("denoise", "train", "train_bf16", "gradient",
+                          "eval"),
     "progressive_splat_ddata": ("gradient",),
     "progressive_splat_dlogits": ("train", "train_bf16", "gradient"),
     "kernel_weighting": ("kpcn_train", "kpcn_train_bf16", "kpcn_denoise",
-                         "gather_train", "gradient_composed"),
+                         "gather_train", "gradient_composed", "eval"),
     "kernel_weighting_dw": ("kpcn_train", "kpcn_train_bf16", "gather_train",
                             "gradient_composed"),
     "scatter2gather": ("gradient_composed",),
+    "scatter2gather_max": ("composed_step",),
+    "kernel_weighting_exp": ("composed_step",),
 }
 #: The wrapped op whose recorded cases speak for each kernel.
 _OP_OF = {"progressive_splat": "splat", "progressive_splat_ddata": "splat",
           "progressive_splat_dlogits": "splat", "kernel_weighting": "kw",
-          "kernel_weighting_dw": "kw", "scatter2gather": "s2g"}
+          "kernel_weighting_dw": "kw", "scatter2gather": "s2g",
+          "scatter2gather_max": "s2g_max", "kernel_weighting_exp": "kw_exp"}
 
 #: (bs, c, h, w, logit type) the paths give the splat step, k = 21: the
 #: denoise path's tile, a training batch in float32 and with --bf16, a frame
-#: denoised with the trained checkpoint, and the gradient phase's input.
+#: denoised with the trained checkpoint, the gradient phase's input, and the
+#: evaluation path's ragged tiles of a 256x256 frame (160 and 64 px sides).
 #: The kernel phases compare at each; _check_shapes holds the paths to it.
 PATH_SHAPES = (
     (1, 3, 160, 160, torch.bfloat16),
@@ -145,13 +173,18 @@ PATH_SHAPES = (
     (4, 3, 128, 128, torch.bfloat16),
     (1, 3, 128, 128, torch.bfloat16),
     (1, 3, 48, 48, torch.float32),
+    (1, 3, 160, 64, torch.bfloat16),
+    (1, 3, 64, 160, torch.bfloat16),
+    (1, 3, 64, 64, torch.bfloat16),
 )
 #: (bs, c, h, w, weight type) the paths give kernel weighting, k = 21: a
 #: KPCN training batch of 128x128 tiles less the 36 px the valid convs take
 #: (float32, and bfloat16 kernels with --bf16), a KPCN tile of the denoised
 #: frame (160 less 36) from either checkpoint, a gather-model training batch
 #: (its weights are exp(logits - max), float32), and the composed gradient
-#: phase's KPCN tile (64 less 36) and kernel_apply input.
+#: phase's KPCN tile (64 less 36) and kernel_apply input, and the
+#: evaluation path's ragged KPCN tiles (bf16 checkpoint; 160 and 64 px
+#: sides less 36).
 KW_PATH_SHAPES = (
     (4, 3, 92, 92, torch.float32),
     (4, 3, 92, 92, torch.bfloat16),
@@ -160,6 +193,20 @@ KW_PATH_SHAPES = (
     (4, 3, 128, 128, torch.float32),
     (1, 3, 28, 28, torch.float32),
     (2, 3, 37, 53, torch.float32),
+    (1, 3, 124, 28, torch.bfloat16),
+    (1, 3, 28, 124, torch.bfloat16),
+    (1, 3, 28, 28, torch.bfloat16),
+)
+#: (bs, c, h, w, k, logit type) at which phase 4d composes the splat step
+#: from the two exp kernels, each from the initial and from a random state:
+#: odd shapes, both channel counts, and the flagship tile of 1080x2048 last
+#: (the one it times). Phase 4c compares both kernels at each.
+STEP_SHAPES = (
+    (2, 3, 37, 53, 3, torch.float32),
+    (2, 3, 130, 3, 5, torch.bfloat16),
+    (2, 2, 5, 7, 21, torch.bfloat16),
+    (4, 3, 128, 128, 21, torch.float32),
+    (1, 3, 1080, 2048, 21, torch.bfloat16),
 )
 #: kernel -> {(data shape, k2, logit or weight type)} held against the plain
 #: version. scatter2gather sees no data: its cases carry (bs, h, w); the
@@ -201,22 +248,21 @@ def _bound(nbytes, flops):
             "bytes" if by_bytes >= by_ops else "operations")
 
 
-def _splat_inputs(rng, bs, c, h, w, k, dtype, init):
-    dev = torch.device("cuda")
+def _splat_inputs(gen, bs, c, h, w, k, dtype, init):
+    """The splat step's inputs, drawn on the card from ``gen``: data, logits
+    (3x a standard normal, in ``dtype``) and the initial state (``max_w =
+    -1e30``) or a random one."""
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
 
-    def t(a, dt=torch.float32):
-        return torch.tensor(a, dtype=torch.float32).to(dt).to(dev)
-
-    data = t(rng.randn(bs, c, h, w))
-    logits = t(3 * rng.randn(bs, k * k, h, w), dtype)
+    data, logits = randn(bs, c, h, w), (3 * randn(bs, k * k, h, w)).to(dtype)
     if init:
-        state = (torch.zeros(bs, c, h, w, device=dev),
-                 torch.zeros(bs, 1, h, w, device=dev),
-                 torch.full((bs, 1, h, w), -1e30, device=dev))
+        state = (torch.zeros(bs, c, h, w, device="cuda"),
+                 torch.zeros(bs, 1, h, w, device="cuda"),
+                 torch.full((bs, 1, h, w), -1e30, device="cuda"))
     else:
-        state = (t(rng.randn(bs, c, h, w)),
-                 t(abs(rng.randn(bs, 1, h, w))),
-                 t(rng.randn(bs, 1, h, w)))
+        state = (randn(bs, c, h, w), randn(bs, 1, h, w).abs(),
+                 randn(bs, 1, h, w))
     return (data, logits) + state
 
 
@@ -231,19 +277,22 @@ def _s2g_case(weights):
 
 class _record_shapes:
     """While active, notes every case the models give the splat step
-    (``seen["splat"]``), kernel weighting (``seen["kw"]``) and
-    scatter2gather (``seen["s2g"]``) on the card. The calls themselves go
-    through unchanged."""
+    (``seen["splat"]``), kernel weighting (``seen["kw"]``), scatter2gather
+    (``seen["s2g"]``) and the two exp ops (``seen["s2g_max"]``,
+    ``seen["kw_exp"]``) on the card. The calls themselves go through
+    unchanged."""
 
     def __init__(self, ops):
         self.ops = ops
-        self.seen = {"splat": set(), "kw": set(), "s2g": set()}
+        self.seen = {"splat": set(), "kw": set(), "s2g": set(),
+                     "s2g_max": set(), "kw_exp": set()}
 
     def __enter__(self):
         ops, seen = self.ops, self.seen
         self.plain = (ops.progressive_splat_update, ops.kernel_weighting,
-                      ops.scatter2gather)
-        splat, kw, s2g = self.plain
+                      ops.scatter2gather, ops.scatter2gather_max,
+                      ops.kernel_weighting_exp)
+        splat, kw, s2g, s2g_max, kw_exp = self.plain
 
         def rec_splat(data, klogits, *state):
             if data.is_cuda:
@@ -260,14 +309,27 @@ class _record_shapes:
                 seen["s2g"].add(_s2g_case(weights))
             return s2g(weights)
 
+        def rec_s2g_max(weights):
+            if weights.is_cuda:
+                seen["s2g_max"].add(_s2g_case(weights))
+            return s2g_max(weights)
+
+        def rec_kw_exp(data, logits, maxes):
+            if data.is_cuda:
+                seen["kw_exp"].add(_case(data, logits))
+            return kw_exp(data, logits, maxes)
+
         ops.progressive_splat_update = rec_splat
         ops.kernel_weighting = rec_kw
         ops.scatter2gather = rec_s2g
+        ops.scatter2gather_max = rec_s2g_max
+        ops.kernel_weighting_exp = rec_kw_exp
         return seen
 
     def __exit__(self, *exc):
         (self.ops.progressive_splat_update, self.ops.kernel_weighting,
-         self.ops.scatter2gather) = self.plain
+         self.ops.scatter2gather, self.ops.scatter2gather_max,
+         self.ops.kernel_weighting_exp) = self.plain
 
 
 def _check_shapes(path, seen, kernels):
@@ -307,7 +369,7 @@ def _compare(ops, args):
 
 
 def _kernel_phase(ops, main_tile):
-    rng = np.random.RandomState(0)
+    rng = torch.Generator(device="cuda").manual_seed(0)
     err = 0.0
     cases = 0
     for k in (3, 5, 21):
@@ -383,11 +445,8 @@ def _bwd_inputs(ops, rng, bs, c, h, w, k, dtype):
     data, logits, sr, sw, mw = _splat_inputs(rng, bs, c, h, w, k, dtype,
                                              False)
     new_max = ops.progressive_splat_update(data, logits, sr, sw, mw)[2]
-    dev = data.device
-    d_r = torch.tensor(rng.randn(bs, c, h, w), dtype=torch.float32,
-                       device=dev)
-    d_w = torch.tensor(rng.randn(bs, 1, h, w), dtype=torch.float32,
-                       device=dev)
+    d_r = torch.randn(bs, c, h, w, device="cuda", generator=rng)
+    d_w = torch.randn(bs, 1, h, w, device="cuda", generator=rng)
     return data, logits, new_max, d_r, d_w
 
 
@@ -460,7 +519,7 @@ def _record_times(numbers, name, tag, ms, plain_ms, bound_ms, by):
 
 
 def _bwd_kernel_phase(ops):
-    rng = np.random.RandomState(1)
+    rng = torch.Generator(device="cuda").manual_seed(1)
     err = [0.0, 0.0]
     cases = 0
     for k in (3, 5, 21):
@@ -969,6 +1028,177 @@ def _composed_kernel_phase(ops):
     return numbers
 
 
+def _exp_inputs(gen, bs, c, h, w, k, dtype):
+    """data, gather logits and a per-pixel shift for the exp kernels, drawn
+    on the card: the shift is the logits' tap max plus a margin in [0, 1),
+    so every exponent is at most 0, as in the splat step."""
+    data = torch.randn(bs, c, h, w, device="cuda", generator=gen)
+    logits = (3 * torch.randn(bs, k * k, h, w, device="cuda",
+                              generator=gen)).to(dtype)
+    maxes = logits.float().amax(1) + torch.rand(bs, h, w, device="cuda",
+                                                generator=gen)
+    return data, logits, maxes
+
+
+def _compare_exp(ops, data, logits, maxes):
+    """Max abs error of kernel_weighting_exp against its plain version;
+    raises beyond ``ATOL + RTOL * |plain|``, and if scatter2gather_max is
+    not bit-exact (gather and tap max)."""
+    case = _case(data, logits)
+    _COMPARED["scatter2gather_max"].add(_s2g_case(logits))
+    _COMPARED["kernel_weighting_exp"].add(case)
+    g, kmax = ops.scatter2gather_max(logits)
+    want_g, want_kmax = ops.scatter2gather_max_ref(logits)
+    torch.cuda.synchronize()
+    if (g.dtype != logits.dtype or kmax.dtype != torch.float32
+            or not torch.equal(g, want_g) or not torch.equal(kmax, want_kmax)):
+        raise AssertionError("scatter2gather_max kernel is not bit-exact at "
+                             "%s" % (case,))
+    del g, want_g, kmax, want_kmax
+    got = ops.kernel_weighting_exp(data, logits, maxes)
+    want = ops.kernel_weighting_exp_ref(data, logits, maxes)
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, r in zip(got, want):
+        if g.dtype != torch.float32 or g.shape != r.shape:
+            raise AssertionError("kernel_weighting_exp returned %s %s"
+                                 % (g.dtype, tuple(g.shape)))
+        if not bool(torch.all((g - r).abs() <= ATOL + RTOL * r.abs())):
+            raise AssertionError(
+                "kernel_weighting_exp kernel disagrees with its plain version "
+                "at %s: max abs err %.3g" % (case, float((g - r).abs().max())))
+        err = max(err, float((g - r).abs().max()))
+    return err
+
+
+def _time_exp(ops, data, logits, maxes, plain_iters):
+    """{kernel: (ms, plain ms, bound ms, bound by)} on these inputs."""
+    bs, c, h, w = data.shape
+    k2 = logits.shape[1]
+    px = bs * h * w
+    lbytes = logits.numel() * logits.element_size()
+    return {
+        # Reads and writes the k2 planes, writes the float32 max plane; one
+        # compare per tap.
+        "scatter2gather_max": (
+            _time_ms(lambda: ops.scatter2gather_max(logits), 3, 20),
+            _time_ms(lambda: ops.scatter2gather_max_ref(logits), 1,
+                     plain_iters),
+        ) + _bound(2 * lbytes + px * 4, px * k2),
+        # Reads the logits, c data planes and the max plane, writes c + 1
+        # planes; per tap a subtract, an exp, an add to sum_w and one FMA per
+        # channel.
+        "kernel_weighting_exp": (
+            _time_ms(lambda: ops.kernel_weighting_exp(data, logits, maxes), 3,
+                     20),
+            _time_ms(lambda: ops.kernel_weighting_exp_ref(data, logits,
+                                                          maxes), 1,
+                     plain_iters),
+        ) + _bound(lbytes + px * 4 * (2 * c + 2), px * k2 * (3 + 2 * c)),
+    }
+
+
+def _exp_kernel_phase(ops):
+    """scatter2gather_max and kernel_weighting_exp against their plain
+    versions, then their times (the composed step's tile first)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    err = 0.0
+    cases = 0
+    for k in (3, 5, 21):
+        for c, hw in ((3, (37, 53)), (3, (130, 3)), (2, (5, 7))):
+            for dtype in (torch.float32, torch.bfloat16):
+                err = max(err, _compare_exp(ops, *_exp_inputs(
+                    gen, 2, c, *hw, k, dtype)))
+                cases += 1
+    for bs, c, h, w, k, dtype in STEP_SHAPES[:-1]:
+        err = max(err, _compare_exp(ops, *_exp_inputs(gen, bs, c, h, w, k,
+                                                      dtype)))
+        cases += 1
+    print("exp kernel check: %d cases, scatter2gather_max bit-exact (gather "
+          "and tap max) in float32 and bfloat16, kernel_weighting_exp max abs "
+          "err %.3g (tolerance %.0e + %.0e * |plain|)"
+          % (cases, err, ATOL, RTOL))
+    numbers = {}
+    for shape, dtype, iters in (((1, 3, 1080, 2048), torch.bfloat16, 2),
+                                ((1, 3, 1080, 2048), torch.float32, 2),
+                                ((4, 3, 128, 128), torch.float32, 3),
+                                ((4, 3, 128, 128), torch.bfloat16, 3)):
+        inputs = _exp_inputs(gen, *shape, 21, dtype)
+        err = max(err, _compare_exp(ops, *inputs))
+        tag = "%s %s" % ("x".join(map(str, shape)),
+                         str(dtype).replace("torch.", ""))
+        for name, times in sorted(_time_exp(ops, *inputs, iters).items()):
+            _record_times(numbers, name, tag, *times)
+        del inputs
+        torch.cuda.empty_cache()
+    numbers["scatter2gather_max"]["max_abs_err"] = 0.0
+    numbers["kernel_weighting_exp"]["max_abs_err"] = err
+    return numbers
+
+
+def _composed_step(ops, data, klogits, sum_r, sum_w, max_w):
+    """One splat step composed from the two exp kernels, as the unfused
+    branch of ``sbmc_tpu.ops._psu_fwd`` composes it: transpose with the tap
+    max, the new running max, rescale, weighting of exp(g - max),
+    accumulate."""
+    g, kmax = ops.scatter2gather_max(klogits)
+    new_max = torch.maximum(kmax[:, None], max_w)
+    scaler = torch.exp(max_w - new_max)
+    r, w = ops.kernel_weighting_exp(data, g, new_max[:, 0])
+    return sum_r * scaler + r, sum_w * scaler + w[:, None], new_max
+
+
+def _composed_step_phase(ops):
+    """The splat step through ``ops.scatter2gather_max`` and
+    ``ops.kernel_weighting_exp`` against the fused kernel B1 on the same
+    inputs, from the initial and from a random state, at every shape of
+    STEP_SHAPES; then both timed at the last. Returns the launch counts of
+    the checked steps (B1 runs there as the yardstick)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    err = 0.0
+    ops.reset_launch_counts()
+    with _record_shapes(ops) as seen:
+        for bs, c, h, w, k, dtype in STEP_SHAPES:
+            for init in (True, False):
+                args = _splat_inputs(gen, bs, c, h, w, k, dtype, init)
+                got = _composed_step(ops, *args)
+                want = ops.progressive_splat_update(*args)
+                torch.cuda.synchronize()
+                for name, g, r in zip(("sum_r", "sum_w", "max_w"), got,
+                                      want):
+                    if not bool(torch.all((g - r).abs()
+                                          <= ATOL + RTOL * r.abs())):
+                        raise AssertionError(
+                            "composed step disagrees with the fused kernel "
+                            "in %s at %s: max abs err %.3g" % (
+                                name, (bs, c, h, w, k, dtype, init),
+                                float((g - r).abs().max())))
+                    err = max(err, float((g - r).abs().max()))
+                del got, want
+    torch.cuda.synchronize()
+    launches = dict(ops.launch_counts)
+    _check_shapes("composed_step", seen, ["scatter2gather_max",
+                                          "kernel_weighting_exp"])
+    steps = 2 * len(STEP_SHAPES)
+    if _nonzero(launches) != {"scatter2gather_max": steps,
+                              "kernel_weighting_exp": steps,
+                              "progressive_splat": steps}:
+        raise AssertionError("composed step phase launched %s, expected %d "
+                             "of each" % (_nonzero(launches), steps))
+    composed_ms = _time_ms(lambda: _composed_step(ops, *args), 3, 20)
+    fused_ms = _time_ms(lambda: ops.progressive_splat_update(*args), 3, 20)
+    print("composed step: %d steps (initial and random state) against the "
+          "fused kernel, max abs err %.3g (tolerance %.0e + %.0e * |fused|); "
+          "at (%s), k=21, bf16 logits: composed %.4f ms, fused %.4f ms "
+          "(%.2fx); launches %s"
+          % (steps, err, ATOL, RTOL, "x".join(map(str, STEP_SHAPES[-1][:4])),
+             composed_ms, fused_ms, composed_ms / fused_ms,
+             json.dumps(_nonzero(launches))))
+    del args
+    torch.cuda.empty_cache()
+    return launches
+
+
 # KPCN gradients on the card against the CPU, float32 convs, per tensor as
 # GRAD_RTOL above but wider: each of its 18 valid 5x5 convs sums 2500 terms
 # per output (the flagship's 3x3 convs 1152) in another order, cuDNN picks
@@ -1211,6 +1441,139 @@ def _lbf_phase(ops, tmp, bs=4):
     return {"lbf_train": counts, "lbf_denoise": dict(ops.launch_counts)}
 
 
+# A baseline on the card against the same baseline on the CPU, per output
+# value: the 99th percentile of |card - cpu| within BASELINE_P99. The filters
+# are eager float32 tensor code on both devices; exp, the batched 8x8 solves
+# and the reductions round otherwise on the card, and three places turn such
+# rounding into a visible step on a few pixels: RPF's histogram bins (a
+# truncation), NFOR's candidate selection (``m < mse``) and NLM's box filter
+# where a zero variance makes the patch distances cancel at 1e8.
+BASELINE_P99 = 1e-3
+
+
+def _eval_phase(ops, tmp, checkpoint, spp=4, tile=160, pad=32):
+    """The evaluation path through ``sbmc_tpu_torch.eval_suite`` on two
+    synthetic 256x256 scenes: the flagship, the KPCN (bf16) and LBF
+    checkpoints of phases 8b and 8d, and the four classical baselines.
+    Returns the launch counts."""
+    from sbmc_tpu_torch import eval_suite
+    from sbmc_tpu_torch.comparisons import denoise_buffers
+    from sbmc_tpu_torch.data.datasets import FullImagesDataset, TilesDataset
+    from sbmc_tpu_torch.data.synthetic import generate_dataset
+    from sbmc_tpu_torch.utils import exr
+
+    size, n_scenes = 256, 2
+    data_dir = os.path.join(tmp, "eval_data")
+    t0 = time.perf_counter()
+    generate_dataset(data_dir, n_scenes=n_scenes, ts=64, tiles_per_side=4,
+                     spp=spp, gt_spp=64, seed=1)
+    gen_s = time.perf_counter() - t0
+    out = os.path.join(tmp, "eval")
+    argv = ["--data", data_dir, "--checkpoint", checkpoint,
+            "--kpcn_checkpoint", os.path.join(tmp, "ckpt_kpcn_train_bf16"),
+            "--lbf_checkpoint", os.path.join(tmp, "ckpt_lbf"),
+            "--output", out, "--spp", str(spp), "--tile_size", str(tile),
+            "--tile_pad", str(pad), "--png", "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with _record_shapes(ops) as seen:
+        res = eval_suite.main(eval_suite.parse_args(argv))
+    torch.cuda.synchronize()
+    launches = dict(ops.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _check_shapes("eval", seen, ["progressive_splat", "kernel_weighting"])
+    methods = res["methods"]
+    if methods != ["input", "ours", "nlm", "cbf", "rpf", "nfor", "lbf",
+                   "kpcn"] or len(res["rows"]) != n_scenes:
+        raise AssertionError("eval_suite scored %s on %d scenes"
+                             % (methods, len(res["rows"])))
+    tiles = res["tiles"]
+    want = {"progressive_splat": n_scenes * tiles["ours"] * spp,
+            "kernel_weighting": n_scenes * 2 * tiles["kpcn"]}
+    if _nonzero(launches) != want:
+        raise AssertionError("eval_suite launched %s, expected %s (%s tiles "
+                             "per frame)" % (_nonzero(launches), want, tiles))
+    scenes = [r["scene"] for r in res["rows"]]
+    for d in ["gt"] + ["%dspp_%s" % (spp, m) for m in methods]:
+        for scene in scenes:
+            img = exr.read(os.path.join(out, d, scene + ".exr"))
+            if img.shape != (size, size, 3) or not np.isfinite(img).all():
+                raise AssertionError("%s/%s.exr is %s, finite: %s" % (
+                    d, scene, img.shape, bool(np.isfinite(img).all())))
+    with open(os.path.join(out, "metrics.csv")) as f:
+        rows = list(csv.DictReader(f))
+    if (len(rows) != n_scenes or len(rows[0]) != 1 + 8 * len(methods)
+            or not all(np.isfinite(float(v)) for r in rows
+                       for k, v in r.items() if k != "scene")):
+        raise AssertionError("metrics.csv: %d rows of %d columns, or a "
+                             "non-finite value" % (len(rows), len(rows[0])))
+    for name in ("metrics.md", os.path.join("png", scenes[0] + ".png")):
+        if not os.path.exists(os.path.join(out, name)):
+            raise AssertionError("eval_suite wrote no %s" % name)
+    # The second scene's times: the first pays for cuDNN's and the solver's
+    # first calls.
+    ms = {m: res["ms"][m][-1] for m in methods if m in res["ms"]}
+    print("evaluation path: %d scenes of %dx%d at %d spp (data written in "
+          "%.1f s), ragged tiles of %d (pad %d): %s tiles per frame; ms per "
+          "frame (second scene) %s; peak device memory %.2f GB; launches %s"
+          % (n_scenes, size, size, spp, gen_s, tile, pad, json.dumps(tiles),
+             json.dumps({m: round(v, 2) for m, v in ms.items()}), peak_gb,
+             json.dumps(_nonzero(launches))))
+    print("evaluation quality (mean of %d scenes, %d px border cropped): %s"
+          % (n_scenes, 21, "; ".join(
+              "%s %.2f dB relMSE %.4f DSSIM %.4f" % (
+                  m, *(float(np.mean([r["%s_%s" % (m, c)]
+                                      for r in res["rows"]]))
+                       for c in ("psnr", "relmse", "dssim")))
+              for m in methods)))
+
+    # Each baseline on the card against the same baseline on the CPU, on the
+    # first scene's sample stack.
+    raw = FullImagesDataset(data_dir, mode=TilesDataset.RAW_MODE, spp=spp)
+    feats = raw[0]["features"]
+    for m in eval_suite.BASELINES:
+        t0 = time.perf_counter()
+        want = denoise_buffers(feats, raw.labels, method=m, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        got = denoise_buffers(feats, raw.labels, method=m, device="cuda")
+        diff = np.abs(got - want)
+        p99 = float(np.percentile(diff, 99))
+        print("baseline %s, card vs CPU on %dx%d: max abs %.3g, mean %.3g, "
+              "99th percentile %.3g (tolerance %.0e), share above 1e-4 %.4f%%;"
+              " CPU %.2f s" % (m, size, size, diff.max(), diff.mean(), p99,
+                               BASELINE_P99, 100 * float((diff > 1e-4).mean()),
+                               cpu_s))
+        if not (np.isfinite(got).all() and p99 <= BASELINE_P99):
+            raise AssertionError("baseline %s on the card disagrees with the "
+                                 "CPU" % m)
+    return launches, raw.labels
+
+
+def _baseline_scale_phase(labels, spp=4, h=1080, w=2048):
+    """Each classical baseline on one 1080x2048 frame of random sample
+    records at 4 spp, on the card: time and peak device memory."""
+    from sbmc_tpu_torch.comparisons import denoise_buffers
+    from sbmc_tpu_torch.eval_suite import BASELINES
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    feats = torch.rand(spp, len(labels), h, w, device="cuda", generator=gen)
+    for m in BASELINES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = denoise_buffers(feats, labels, method=m)  # ends on the host
+        ms = (time.perf_counter() - t0) * 1e3
+        if out.shape != (3, h, w) or not np.isfinite(out).all():
+            raise AssertionError("baseline %s at %dx%d gave %s, finite: %s"
+                                 % (m, h, w, out.shape,
+                                    bool(np.isfinite(out).all())))
+        print("baseline %s on one %dx%d frame at %d spp (%d features): %.2f "
+              "ms; peak device memory %.2f GB" % (
+                  m, h, w, spp, len(labels), ms,
+                  torch.cuda.max_memory_allocated() / 1e9))
+
+
 def main():
     _device_phase()
     if not os.path.isdir(os.path.join(ROOT, "sbmc_tpu_torch")):
@@ -1230,19 +1593,23 @@ def main():
         numbers = {"progressive_splat": _kernel_phase(ops, (tile, tile))}
         numbers.update(_bwd_kernel_phase(ops))
         numbers.update(_composed_kernel_phase(ops))
+        numbers.update(_exp_kernel_phase(ops))
+        by_path = {"composed_step": _composed_step_phase(ops)}
     checkpoint = os.path.join(ROOT, "weights", "flagship_f16")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _reference_phase(checkpoint)
-    by_path = {"gradient": _gradient_phase(ops, checkpoint),
-               "gradient_composed": _composed_gradient_phase(ops)}
+    by_path["gradient"] = _gradient_phase(ops, checkpoint)
+    by_path["gradient_composed"] = _composed_gradient_phase(ops)
     with tempfile.TemporaryDirectory() as tmp:
         by_path["denoise"] = _main_phase(ops, checkpoint, tmp, tile, pad)
         by_path.update(_train_phase(ops, tmp))
         by_path.update(_kpcn_phase(ops, tmp))
         by_path.update(_gather_phase(ops, tmp))
         by_path.update(_lbf_phase(ops, tmp))
+        by_path["eval"], labels = _eval_phase(ops, tmp, checkpoint)
     _scale_phase(checkpoint)
+    _baseline_scale_phase(labels)
 
     kernels = []
     for name, source, replaces in KERNELS:

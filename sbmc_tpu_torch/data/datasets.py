@@ -388,6 +388,14 @@ class FullImagesDataset:
     def num_global_features(self):
         return self.tiles_dset.num_global_features
 
+    @property
+    def labels(self):
+        return self.tiles_dset.labels
+
+    @property
+    def glabels(self):
+        return self.tiles_dset.glabels
+
 
 class MultiSampleCountDataset:
     """Concatenation of TilesDatasets at spp 2..N for variable-sample-count

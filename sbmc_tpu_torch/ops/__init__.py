@@ -11,6 +11,13 @@ by ``csrc/scatter2gather.cu`` (the port of ``_s2g_kernel``), and
 its gradient is asked for. ``scatter2gather`` is its own adjoint: its
 backward is the same kernel on the cotangent.
 
+``scatter2gather_max`` and ``kernel_weighting_exp`` are plain functions and
+not differentiable, as in ``sbmc_tpu.ops``. For CUDA tensors they launch
+``s2g_max`` of ``csrc/scatter2gather.cu`` (the port of ``_s2g_max_kernel``)
+and ``kw_exp`` of ``csrc/kernel_weighting.cu`` (the port of
+``_kw_exp_kernel``); composed as ``sbmc_tpu.ops._psu_fwd``'s unfused branch
+they compute the same splat step as ``progressive_splat_update``.
+
 ``progressive_splat_update`` is a ``torch.autograd.Function`` too. For CUDA
 tensors its forward launches ``csrc/progressive_splat.cu`` (the port of the
 Pallas kernel ``_psf_kernel``) and its backward launches the two kernels of
@@ -28,17 +35,23 @@ import torch
 
 from sbmc_tpu_torch.ops import reference
 from sbmc_tpu_torch.ops.reference import (kernel_weighting_dw_ref,
+                                          kernel_weighting_exp_ref,
                                           kernel_weighting_ref,
                                           progressive_splat_bwd_ref,
                                           progressive_splat_update_ref,
+                                          scatter2gather_max_ref,
                                           scatter2gather_ref)
 
 __all__ = [
     "kernel_weighting",
     "scatter2gather",
+    "scatter2gather_max",
+    "kernel_weighting_exp",
     "kernel_weighting_ref",
     "kernel_weighting_dw_ref",
     "scatter2gather_ref",
+    "scatter2gather_max_ref",
+    "kernel_weighting_exp_ref",
     "progressive_splat_update",
     "progressive_splat_update_ref",
     "progressive_splat_bwd_ref",
@@ -51,7 +64,8 @@ __all__ = [
 #: one where it launches its kernel, and nowhere else.
 launch_counts = {"progressive_splat": 0, "progressive_splat_ddata": 0,
                  "progressive_splat_dlogits": 0, "kernel_weighting": 0,
-                 "kernel_weighting_dw": 0, "scatter2gather": 0}
+                 "kernel_weighting_dw": 0, "scatter2gather": 0,
+                 "scatter2gather_max": 0, "kernel_weighting_exp": 0}
 
 _CHANNELS = (2, 3)  # the kernels' template set
 
@@ -95,6 +109,42 @@ def scatter2gather(weights):
       ``[bs, k2, h, w]`` transposed kernels of the same dtype.
     """
     return _Scatter2Gather.apply(weights)
+
+
+def scatter2gather_max(weights):
+    """``scatter2gather`` and the per-pixel max over the transposed taps,
+    in one pass (not differentiable: the outputs carry no gradient).
+
+    Args:
+      weights: ``[bs, k2, h, w]``, float32 or bfloat16.
+
+    Returns:
+      ``(gather, kmax)``: the gather kernels ``[bs, k2, h, w]`` in the
+      input's dtype and their tap max ``[bs, h, w]`` in float32, which
+      counts the zeros of the taps that fall outside the image.
+    """
+    with torch.no_grad():
+        return (scatter2gather_max_ref if _on_cpu(weights)
+                else _scatter2gather_max_cuda)(weights)
+
+
+def kernel_weighting_exp(data, logits, maxes):
+    """Kernel weighting of ``exp(logits - maxes)``, the exponential formed
+    inside the kernel (not differentiable: the outputs carry no gradient).
+
+    Args:
+      data: ``[bs, c, h, w]`` float32 values, c in (2, 3) on the card.
+      logits: ``[bs, k2, h, w]`` gather-kernel logits, float32 or bfloat16
+        (widened to float32 before the subtraction).
+      maxes: ``[bs, h, w]`` float32 per-pixel shift.
+
+    Returns:
+      ``(output [bs, c, h, w], sum_w [bs, h, w])`` in float32; ``sum_w``
+      sums every tap.
+    """
+    with torch.no_grad():
+        return (kernel_weighting_exp_ref if _on_cpu(data, logits, maxes)
+                else _kernel_weighting_exp_cuda)(data, logits, maxes)
 
 
 def progressive_splat_update(data, klogits, sum_r, sum_w, max_w):
@@ -406,3 +456,47 @@ def _scatter2gather_cuda(weights):
             weights.data_ptr(), weights.element_size(), out.data_ptr(), bs,
             h, w, k)
     return out
+
+
+def _scatter2gather_max_cuda(weights):
+    """scatter2gather_max on the card (kernel ``s2g_max``): the transposed
+    kernels in the input's dtype and their float32 tap max."""
+    from sbmc_tpu_torch.ops import _build
+    _device_of(weights)
+    bs, h, w, k = _check_weights(weights)
+    lib = _build.load_cuda()
+    out = torch.empty_like(weights)
+    kmax = torch.empty((bs, h, w), dtype=torch.float32, device=weights.device)
+    _launch("scatter2gather_max", lib.sbmc_scatter2gather_max, weights.device,
+            weights.data_ptr(), weights.element_size(), out.data_ptr(),
+            kmax.data_ptr(), bs, h, w, k)
+    return out, kmax
+
+
+def _check_kw_exp(data, logits, maxes):
+    """Checks the inputs of ``kernel_weighting_exp``'s kernel; returns
+    ``(bs, c, h, w, k)``."""
+    _device_of(data, logits, maxes)
+    bs, h, w, k = _check_weights(logits)
+    _check_data("data", data, (bs, h, w))
+    if tuple(maxes.shape) != (bs, h, w):
+        raise ValueError(f"maxes has shape {tuple(maxes.shape)}, expected "
+                         f"{(bs, h, w)}")
+    _check_planes("maxes", maxes, (torch.float32,))
+    return bs, data.shape[1], h, w, k
+
+
+def _kernel_weighting_exp_cuda(data, logits, maxes):
+    """Kernel weighting of ``exp(logits - maxes)`` on the card (kernel
+    ``kw_exp``); the arguments and results are those of
+    ``reference.kernel_weighting_exp_ref``."""
+    from sbmc_tpu_torch.ops import _build
+    bs, c, h, w, k = _check_kw_exp(data, logits, maxes)
+    lib = _build.load_cuda()
+    out = torch.empty_like(data)
+    sum_w = torch.empty((bs, h, w), dtype=torch.float32, device=data.device)
+    _launch("kernel_weighting_exp", lib.sbmc_kernel_weighting_exp,
+            data.device, data.data_ptr(), logits.data_ptr(),
+            int(logits.dtype == torch.bfloat16), maxes.data_ptr(),
+            out.data_ptr(), sum_w.data_ptr(), bs, c, h, w, k)
+    return out, sum_w

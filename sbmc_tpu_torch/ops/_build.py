@@ -45,6 +45,11 @@ _KW_ARGS = [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I]
 _KW_DW_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I]
 #: sbmc_scatter2gather(weights, itemsize, out, bs, h, w, k[, stream])
 _S2G_ARGS = [_P, _I, _P, _I, _I, _I, _I]
+#: sbmc_scatter2gather_max(weights, itemsize, out, kmax, bs, h, w, k[, stream])
+_S2G_MAX_ARGS = [_P, _I, _P, _P, _I, _I, _I, _I]
+#: sbmc_kernel_weighting_exp(data, logits, logits_bf16, maxes, out, sum_w,
+#:                           bs, c, h, w, k[, stream])
+_KW_EXP_ARGS = [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I]
 
 #: source -> {exported function: argument types}; the CUDA entry points take
 #: the stream as one more pointer.
@@ -55,8 +60,11 @@ _CUDA = {
         "sbmc_progressive_splat_dlogits": _DLOGITS_ARGS + [_P]},
     "kernel_weighting.cu": {
         "sbmc_kernel_weighting": _KW_ARGS + [_P],
-        "sbmc_kernel_weighting_dw": _KW_DW_ARGS + [_P]},
-    "scatter2gather.cu": {"sbmc_scatter2gather": _S2G_ARGS + [_P]},
+        "sbmc_kernel_weighting_dw": _KW_DW_ARGS + [_P],
+        "sbmc_kernel_weighting_exp": _KW_EXP_ARGS + [_P]},
+    "scatter2gather.cu": {
+        "sbmc_scatter2gather": _S2G_ARGS + [_P],
+        "sbmc_scatter2gather_max": _S2G_MAX_ARGS + [_P]},
 }
 _HOST = {
     "progressive_splat_host.cpp": {"sbmc_progressive_splat_host": _PSF_ARGS},
@@ -65,8 +73,11 @@ _HOST = {
         "sbmc_progressive_splat_dlogits_host": _DLOGITS_ARGS},
     "kernel_weighting_host.cpp": {
         "sbmc_kernel_weighting_host": _KW_ARGS,
-        "sbmc_kernel_weighting_dw_host": _KW_DW_ARGS},
-    "scatter2gather_host.cpp": {"sbmc_scatter2gather_host": _S2G_ARGS},
+        "sbmc_kernel_weighting_dw_host": _KW_DW_ARGS,
+        "sbmc_kernel_weighting_exp_host": _KW_EXP_ARGS},
+    "scatter2gather_host.cpp": {
+        "sbmc_scatter2gather_host": _S2G_ARGS,
+        "sbmc_scatter2gather_max_host": _S2G_MAX_ARGS},
 }
 
 _lock = threading.Lock()

@@ -1,8 +1,8 @@
-// Host build of kernel weighting and of its gradient to the weights: the
-// kernels' per-pixel functions (kernel_weighting.cuh) run in plain loops. It
-// exists so the CPU tests can check the kernels' index math (p + d_t, the
-// image bounds, sum_w over every tap) against the plain PyTorch version
-// without a GPU:
+// Host build of kernel weighting, of its gradient to the weights and of its
+// exp variant: the kernels' per-pixel functions (kernel_weighting.cuh) run in
+// plain loops. It exists so the CPU tests can check the kernels' index math
+// (p + d_t, the image bounds, sum_w over every tap, the in-register exp)
+// against the plain PyTorch versions without a GPU:
 //
 //   g++ -O2 -shared -fPIC -o libkw_host.so kernel_weighting_host.cpp
 
@@ -45,9 +45,34 @@ void run_dw(const float* data, const float* d_out, const float* d_sum_w,
                        d_sum_w + n * hw, d_w + n * k2 * hw, h, w, k, y, x);
 }
 
+template <int C, typename T>
+void run_exp(const float* data, const T* logits, const float* maxes,
+             float* out, float* sum_w, int bs, int h, int w, int k) {
+  const int64_t hw = static_cast<int64_t>(h) * w;
+  const int64_t k2 = static_cast<int64_t>(k) * k;
+  for (int64_t n = 0; n < bs; ++n)
+    for (int y = 0; y < h; ++y)
+      for (int x = 0; x < w; ++x)
+        kw_exp_pixel<C, T>(data + n * C * hw, logits + n * k2 * hw,
+                           maxes + n * hw, out + n * C * hw, sum_w + n * hw,
+                           h, w, k, y, x);
+}
+
+template <int C>
+void exp_c(const float* data, const void* logits, int logits_bf16,
+           const float* maxes, float* out, float* sum_w, int bs, int h, int w,
+           int k) {
+  if (logits_bf16)
+    run_exp<C>(data, static_cast<const uint16_t*>(logits), maxes, out, sum_w,
+               bs, h, w, k);
+  else
+    run_exp<C>(data, static_cast<const float*>(logits), maxes, out, sum_w,
+               bs, h, w, k);
+}
+
 }  // namespace
 
-// Same arguments as the CUDA entry points, minus the stream. Both return 0,
+// Same arguments as the CUDA entry points, minus the stream. All return 0,
 // or 1 for a channel count other than 2 or 3 (the kernels' template set).
 
 extern "C" int sbmc_kernel_weighting_host(const float* data,
@@ -78,6 +103,24 @@ extern "C" int sbmc_kernel_weighting_dw_host(const float* data,
       return 0;
     case 3:
       run_dw<3>(data, d_out, d_sum_w, d_w, bs, h, w, k);
+      return 0;
+    default:
+      return 1;
+  }
+}
+
+extern "C" int sbmc_kernel_weighting_exp_host(const float* data,
+                                              const void* logits,
+                                              int logits_bf16,
+                                              const float* maxes, float* out,
+                                              float* sum_w, int bs, int c,
+                                              int h, int w, int k) {
+  switch (c) {
+    case 2:
+      exp_c<2>(data, logits, logits_bf16, maxes, out, sum_w, bs, h, w, k);
+      return 0;
+    case 3:
+      exp_c<3>(data, logits, logits_bf16, maxes, out, sum_w, bs, h, w, k);
       return 0;
     default:
       return 1;

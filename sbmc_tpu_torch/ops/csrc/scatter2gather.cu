@@ -1,7 +1,8 @@
 // scatter2gather for Hopper (sm_90a): transposes per-pixel splat kernels
-// into gather kernels (and back: the op is its own adjoint).
+// into gather kernels (and back: the op is its own adjoint); and
+// scatter2gather_max, the same transpose with the per-pixel tap max.
 //
-// Replaces the Pallas TPU kernel `_s2g_kernel` (launched by
+// s2g replaces the Pallas TPU kernel `_s2g_kernel` (launched by
 // `scatter2gather_pallas`, sbmc_tpu/ops/pallas_kernels.py:393):
 //
 //   out[dy*k + dx, p] = w[(k-1-dy)*k + (k-1-dx), p + (dy-o, dx-o)]
@@ -19,6 +20,22 @@
 // bounds test takes the place of the TPU kernel's padded copy and its
 // double-buffered row DMA. bfloat16 moves as 16-bit patterns, so the result
 // is bit-exact in both types. No atomics; element offsets are 64-bit.
+//
+// s2g_max replaces `_s2g_max_kernel` (launched by
+// `scatter2gather_max_pallas`, pallas_kernels.py:419): the same output, plus
+// kmax[p] = max_t float(out[t, p]) in float32, the zero-padded taps
+// included (the Pallas kernel starts from -inf and maxes every written
+// value). Bound by bytes as s2g is, plus one float32 plane written.
+//
+// What its design does about it: the max is a reduction over the taps of a
+// pixel, so one thread owns one pixel and walks its k^2 taps in registers,
+// with no shared memory and no second pass. x fastest across threadIdx.x
+// keeps both sides of every tap's move coalesced: the warp reads a row
+// segment of plane `flip t` shifted by d_t and writes a row segment of
+// plane t. bfloat16 moves as 16-bit patterns (bit-exact) and is widened to
+// float32 only for the compare, since a compare of raw bfloat16 bits orders
+// negative numbers backwards. The image blocks sit on gridDim.x and the
+// batch on gridDim.y, so no grid dimension passes 65535 at any image size.
 
 #include <cuda_runtime.h>
 
@@ -46,6 +63,35 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
                  static_cast<int>(blockIdx.y), y, x);
 }
 
+// grid: x = row-blocks * column-blocks of the image, y = batch item.
+template <typename T>
+__global__ void __launch_bounds__(kBlockX* kBlockY)
+    s2g_max_kernel(const T* __restrict__ weights, T* __restrict__ out,
+                   float* __restrict__ kmax, int h, int w, int k,
+                   int blocks_x) {
+  const int by = blockIdx.x / blocks_x;
+  const int bx = blockIdx.x - by * blocks_x;
+  const int x = bx * kBlockX + threadIdx.x;
+  const int y = by * kBlockY + threadIdx.y;
+  if (x >= w || y >= h) return;
+  const int64_t n = blockIdx.y;
+  const int64_t hw = static_cast<int64_t>(h) * w;
+  const int64_t item = static_cast<int64_t>(k) * k * hw;
+  s2g_max_pixel<T>(weights + n * item, out + n * item, kmax + n * hw, h, w,
+                   k, y, x);
+}
+
+template <typename T>
+void launch_max(const void* weights, void* out, float* kmax, int bs, int h,
+                int w, int k, cudaStream_t stream) {
+  const int blocks_x = (w + kBlockX - 1) / kBlockX;
+  const int blocks_y = (h + kBlockY - 1) / kBlockY;
+  s2g_max_kernel<T><<<dim3(blocks_x * blocks_y, bs), dim3(kBlockX, kBlockY),
+                      0, stream>>>(static_cast<const T*>(weights),
+                                   static_cast<T*>(out), kmax, h, w, k,
+                                   blocks_x);
+}
+
 template <typename T>
 void launch(const void* weights, void* out, int bs, int h, int w, int k,
             cudaStream_t stream) {
@@ -59,7 +105,7 @@ void launch(const void* weights, void* out, int bs, int h, int w, int k,
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (a refused launch is
+// Both launch on `stream` and return cudaGetLastError() (a refused launch is
 // reported here, not by a later synchronise). `itemsize` is 4 (float32) or
 // 2 (bfloat16); anything else returns cudaErrorInvalidValue. The caller
 // checks shapes, dtypes, contiguity and the device.
@@ -72,6 +118,19 @@ extern "C" int sbmc_scatter2gather(const void* weights, int itemsize,
     launch<float>(weights, out, bs, h, w, k, s);
   else if (itemsize == 2)
     launch<uint16_t>(weights, out, bs, h, w, k, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sbmc_scatter2gather_max(const void* weights, int itemsize,
+                                       void* out, float* kmax, int bs, int h,
+                                       int w, int k, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (itemsize == 4)
+    launch_max<float>(weights, out, kmax, bs, h, w, k, s);
+  else if (itemsize == 2)
+    launch_max<uint16_t>(weights, out, kmax, bs, h, w, k, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -4,6 +4,8 @@
         [--size 1080x2048] [--spp 4]
     python -m sbmc_tpu_torch.profile --train [--bf16] [--size 128x128] \\
         [--spp 8] [--bs 4] [--arch sbmc|gather|kpcn|lbf]
+    python -m sbmc_tpu_torch.profile --baseline nlm|cbf|rpf|nfor \\
+        [--size 1080x2048] [--spp 4]
 
 Builds the checkpoint's model on the GPU, runs one tile of random inputs
 once to warm up, then once under ``torch.profiler``, and prints the wall
@@ -18,7 +20,9 @@ as ``python -m sbmc_tpu_torch.train --bf16`` does, else they are float32.
 ``--kpcn_mode`` and ``--lbf_mode`` do: the checkpoint's architecture with
 gather kernels, KPCN at its published width on the 27-channel pixel
 statistics, or LBF at its defaults; other than ``sbmc`` they start from
-freshly initialised weights, with or without ``--train``.
+freshly initialised weights, with or without ``--train``. ``--baseline``
+profiles one classical baseline of :mod:`sbmc_tpu_torch.comparisons` on a
+frame of random sample records instead of a model.
 """
 
 import argparse
@@ -26,6 +30,7 @@ import time
 
 import torch
 
+from sbmc_tpu_torch.comparisons import denoise_buffers
 from sbmc_tpu_torch.denoise import load_model
 from sbmc_tpu_torch.models import KPCN, LBF
 from sbmc_tpu_torch.models.build import build_model
@@ -48,8 +53,9 @@ def classify(name):
         return "splat kernel"
     if "psb_ddata" in low or "psb_dlogits" in low:
         return "splat backward kernels"
-    if "kw_fwd_kernel" in low or "kw_dw_kernel" in low \
-            or "s2g_kernel" in low:
+    if any(k in low for k in ("kw_fwd_kernel", "kw_dw_kernel",
+                              "kw_exp_kernel", "s2g_kernel",
+                              "s2g_max_kernel")):
         return "kernel-weighting kernels"
     if "multi_tensor" in low or "foreach" in low:
         return "optimizer/clip (foreach)"
@@ -98,6 +104,26 @@ def _random_batch(dev, bs, spp, nf, ngf, h, w, train):
     return batch
 
 
+#: The sample-record channels the baselines read (a RAW_MODE subset).
+BASELINE_LABELS = (
+    ["dx", "dy", "lens_u", "lens_v", "t"]
+    + ["%s_%s" % (n, c) for n in ("diffuse", "specular", "albedo_first")
+       for c in "rgb"]
+    + ["normal_first_x", "normal_first_y", "normal_first_z", "depth_first"])
+
+
+def _baseline_run(method, dev, spp, h, w):
+    """``(run, what)`` for one baseline on random records, warmed up."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    feats = torch.rand(spp, len(BASELINE_LABELS), h, w, device=dev,
+                       generator=gen)
+
+    def run():
+        denoise_buffers(feats, BASELINE_LABELS, method=method)
+    run()
+    return run, "%s baseline" % method
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--checkpoint", default="weights/flagship_f16")
@@ -115,6 +141,9 @@ def main(argv=None):
     p.add_argument("--arch", default="sbmc",
                    choices=("sbmc", "gather", "kpcn", "lbf"),
                    help="model to profile (default: the checkpoint's)")
+    p.add_argument("--baseline", default=None,
+                   choices=("nlm", "cbf", "rpf", "nfor"),
+                   help="profile a classical baseline instead of a model")
     p.add_argument("--top", type=int, default=12)
     args = p.parse_args(argv)
     size = args.size or ("128x128" if args.train else "1080x2048")
@@ -125,7 +154,9 @@ def main(argv=None):
             torch.profiler.ProfilerActivity.CUDA]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.train or args.arch != "sbmc":
+    if args.baseline:
+        run, what = _baseline_run(args.baseline, dev, spp, h, w)
+    elif args.train or args.arch != "sbmc":
         # Freshly initialised weights, as a training run starts.
         torch.manual_seed(0)
         meta = Checkpointer.load_meta(args.checkpoint)
@@ -145,7 +176,9 @@ def main(argv=None):
         else:
             batch = _random_batch(dev, bs, spp, nf, ngf, h, w, args.train)
         convs = "bf16" if args.bf16 else "float32"
-    if args.train:
+    if args.baseline:
+        pass  # run and what are set
+    elif args.train:
         iface = DenoiserInterface(model, device=dev)
         what = "%s train step, batch %d, %s convs" % (args.arch, args.bs,
                                                       convs)
@@ -191,7 +224,8 @@ def main(argv=None):
         cls = classify(evt.key)
         by_class[cls] = by_class.get(cls, 0.0) + us
     busy_ms = sum(by_class.values()) / 1e3
-    samples = "" if args.arch == "kpcn" else ", %d spp" % spp
+    samples = ", %d spp" % spp if args.baseline or args.arch != "kpcn" \
+        else ""
     print("%s: %s, %dx%d tile%s: wall %.2f ms (profiled), device busy "
           "%.2f ms (%.1f%%)" % (torch.cuda.get_device_name(0), what, h, w,
                                 samples, wall_ms, busy_ms,

@@ -14,7 +14,11 @@ kernels: ``3e-4 + 2e-5 * |plain|`` (the JAX package's bound for its fused
 backward); a bfloat16 ``d_klogits`` may also sit on the neighbouring
 bfloat16 value, ``2**-7`` relative. Kernel weighting and its weight gradient:
 the forward's bound (sums over up to 441 taps, or over the channels, in
-another order); scatter2gather only moves values: bit-exact.
+another order); scatter2gather only moves values: bit-exact. The exp
+kernels: scatter2gather_max bit-exact (moves and a max), kernel weighting
+of exp(logits - max) the forward's bound; the splat step composed from them
+against the fused kernel, the forward's bound too (the fused kernel keeps a
+running max per tap, so it rounds its exponentials otherwise).
 """
 
 import numpy as np
@@ -285,3 +289,84 @@ def test_composed_kernels_reject_bad_inputs(device):
         with pytest.raises(ValueError, match="d_sum_w"):
             ops._kernel_weighting_dw_cuda(data, data, torch.zeros(
                 1, 1, 8, 9, device=device), 3)
+
+
+def _exp_inputs(rng, bs, c, hw, k, dtype, device):
+    data = torch.tensor(rng.randn(bs, c, *hw), dtype=torch.float32)
+    logits = torch.tensor(3 * rng.randn(bs, k * k, *hw),
+                          dtype=torch.float32).to(dtype)
+    maxes = logits.float().amax(1) + torch.tensor(rng.rand(bs, *hw),
+                                                  dtype=torch.float32)
+    return [t.to(device) for t in (data, logits, maxes)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,hw,k", COMPOSED)
+def test_exp_kernels_match_plain(device, c, hw, k, dtype):
+    rng = np.random.RandomState(k * 100 + hw[0] + 5)
+    data, logits, maxes = _exp_inputs(rng, 2, c, hw, k, dtype, device)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        g, kmax = ops.scatter2gather_max(logits)
+        out, sum_w = ops.kernel_weighting_exp(data, logits, maxes)
+        assert _counts() == {"scatter2gather_max": 1,
+                             "kernel_weighting_exp": 1}
+        want_g, want_kmax = ops.scatter2gather_max_ref(logits)
+        want_out, want_sw = ops.kernel_weighting_exp_ref(data, logits, maxes)
+        torch.cuda.synchronize()
+    assert g.dtype == dtype and kmax.dtype == torch.float32
+    assert torch.equal(g, want_g) and torch.equal(kmax, want_kmax)
+    _close(out, want_out)
+    _close(sum_w, want_sw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("init", [True, False])
+@pytest.mark.parametrize("c,hw,k", [(3, (37, 53), 3), (2, (5, 7), 21),
+                                    (3, (37, 53), 21)])
+def test_composed_step_matches_fused_kernel(device, c, hw, k, dtype, init):
+    """The splat step composed from the two exp kernels, as the JAX
+    package's unfused branch composes it, against the fused kernel B1; the
+    outputs carry no gradient."""
+    rng = np.random.RandomState(k * 100 + hw[0] + 6)
+    data, logits, sum_r, sum_w, max_w = _inputs(rng, 2, c, *hw, k, dtype,
+                                                init, device)
+    logits.requires_grad_()
+    ops.reset_launch_counts()
+    g, kmax = ops.scatter2gather_max(logits)
+    new_max = torch.maximum(kmax[:, None], max_w)
+    scaler = torch.exp(max_w - new_max)
+    r, w = ops.kernel_weighting_exp(data, g, new_max[:, 0])
+    got = (sum_r * scaler + r, sum_w * scaler + w[:, None], new_max)
+    assert not (g.requires_grad or r.requires_grad or w.requires_grad)
+    with torch.inference_mode():
+        want = ops.progressive_splat_update(data, logits.detach(), sum_r,
+                                            sum_w, max_w)
+        torch.cuda.synchronize()
+    assert _counts() == {"scatter2gather_max": 1, "kernel_weighting_exp": 1,
+                         "progressive_splat": 1}
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+@pytest.mark.cuda
+def test_exp_kernels_reject_bad_inputs(device):
+    data = torch.zeros(1, 3, 8, 9, device=device)
+    logits = torch.zeros(1, 9, 8, 9, device=device)
+    maxes = torch.zeros(1, 8, 9, device=device)
+    with torch.inference_mode():
+        with pytest.raises(TypeError):
+            ops.scatter2gather_max(logits.half())
+        with pytest.raises(ValueError, match="square"):
+            ops.scatter2gather_max(torch.zeros(1, 8, 8, 9, device=device))
+        with pytest.raises(TypeError, match="maxes"):
+            ops.kernel_weighting_exp(data, logits, maxes.double())
+        with pytest.raises(ValueError, match="maxes has shape"):
+            ops.kernel_weighting_exp(data, logits, maxes[:, :4])
+        with pytest.raises(ValueError, match="channels"):
+            ops.kernel_weighting_exp(torch.zeros(1, 4, 8, 9, device=device),
+                                     logits, maxes)
+        with pytest.raises(ValueError, match="several devices"):
+            ops.kernel_weighting_exp(data, logits, maxes.cpu())

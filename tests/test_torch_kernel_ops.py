@@ -1,4 +1,5 @@
-"""The port's ``kernel_weighting`` / ``scatter2gather`` Functions and
+"""The port's ``kernel_weighting`` / ``scatter2gather`` Functions, the two
+exp ops ``scatter2gather_max`` / ``kernel_weighting_exp`` and
 ``kernel_apply`` against ``sbmc_tpu`` on the same numpy inputs.
 
 Tolerances:
@@ -17,6 +18,11 @@ Tolerances:
 - the g++ host builds of the kernels' per-pixel functions against the plain
   versions: ``2e-4 + 2e-5 * |plain|``, the bound chip_smoke.py holds the
   kernels to; scatter2gather exact.
+- ``scatter2gather_max`` only moves values and takes a max: exact against
+  the JAX ``xla`` branch, its Pallas kernel in interpret mode and the host
+  build. ``kernel_weighting_exp`` holds kernel weighting's bounds: ``1e-5 +
+  1e-5 * |jax|`` against JAX (both form ``exp`` in float32 from the widened
+  logits), ``2e-4 + 2e-5 * |plain|`` for the host build.
 - ``kernel_apply`` / the unfused progressive apply: ``1e-5 + 1e-5 * |jax|``;
   with bfloat16 kernels the softmax rounds to bfloat16 in both frameworks at
   places that may differ by one step (``2**-7`` of a weight), which moves an
@@ -487,3 +493,150 @@ def test_progressive_wrapper_and_bf16_gather_logits():
     for got, want in zip(st, jst):
         assert got.dtype == torch.float32 and want.dtype == jnp.float32
         np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+# -- scatter2gather_max / kernel_weighting_exp --------------------------------
+
+def _exp_inputs(rng, bs, c, h, w, k):
+    """data, gather logits and a shift at or above each pixel's tap max."""
+    data = rng.randn(bs, c, h, w).astype(np.float32)
+    logits = (3 * rng.randn(bs, k * k, h, w)).astype(np.float32)
+    maxes = (logits.max(1) + rng.rand(bs, h, w)).astype(np.float32)
+    return data, logits, maxes
+
+
+@pytest.mark.parametrize("shape,k", CASES)
+@pytest.mark.parametrize("tdt,jdt", DTYPES)
+def test_exp_ops_match_jax(shape, k, tdt, jdt):
+    """The public ops on CPU tensors against ``backend="xla"``; neither
+    output carries a gradient, even from inputs that require one."""
+    rng = np.random.RandomState(100 + k)
+    data, logits, maxes = _exp_inputs(rng, 2, 3, *shape, k)
+    lg = torch.from_numpy(logits).to(tdt).requires_grad_()
+    g, kmax = ops.scatter2gather_max(lg)
+    jg, jkmax = jops.scatter2gather_max(jnp.asarray(logits).astype(jdt),
+                                        backend="xla")
+    assert g.dtype == tdt and kmax.dtype == torch.float32
+    assert not g.requires_grad and not kmax.requires_grad
+    np.testing.assert_array_equal(_np(g), _np(jg))
+    np.testing.assert_array_equal(_np(kmax), _np(jkmax))
+    d = torch.from_numpy(data).requires_grad_()
+    out, sw = ops.kernel_weighting_exp(d, g, torch.from_numpy(maxes))
+    jout, jsw = jops.kernel_weighting_exp(jnp.asarray(data), jg,
+                                          jnp.asarray(maxes), backend="xla")
+    assert out.dtype == sw.dtype == torch.float32
+    assert not out.requires_grad and not sw.requires_grad
+    np.testing.assert_allclose(_np(out), _np(jout), **TOL)
+    np.testing.assert_allclose(_np(sw), _np(jsw), **TOL)
+
+
+def test_exp_ops_match_pallas_interpret():
+    """The plain versions against ``_s2g_max_kernel`` and ``_kw_exp_kernel``
+    themselves, in interpret mode, at k = 3 on a 16x128 tile."""
+    rng = np.random.RandomState(3)
+    data, logits, maxes = _exp_inputs(rng, 1, 3, 16, 128, 3)
+    g, kmax = ops.scatter2gather_max(torch.from_numpy(logits))
+    jg, jkmax = jops.scatter2gather_max(jnp.asarray(logits),
+                                        backend="pallas_interpret")
+    np.testing.assert_array_equal(_np(g), _np(jg))
+    np.testing.assert_array_equal(_np(kmax), _np(jkmax))
+    got = ops.kernel_weighting_exp(*map(torch.from_numpy,
+                                        (data, logits, maxes)))
+    want = jops.kernel_weighting_exp(jnp.asarray(data), jnp.asarray(logits),
+                                     jnp.asarray(maxes),
+                                     backend="pallas_interpret")
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(_np(a), _np(b), **TOL)
+
+
+def test_composed_step_is_the_plain_splat_step():
+    """The splat step composed from the two public ops, as the JAX
+    package's unfused branch composes it, is the plain splat step, from the
+    initial state and from a random one."""
+    rng = np.random.RandomState(5)
+    bs, c, h, w, k = 2, 3, 9, 11, 5
+    data = torch.from_numpy(rng.randn(bs, c, h, w).astype(np.float32))
+    logits = torch.from_numpy((3 * rng.randn(bs, k * k, h, w)).astype(
+        np.float32))
+    for state in ((torch.zeros(bs, c, h, w), torch.zeros(bs, 1, h, w),
+                   torch.full((bs, 1, h, w), -1e30)),
+                  tuple(torch.from_numpy(rng.rand(bs, n, h, w).astype(
+                      np.float32)) for n in (c, 1, 1))):
+        sum_r, sum_w, max_w = state
+        g, kmax = ops.scatter2gather_max(logits)
+        new_max = torch.maximum(kmax[:, None], max_w)
+        scaler = torch.exp(max_w - new_max)
+        r, wsum = ops.kernel_weighting_exp(data, g, new_max[:, 0])
+        got = (sum_r * scaler + r, sum_w * scaler + wsum[:, None], new_max)
+        want = reference.progressive_splat_update_ref(data, logits, *state)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def test_exp_wrappers_check_inputs():
+    """What the exp kernels' wrapper refuses, checked on CPU tensors; the
+    launch counts name both kernels and stay 0 on the CPU."""
+    ops.reset_launch_counts()
+    data, logits = torch.zeros(2, 3, 5, 6), torch.zeros(2, 9, 5, 6)
+    maxes = torch.zeros(2, 5, 6)
+    assert ops._check_kw_exp(data, logits, maxes) == (2, 3, 5, 6, 3)
+    assert ops._check_kw_exp(data[:, :2].contiguous(), logits.bfloat16(),
+                             maxes) == (2, 2, 5, 6, 3)
+    with pytest.raises(ValueError, match="maxes has shape"):
+        ops._check_kw_exp(data, logits, maxes[:, None])
+    with pytest.raises(TypeError, match="maxes must be float32"):
+        ops._check_kw_exp(data, logits, maxes.bfloat16())
+    with pytest.raises(ValueError, match="maxes must be contiguous"):
+        ops._check_kw_exp(data, logits,
+                          torch.zeros(2, 6, 5).transpose(1, 2))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops._check_kw_exp(data, logits.half(), maxes)
+    with pytest.raises(ValueError, match="channels"):
+        ops._check_kw_exp(torch.zeros(2, 4, 5, 6), logits, maxes)
+    with pytest.raises(ValueError, match="expected"):
+        ops._check_kw_exp(torch.zeros(2, 3, 5, 7), logits, maxes)
+    ops.scatter2gather_max(logits)
+    ops.kernel_weighting_exp(data, logits, maxes)
+    assert ops.launch_counts["scatter2gather_max"] == 0
+    assert ops.launch_counts["kernel_weighting_exp"] == 0
+
+
+@pytest.mark.parametrize("c,shape,k", [(3, (9, 12), 3), (2, (13, 7), 5),
+                                       (3, (23, 25), 21), (2, (5, 4), 21)])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+def test_exp_pixel_math_matches_plain(c, shape, k, tdt):
+    """The per-pixel functions of the two exp kernels, run on the host:
+    scatter2gather_max bit-exact (gather and tap max, the zero-padded taps
+    included), kernel_weighting_exp within the kernels' bound."""
+    lib = _build.load_host()
+    rng = np.random.RandomState(110 + k + c)
+    bs = 2
+    data, logits, maxes = (torch.from_numpy(a) for a in _exp_inputs(
+        rng, bs, c, *shape, k))
+    # Shift the logits below 0 so that the zero padding holds the max at
+    # the border.
+    logits = (logits - 20).to(tdt)
+    g = torch.full_like(logits, float("nan"))
+    kmax = torch.full((bs, *shape), float("nan"))
+    assert lib.sbmc_scatter2gather_max_host(
+        logits.data_ptr(), logits.element_size(), g.data_ptr(),
+        kmax.data_ptr(), bs, *shape, k) == 0
+    want_g, want_kmax = reference.scatter2gather_max_ref(logits)
+    assert torch.equal(g, want_g) and torch.equal(kmax, want_kmax)
+    assert float(kmax.max()) == 0.0
+    out = torch.full_like(data, float("nan"))
+    sum_w = torch.full((bs, *shape), float("nan"))
+    assert lib.sbmc_kernel_weighting_exp_host(
+        data.data_ptr(), g.data_ptr(), int(tdt == torch.bfloat16),
+        kmax.data_ptr(), out.data_ptr(), sum_w.data_ptr(), bs, c, *shape,
+        k) == 0
+    want = reference.kernel_weighting_exp_ref(data, g, kmax)
+    for a, b in zip((out, sum_w), want):
+        assert torch.all((a - b).abs() <= 2e-4 + 2e-5 * b.abs()), \
+            float((a - b).abs().max())
+    assert lib.sbmc_scatter2gather_max_host(
+        logits.data_ptr(), 8, g.data_ptr(), kmax.data_ptr(), bs, *shape,
+        k) == 1
+    assert lib.sbmc_kernel_weighting_exp_host(
+        data.data_ptr(), g.data_ptr(), 0, kmax.data_ptr(), out.data_ptr(),
+        sum_w.data_ptr(), bs, 5, *shape, k) == 1
