@@ -9,17 +9,23 @@ Phases, each printing one line (or a few) before the last:
    ``nvidia-smi`` reports them;
 2. build: compiles the CUDA kernels from ``sbmc_tpu_torch/ops/csrc`` with
    nvcc and prints the build seconds;
-3. kernel: holds the fused progressive splat kernel against its plain
-   PyTorch version on the card (k in {3, 5, 21}, odd shapes, float32 and
-   bfloat16 logits, initial and random state) and at every shape the
-   paths below give it, then times both at the flagship tile shape
-   (1, 3, 1080, 2048), k = 21, bf16 logits, and at the training shape;
+3. kernel: holds the fused progressive splat step against its plain
+   PyTorch version on the card (k in {3, 5, 21}, odd widths, which take the
+   generic kernel, and a width the tiled kernel takes, float32 and bfloat16
+   logits, initial and random state, 2 and 3 channels) and at every shape
+   the paths below give it; then times the tiled kernel (at both tile
+   heights) and the generic one as device times (CUDA graph replay), the
+   op on the host clock, and the plain version at the flagship tile
+   shape (1, 3, 1080, 2048), k = 21, bf16 logits, at the default denoise
+   CLI's tiles (1, 3, 512, 512) and (1, 3, 312, 512) and at the training
+   shape, with each kernel's share of its bound;
 4. backward kernels: holds the two kernels of the splat step's backward
-   (gradient to the data, gradient to the logits) against their plain
-   version, with the running max of a real forward and random cotangents
-   (k in {3, 5, 21}, odd shapes, 2 and 3 channels, float32 and bfloat16
-   logits, and the shapes of the paths below); times them at the training
-   shape (4, 3, 128, 128), k = 21, and at (1, 3, 1080, 2048), bf16;
+   (gradient to the data, gradient to the logits, the latter as the vector
+   and the generic kernel) against their plain version, with the running
+   max of a real forward and random cotangents (k in {3, 5, 21}, odd and
+   vector widths, 2 and 3 channels, float32 and bfloat16 logits, and the
+   shapes of the paths below); times them at the training shape (4, 3,
+   128, 128), k = 21, at (1, 3, 1080, 2048) and at (1, 3, 512, 512), bf16;
 5. reference: the flagship model on the card against the same model on the
    CPU (plain splat), on a small input, in float32 and in bfloat16 convs;
 6. gradient: loss, every parameter gradient and the gradient to the input
@@ -86,7 +92,9 @@ The composed kernels' phases run between these (4b to 4d after 4, 6b after
 
 Every path records the shapes and logit or weight types it gives the splat
 step, kernel weighting and scatter2gather; the run fails if a kernel met a
-shape on a path at which it was not held against its plain version. Then
+shape on a path at which it was not held against its plain version, or if
+any path (but the composed step's yardstick at odd widths) launched a
+generic variant of the splat kernels (NEVER_ON_A_PATH). Then
 one JSON line with each kernel's numbers (``launches`` by path) and, last,
 the device line. Any failure raises and exits non-zero without printing a
 result.
@@ -121,9 +129,13 @@ _CSRC = "sbmc_tpu_torch/ops/csrc/"
 KERNELS = (
     ("progressive_splat", _CSRC + "progressive_splat.cu",
      "sbmc_tpu/ops/pallas_kernels.py:535"),
+    ("progressive_splat_generic", _CSRC + "progressive_splat.cu",
+     "sbmc_tpu/ops/pallas_kernels.py:535"),
     ("progressive_splat_ddata", _CSRC + "progressive_splat_bwd.cu",
      "sbmc_tpu/ops/pallas_kernels.py:728"),
     ("progressive_splat_dlogits", _CSRC + "progressive_splat_bwd.cu",
+     "sbmc_tpu/ops/pallas_kernels.py:755"),
+    ("progressive_splat_dlogits_generic", _CSRC + "progressive_splat_bwd.cu",
      "sbmc_tpu/ops/pallas_kernels.py:755"),
     ("kernel_weighting", _CSRC + "kernel_weighting.cu",
      "sbmc_tpu/ops/pallas_kernels.py:151"),
@@ -155,10 +167,21 @@ MUST_LAUNCH = {
     "scatter2gather": ("gradient_composed",),
     "scatter2gather_max": ("composed_step",),
     "kernel_weighting_exp": ("composed_step",),
+    "progressive_splat_generic": (),
+    "progressive_splat_dlogits_generic": (),
 }
+#: The generic variants of the splat kernels (the first port's per-pixel
+#: kernels) take only shapes the tiled kernels cannot address, which no
+#: path gives them: the kernel phases check them at odd widths, and the run
+#: fails if any path launched one.
+NEVER_ON_A_PATH = ("progressive_splat_generic",
+                   "progressive_splat_dlogits_generic")
 #: The wrapped op whose recorded cases speak for each kernel.
 _OP_OF = {"progressive_splat": "splat", "progressive_splat_ddata": "splat",
-          "progressive_splat_dlogits": "splat", "kernel_weighting": "kw",
+          "progressive_splat_dlogits": "splat",
+          "progressive_splat_generic": "splat",
+          "progressive_splat_dlogits_generic": "splat",
+          "kernel_weighting": "kw",
           "kernel_weighting_dw": "kw", "scatter2gather": "s2g",
           "scatter2gather_max": "s2g_max", "kernel_weighting_exp": "kw_exp"}
 
@@ -212,6 +235,8 @@ STEP_SHAPES = (
 #: version. scatter2gather sees no data: its cases carry (bs, h, w); the
 #: weight gradient's output is float32 whatever the weights are.
 _COMPARED = {name: set() for name, _, _ in KERNELS}
+#: kernel -> its largest abs error against the plain version so far.
+_MAX_ERR = {}
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12      # float32 outside the tensor cores
@@ -241,6 +266,31 @@ def _time_ms(fn, warmup, iters):
     return start.elapsed_time(end) / iters
 
 
+def _graph_ms(fn, iters=20, reps=5):
+    """Device time of one ``fn()``: ``iters`` calls captured in a CUDA graph
+    and replayed ``reps`` times between two events, so the host's cost per
+    call (the wrappers' Python, tens of microseconds) does not hide a kernel
+    that takes less."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (iters * reps)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
 def _bound(nbytes, flops):
     by_bytes = nbytes / H100_BYTES_PER_S
     by_ops = flops / H100_F32_FLOPS
@@ -268,6 +318,20 @@ def _splat_inputs(gen, bs, c, h, w, k, dtype, init):
 
 def _case(data, logits):
     return tuple(data.shape), logits.shape[1], str(logits.dtype)
+
+
+def _variant(ops, name, logits):
+    """The splat kernel that ``logits`` are dispatched to: ``name``
+    (``progressive_splat`` or ``progressive_splat_dlogits``, the tiled
+    kernels) or its generic variant."""
+    route = ops.splat_route(logits.shape[-1],
+                            ops.reference.ksize_of(logits),
+                            logits.element_size())
+    return name if route == "tiled" else name + "_generic"
+
+
+def _note_err(name, err):
+    _MAX_ERR[name] = max(_MAX_ERR.get(name, 0.0), err)
 
 
 def _s2g_case(weights):
@@ -353,9 +417,17 @@ def _nonzero(counts):
     return {name: n for name, n in counts.items() if n}
 
 
-def _compare(ops, args):
-    _COMPARED["progressive_splat"].add(_case(*args[:2]))
-    got = ops.progressive_splat_update(*args)
+def _compare(ops, args, tile_h=None):
+    """Max abs error of one splat step through the op (the kernel and tile
+    height the paths would take), or through the tiled kernel at ``tile_h``
+    rows; raises beyond the tolerance."""
+    name = _variant(ops, "progressive_splat", args[1])
+    if tile_h is None:
+        _COMPARED[name].add(_case(*args[:2]))
+        got = ops.progressive_splat_update(*args)
+    else:
+        got = ops._progressive_splat_cuda(*args, route="tiled",
+                                          tile_h=tile_h)
     want = ops.progressive_splat_update_ref(*args)
     torch.cuda.synchronize()
     err = 0.0
@@ -365,7 +437,12 @@ def _compare(ops, args):
                 "splat kernel disagrees with its plain version: max abs "
                 "err %.3g" % float((g - r).abs().max()))
         err = max(err, float((g - r).abs().max()))
+    _note_err(name, err)
     return err
+
+
+def _share(ms, bound_ms):
+    return "%.0f%% of bound" % (100 * bound_ms / ms)
 
 
 def _kernel_phase(ops, main_tile):
@@ -379,33 +456,91 @@ def _kernel_phase(ops, main_tile):
                     args = _splat_inputs(rng, 2, 3, *hw, k, dtype, init)
                     err = max(err, _compare(ops, args))
                     cases += 1
-    # Two channels (the kernel's other template instance), then every shape
-    # the paths give the kernel, from the initial state (a frame's first
-    # sample) and from a random one.
-    args = _splat_inputs(rng, 2, 2, 37, 53, 21, torch.bfloat16, False)
-    err = max(err, _compare(ops, args))
-    cases += 1
+    # Those widths take the generic kernel; the same at a width the tiled
+    # kernel takes (64 pixels: 256- and 128-byte rows; 37 rows: ragged
+    # tiles). Then two channels (the kernels' other template instance) on
+    # both, and every shape the paths give the kernel, from the initial
+    # state (a frame's first sample) and from a random one.
+    for k in (3, 5, 21):
+        for dtype in (torch.float32, torch.bfloat16):
+            for init in (True, False):
+                args = _splat_inputs(rng, 2, 3, 37, 64, k, dtype, init)
+                err = max(err, _compare(ops, args))
+                cases += 1
+    for hw in ((37, 53), (37, 64)):
+        args = _splat_inputs(rng, 2, 2, *hw, 21, torch.bfloat16, False)
+        err = max(err, _compare(ops, args))
+        cases += 1
     for bs, c, h, w, dtype in PATH_SHAPES:
         for init in (True, False):
             args = _splat_inputs(rng, bs, c, h, w, 21, dtype, init)
             err = max(err, _compare(ops, args))
             cases += 1
-    print("kernel check: %d cases, max abs err %.3g (tolerance %.0e + %.0e"
-          " * |plain|)" % (cases, err, ATOL, RTOL))
+    # Each tile height of the tiled kernel at every k, logit type and
+    # channel count, whichever height splat_tile_rows would pick here.
+    for tile_h in (8, 16):
+        for k in (3, 5, 21):
+            for dtype in (torch.float32, torch.bfloat16):
+                for c in (2, 3):
+                    args = _splat_inputs(rng, 2, c, 37, 64, k, dtype, False)
+                    err = max(err, _compare(ops, args, tile_h))
+                    cases += 1
+    print("kernel check: %d cases (%d shapes on the tiled kernel, %d on the "
+          "generic one), max abs err tiled %.3g, generic %.3g (tolerance "
+          "%.0e + %.0e * |plain|)" % (
+              cases, len(_COMPARED["progressive_splat"]),
+              len(_COMPARED["progressive_splat_generic"]),
+              _MAX_ERR["progressive_splat"],
+              _MAX_ERR["progressive_splat_generic"], ATOL, RTOL))
     args = _splat_inputs(rng, 1, 3, *main_tile, 21, torch.bfloat16, False)
     print("kernel time at the main path's tile (1, 3, %d, %d), k=21, bf16: "
-          "%.4f ms" % (*main_tile, _time_ms(
-              lambda: ops.progressive_splat_update(*args), 3, 50)))
+          "%.4f ms through the op, %.4f ms on the device" % (
+              *main_tile,
+              _time_ms(lambda: ops.progressive_splat_update(*args), 3, 50),
+              _graph_ms(lambda: ops._progressive_splat_cuda(*args))))
 
     # Times: the flagship tile (1080x2048, k = 21, bf16 logits, bs 1, 3
-    # channels), then a training batch in both logit types.
-    rows = []
+    # channels), the default denoise CLI's tiles (512x512, and 312x512 at a
+    # 1080p frame's bottom edge), then a training batch in both logit types.
+    # "ms" is the host clock (events around 20 calls) through the op, as for
+    # every kernel of this script; "device_ms" the device time alone
+    # (_graph_ms), which at the small shapes is below the wrappers' Python.
+    # The generic kernel runs beside the tiled one at each shape (its "ms"
+    # through its wrapper), and the tiled kernel at the tile height
+    # splat_tile_rows did not choose, each checked before it is timed.
+    rows, generic_rows = [], []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for (bs, c, h, w), dtype in (((1, 3, 1080, 2048), torch.bfloat16),
+                                 ((1, 3, 512, 512), torch.bfloat16),
+                                 ((1, 3, 312, 512), torch.bfloat16),
                                  ((4, 3, 128, 128), torch.float32),
                                  ((4, 3, 128, 128), torch.bfloat16)):
         args = _splat_inputs(rng, bs, c, h, w, 21, dtype, False)
         err = max(err, _compare(ops, args))
+        tile_h = ops.splat_tile_rows(bs, h, w, sms)
+        other_h = 24 - tile_h  # the other of 8 and 16
+        want = ops.progressive_splat_update_ref(*args)
+        for name, got in (
+                ("progressive_splat", ops._progressive_splat_cuda(
+                    *args, route="tiled", tile_h=other_h)),
+                ("progressive_splat_generic", ops._progressive_splat_cuda(
+                    *args, route="generic"))):
+            for g, r in zip(got, want):
+                if not bool(torch.all((g - r).abs()
+                                      <= ATOL + RTOL * r.abs())):
+                    raise AssertionError(
+                        "%s disagrees with its plain version at %s" % (
+                            name, _case(*args[:2])))
+                _note_err(name, float((g - r).abs().max()))
+        del got, want
         ms = _time_ms(lambda: ops.progressive_splat_update(*args), 3, 20)
+        device_ms = _graph_ms(lambda: ops._progressive_splat_cuda(*args))
+        other_ms = _graph_ms(lambda: ops._progressive_splat_cuda(
+            *args, route="tiled", tile_h=other_h))
+        generic_ms = _time_ms(lambda: ops._progressive_splat_cuda(
+            *args, route="generic"), 3, 20)
+        generic_device_ms = _graph_ms(lambda: ops._progressive_splat_cuda(
+            *args, route="generic"))
         plain_ms = _time_ms(
             lambda: ops.progressive_splat_update_ref(*args), 1, 3)
         px = bs * h * w
@@ -417,15 +552,32 @@ def _kernel_phase(ops, main_tile):
         bound_ms, by = _bound(nbytes, px * 21 * 21 * (3 + 2 * c))
         tag = "%dx%dx%dx%d %s" % (bs, c, h, w,
                                   str(dtype).replace("torch.", ""))
-        print("kernel time at (%s), k=21: %.4f ms; plain version %.4f ms; "
-              "bound %.4f ms (%s: %.4g GB, logits alone %.4f ms)"
-              % (tag, ms, plain_ms, bound_ms, by, nbytes / 1e9,
-                 logits_bytes / H100_BYTES_PER_S * 1e3))
-        rows.append({"shape": tag, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": by})
+        print("kernel time at (%s), k=21: tiled %.4f ms through the op (%s), "
+              "%.4f ms on the device (%s; %d-row tiles; %d-row tiles %.4f "
+              "ms); generic %.4f ms through its wrapper (%s), %.4f ms on the "
+              "device (%s); plain version %.4f ms; bound %.4f ms (%s: %.4g "
+              "GB, logits alone %.4f ms)" % (
+                  tag, ms, _share(ms, bound_ms), device_ms,
+                  _share(device_ms, bound_ms), tile_h, other_h, other_ms,
+                  generic_ms, _share(generic_ms, bound_ms),
+                  generic_device_ms, _share(generic_device_ms, bound_ms),
+                  plain_ms, bound_ms, by, nbytes / 1e9,
+                  logits_bytes / H100_BYTES_PER_S * 1e3))
+        rows.append({"shape": tag, "ms": ms, "device_ms": device_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": by, "tile_rows": tile_h,
+                     "other_tile_rows_device_ms": other_ms})
+        generic_rows.append({"shape": tag, "ms": generic_ms,
+                             "device_ms": generic_device_ms,
+                             "plain_ms": plain_ms, "bound_ms": bound_ms,
+                             "bound_by": by})
         del args
         torch.cuda.empty_cache()
-    return dict(rows[0], max_abs_err=err, other_shapes=rows[1:])
+    return {
+        "progressive_splat": dict(rows[0], max_abs_err=_MAX_ERR[
+            "progressive_splat"], other_shapes=rows[1:]),
+        "progressive_splat_generic": dict(generic_rows[0], max_abs_err=_MAX_ERR[
+            "progressive_splat_generic"], other_shapes=generic_rows[1:])}
 
 # Backward kernels against their plain version: the absolute part is the JAX
 # package's bound for its fused backward against the composed version
@@ -453,7 +605,9 @@ def _bwd_inputs(ops, rng, bs, c, h, w, k, dtype):
 def _compare_bwd(ops, inputs):
     """Max abs error of (d_data, d_logits); raises beyond the tolerance."""
     data, logits, new_max, d_r, d_w = inputs
-    for name in ("progressive_splat_ddata", "progressive_splat_dlogits"):
+    names = ("progressive_splat_ddata",
+             _variant(ops, "progressive_splat_dlogits", logits))
+    for name in names:
         _COMPARED[name].add(_case(data, logits))
     got = (ops._ddata_cuda(logits, new_max, d_r),
            ops._dlogits_cuda(data, logits, new_max, d_r, d_w))
@@ -465,13 +619,15 @@ def _compare_bwd(ops, inputs):
     rtols = (BWD_RTOL, BF16_RTOL if logits.dtype == torch.bfloat16
              else BWD_RTOL)
     errs = []
-    for name, g, r, rt in zip(("d_data", "d_logits"), got, want, rtols):
+    for name, kernel, g, r, rt in zip(("d_data", "d_logits"), names, got,
+                                      want, rtols):
         g, r = g.float(), r.float()
         if not bool(torch.all((g - r).abs() <= BWD_ATOL + rt * r.abs())):
             raise AssertionError(
-                "%s kernel disagrees with its plain version: max abs err "
-                "%.3g" % (name, float((g - r).abs().max())))
+                "%s kernel %s disagrees with its plain version: max abs err "
+                "%.3g" % (name, kernel, float((g - r).abs().max())))
         errs.append(float((g - r).abs().max()))
+        _note_err(kernel, errs[-1])
     return errs
 
 
@@ -493,25 +649,38 @@ def _time_bwd(ops, inputs, plain_iters):
     ) + _bound(lbytes + px * 4 * (1 + 2 * c), px * k2 * (2 + 2 * c))
     # d_logits: reads the logits, data, max and the c + 1 cotangent planes,
     # writes a gradient of the logits' size and type; per tap a subtract, an
-    # exp, c FMAs and a multiply.
-    out["progressive_splat_dlogits"] = (
-        _time_ms(lambda: ops._dlogits_cuda(data, logits, new_max, d_r, d_w),
-                 3, 20),
-        _time_ms(lambda: ops.reference.progressive_splat_dlogits_ref(
-            data, logits, new_max, d_r, d_w), 1, plain_iters),
-    ) + _bound(2 * lbytes + px * 4 * (2 + 2 * c), px * k2 * (3 + 2 * c))
+    # exp, c FMAs and a multiply. The vector kernel, then the generic one,
+    # each on the host clock through its wrapper and as a device time
+    # (_graph_ms).
+    plain_ms = _time_ms(lambda: ops.reference.progressive_splat_dlogits_ref(
+        data, logits, new_max, d_r, d_w), 1, plain_iters)
+    bound = _bound(2 * lbytes + px * 4 * (2 + 2 * c), px * k2 * (3 + 2 * c))
+    for name, route in (("progressive_splat_dlogits", "tiled"),
+                        ("progressive_splat_dlogits_generic", "generic")):
+        def fn():
+            return ops._dlogits_cuda(data, logits, new_max, d_r, d_w,
+                                     route=route)
+        out[name] = (_time_ms(fn, 3, 20), plain_ms) + bound + (
+            _graph_ms(fn),)
     return out
 
 
-def _record_times(numbers, name, tag, ms, plain_ms, bound_ms, by):
+def _record_times(numbers, name, tag, ms, plain_ms, bound_ms, by,
+                  device_ms=None):
     """Prints one kernel's times at one shape and files them in
     ``numbers[name]``: the first shape is the main path's, the others go
-    under ``other_shapes``."""
-    print("%s at (%s), k=21: %.4f ms; plain version %.4f ms; bound %.4f ms "
-          "(%s)" % (name, tag, ms, plain_ms, bound_ms, by))
+    under ``other_shapes``. ``ms`` is on the host clock; ``device_ms``, where
+    given, the device time alone."""
+    device = "" if device_ms is None else ", %.4f ms on the device, %s" % (
+        device_ms, _share(device_ms, bound_ms))
+    print("%s at (%s), k=21: %.4f ms, %s%s; plain version %.4f ms; bound "
+          "%.4f ms (%s)" % (name, tag, ms, _share(ms, bound_ms), device,
+                            plain_ms, bound_ms, by))
     entry = numbers.setdefault(name, {"other_shapes": []})
     row = {"shape": tag, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": by}
+    if device_ms is not None:
+        row["device_ms"] = device_ms
     if "ms" not in entry:
         entry.update(row)
     else:
@@ -520,40 +689,54 @@ def _record_times(numbers, name, tag, ms, plain_ms, bound_ms, by):
 
 def _bwd_kernel_phase(ops):
     rng = torch.Generator(device="cuda").manual_seed(1)
-    err = [0.0, 0.0]
     cases = 0
+    # Odd widths (the generic logits-gradient kernel), then widths the
+    # vector kernel takes (64: whole 16-byte vectors in both types; 37 rows:
+    # ragged tiles), then every shape the paths give the kernels.
     for k in (3, 5, 21):
-        for c, hw in ((3, (37, 53)), (3, (130, 3)), (2, (5, 7))):
+        for c, hw in ((3, (37, 53)), (3, (130, 3)), (2, (5, 7)),
+                      (3, (37, 64)), (2, (13, 8))):
             for dtype in (torch.float32, torch.bfloat16):
-                e = _compare_bwd(ops, _bwd_inputs(ops, rng, 2, c, *hw, k,
-                                                  dtype))
-                err = [max(a, b) for a, b in zip(err, e)]
+                _compare_bwd(ops, _bwd_inputs(ops, rng, 2, c, *hw, k, dtype))
                 cases += 1
     for bs, c, h, w, dtype in PATH_SHAPES:
-        e = _compare_bwd(ops, _bwd_inputs(ops, rng, bs, c, h, w, 21, dtype))
-        err = [max(a, b) for a, b in zip(err, e)]
+        _compare_bwd(ops, _bwd_inputs(ops, rng, bs, c, h, w, 21, dtype))
         cases += 1
     print("backward kernel check: %d cases, max abs err d_data %.3g, "
-          "d_logits %.3g (tolerance %.0e + %.0e * |plain|; bf16 d_logits "
-          "%.0e + 2^-7 * |plain|)" % (cases, err[0], err[1], BWD_ATOL,
-                                      BWD_RTOL, BWD_ATOL))
+          "d_logits vector %.3g, generic %.3g (tolerance %.0e + %.0e * "
+          "|plain|; bf16 d_logits %.0e + 2^-7 * |plain|)" % (
+              cases, _MAX_ERR["progressive_splat_ddata"],
+              _MAX_ERR["progressive_splat_dlogits"],
+              _MAX_ERR["progressive_splat_dlogits_generic"], BWD_ATOL,
+              BWD_RTOL, BWD_ATOL))
     numbers = {}
     # The training path's shape (batch 4 of 128x128 tiles, k = 21) in both
-    # logit types, then one full 1080x2048 tile beside the forward's row.
+    # logit types, then one full 1080x2048 tile beside the forward's row,
+    # then the default denoise CLI's 512x512 tile.
     for shape, dtype, iters in (((4, 3, 128, 128), torch.float32, 3),
                                 ((4, 3, 128, 128), torch.bfloat16, 3),
-                                ((1, 3, 1080, 2048), torch.bfloat16, 2)):
+                                ((1, 3, 1080, 2048), torch.bfloat16, 2),
+                                ((1, 3, 512, 512), torch.bfloat16, 2)):
         inputs = _bwd_inputs(ops, rng, *shape, 21, dtype)
-        e = _compare_bwd(ops, inputs)
-        err = [max(a, b) for a, b in zip(err, e)]
+        _compare_bwd(ops, inputs)
+        generic = ops._dlogits_cuda(*inputs, route="generic")
+        want = ops.reference.progressive_splat_dlogits_ref(*inputs)
+        rt = BF16_RTOL if dtype == torch.bfloat16 else BWD_RTOL
+        g, r = generic.float(), want.float()
+        if not bool(torch.all((g - r).abs() <= BWD_ATOL + rt * r.abs())):
+            raise AssertionError("generic d_logits kernel disagrees with its "
+                                 "plain version")
+        _note_err("progressive_splat_dlogits_generic",
+                  float((g - r).abs().max()))
+        del generic, want, g, r
         tag = "%s %s" % ("x".join(map(str, shape)),
                          str(dtype).replace("torch.", ""))
-        for (name, times), kerr in zip(
-                sorted(_time_bwd(ops, inputs, iters).items()), err):
+        for name, times in sorted(_time_bwd(ops, inputs, iters).items()):
             _record_times(numbers, name, tag, *times)
-            numbers[name]["max_abs_err"] = kerr
         del inputs
         torch.cuda.empty_cache()
+    for name in numbers:
+        numbers[name]["max_abs_err"] = _MAX_ERR[name]
     return numbers
 
 
@@ -1180,11 +1363,14 @@ def _composed_step_phase(ops):
     _check_shapes("composed_step", seen, ["scatter2gather_max",
                                           "kernel_weighting_exp"])
     steps = 2 * len(STEP_SHAPES)
-    if _nonzero(launches) != {"scatter2gather_max": steps,
-                              "kernel_weighting_exp": steps,
-                              "progressive_splat": steps}:
-        raise AssertionError("composed step phase launched %s, expected %d "
-                             "of each" % (_nonzero(launches), steps))
+    want = {"scatter2gather_max": steps, "kernel_weighting_exp": steps}
+    for bs, c, h, w, k, dtype in STEP_SHAPES:
+        fused = _variant(ops, "progressive_splat",
+                         torch.empty(1, k * k, 1, w, dtype=dtype))
+        want[fused] = want.get(fused, 0) + 2
+    if _nonzero(launches) != want:
+        raise AssertionError("composed step phase launched %s, expected %s"
+                             % (_nonzero(launches), want))
     composed_ms = _time_ms(lambda: _composed_step(ops, *args), 3, 20)
     fused_ms = _time_ms(lambda: ops.progressive_splat_update(*args), 3, 20)
     print("composed step: %d steps (initial and random state) against the "
@@ -1590,7 +1776,7 @@ def main():
 
     tile, pad = 160, 32
     with torch.inference_mode():
-        numbers = {"progressive_splat": _kernel_phase(ops, (tile, tile))}
+        numbers = _kernel_phase(ops, (tile, tile))
         numbers.update(_bwd_kernel_phase(ops))
         numbers.update(_composed_kernel_phase(ops))
         numbers.update(_exp_kernel_phase(ops))
@@ -1614,7 +1800,15 @@ def main():
     kernels = []
     for name, source, replaces in KERNELS:
         launches = {path: counts[name] for path, counts in by_path.items()}
-        if not any(launches.values()):
+        if name in NEVER_ON_A_PATH:
+            # The composed step's odd shapes run the generic forward as the
+            # yardstick, which is what it is there for.
+            ran = {path: n for path, n in launches.items()
+                   if n and path != "composed_step"}
+            if ran:
+                raise AssertionError("generic kernel %s launched on %s"
+                                     % (name, ran))
+        elif not any(launches.values()):
             raise AssertionError("kernel %s was launched by no phase" % name)
         for path in MUST_LAUNCH[name]:
             if launches[path] <= 0:

@@ -32,6 +32,8 @@ baselines either.
 import torch
 import torch.nn.functional as F
 
+from sbmc_tpu_torch.utils.device import resolve_device
+
 __all__ = ["nlm_denoise", "cross_bilateral_denoise", "rpf_denoise",
            "nfor_denoise", "denoise_buffers"]
 
@@ -519,8 +521,9 @@ def denoise_buffers(features, labels, method="nlm", device=None, **kw):
         RAW_MODE layout), a numpy array or a tensor.
       labels: feature-label list (``TilesDataset.labels``).
       method: "nlm", "cbf", "rpf", or "nfor".
-      device: where to compute; by default the tensor's device, or the CPU
-        for a numpy array.
+      device: where to compute; by default the tensor's device, or the
+        card (``resolve_device("cuda")``, which raises without CUDA) for a
+        numpy array. Pass ``"cpu"`` to run a numpy array on the CPU.
       **kw: the method's own keyword arguments.
 
     Returns:
@@ -530,7 +533,7 @@ def denoise_buffers(features, labels, method="nlm", device=None, **kw):
         raise ValueError("unknown baseline method %r" % method)
     if device is None:
         device = features.device if isinstance(features, torch.Tensor) \
-            else "cpu"
+            else resolve_device("cuda")
     features = torch.as_tensor(features, dtype=_F32, device=device)
     spp = features.shape[0]
     half = max(spp // 2, 1)

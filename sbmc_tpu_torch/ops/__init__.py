@@ -22,14 +22,22 @@ they compute the same splat step as ``progressive_splat_update``.
 tensors its forward launches ``csrc/progressive_splat.cu`` (the port of the
 Pallas kernel ``_psf_kernel``) and its backward launches the two kernels of
 ``csrc/progressive_splat_bwd.cu`` (the ports of ``_psb_ddata_kernel`` and
-``_psb_dlogits_kernel``), each only when its gradient is asked for. For CPU
-tensors it runs the plain versions (:mod:`sbmc_tpu_torch.ops.reference`).
-There is no fallback: a CUDA tensor either launches a kernel or raises.
+``_psb_dlogits_kernel``), each only when its gradient is asked for. The
+forward and the logits gradient each have two kernels, chosen by shape
+(:func:`splat_route`): a tiled one (TMA-fed forward, 16-byte vector logits
+gradient) at every shape the model paths give them, and the first port's
+per-pixel kernel (``progressive_splat_generic``,
+``progressive_splat_dlogits_generic``) where TMA or 16-byte vectors cannot
+address the logits. For CPU tensors it runs the plain versions
+(:mod:`sbmc_tpu_torch.ops.reference`). There is no fallback: a CUDA tensor
+either launches a kernel or raises.
 
 The backward mirrors ``sbmc_tpu.ops._psu_bwd``: the running max is a
 constant (its contributions cancel in ``sum_r / sum_w``), so ``max_w`` gets
 a zero gradient and the new max is not differentiable.
 """
+
+import functools
 
 import torch
 
@@ -55,6 +63,9 @@ __all__ = [
     "progressive_splat_update",
     "progressive_splat_update_ref",
     "progressive_splat_bwd_ref",
+    "splat_route",
+    "splat_tile_rows",
+    "dlogits_row_blocks",
     "launch_counts",
     "reset_launch_counts",
     "reference",
@@ -62,12 +73,17 @@ __all__ = [
 
 #: Kernel launches since the last reset, by kernel name. Each wrapper adds
 #: one where it launches its kernel, and nowhere else.
-launch_counts = {"progressive_splat": 0, "progressive_splat_ddata": 0,
-                 "progressive_splat_dlogits": 0, "kernel_weighting": 0,
+launch_counts = {"progressive_splat": 0, "progressive_splat_generic": 0,
+                 "progressive_splat_ddata": 0,
+                 "progressive_splat_dlogits": 0,
+                 "progressive_splat_dlogits_generic": 0, "kernel_weighting": 0,
                  "kernel_weighting_dw": 0, "scatter2gather": 0,
                  "scatter2gather_max": 0, "kernel_weighting_exp": 0}
 
 _CHANNELS = (2, 3)  # the kernels' template set
+#: Kernel sizes the tiled splat kernels are built for: the models' 21, and
+#: 3 and 5 for the tests.
+TILED_KSIZES = (3, 5, 21)
 
 
 def reset_launch_counts():
@@ -272,6 +288,57 @@ class _ProgressiveSplat(torch.autograd.Function):
         return d_data, d_logits, d_sum_r, d_sum_w, d_max_w
 
 
+def splat_route(w, k, itemsize, aligned=True):
+    """Which kernels the splat step's forward and logits gradient launch on
+    the card for logits ``[bs, k*k, h, w]`` of ``itemsize`` bytes.
+
+    ``"tiled"``: the TMA-fed forward (``progressive_splat``) and the 16-byte
+    vector logits gradient (``progressive_splat_dlogits``). They need ``k``
+    in :data:`TILED_KSIZES`, a logits row of ``w * itemsize`` bytes that is
+    a multiple of 16 (TMA's row stride; whole 16-byte vectors per row) and
+    16-byte aligned logits (``aligned``). Every shape the model paths give
+    the step has them (widths 2048, 512, 160, 128, 64, 48).
+
+    ``"generic"``: otherwise (odd widths, other kernel sizes), the per-pixel
+    kernels ``progressive_splat_generic`` and
+    ``progressive_splat_dlogits_generic``. This is a dispatch by shape, not
+    a fallback: either launch raises if it fails.
+    """
+    if k in TILED_KSIZES and (w * itemsize) % 16 == 0 and aligned:
+        return "tiled"
+    return "generic"
+
+
+def splat_tile_rows(bs, h, w, sms):
+    """Tile height of the tiled forward, 8 or 16 rows of 32 pixels: 8 where
+    its blocks take fewer than twice the waves of 16-row blocks on ``sms``
+    SMs at two blocks each (a 16-row block takes about twice as long)."""
+    slots = 2 * sms
+
+    def waves(th):
+        return -(-bs * -(-h // th) * -(-w // 32) // slots)
+    return 8 if waves(8) < 2 * waves(16) else 16
+
+
+def dlogits_row_blocks(bs, h, w, k, sms):
+    """Blocks that share each 8x64 tile's tap rows in the vector logits
+    gradient: 1, or enough to give three blocks per SM (``sms``), at most
+    ``k``."""
+    tiles = bs * -(-h // 8) * -(-w // 64)
+    return min(k, max(1, -(-3 * sms // tiles)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _route(klogits, *outputs):
+    w, k = klogits.shape[-1], reference.ksize_of(klogits)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (klogits,) + outputs)
+    return splat_route(w, k, klogits.element_size(), aligned)
+
+
 def _check(data, klogits, sum_r, sum_w, max_w):
     if data.dim() != 4 or klogits.dim() != 4:
         raise ValueError("data and klogits must be [bs, c, h, w] and "
@@ -315,18 +382,29 @@ def _launch(name, fn, device, *args):
     launch_counts[name] += 1
 
 
-def _progressive_splat_cuda(data, klogits, sum_r, sum_w, max_w):
+def _progressive_splat_cuda(data, klogits, sum_r, sum_w, max_w, route=None,
+                            tile_h=None):
+    """One splat step on the card: the kernel of ``route`` (by default
+    :func:`splat_route`'s), the tiled one at ``tile_h`` rows (by default
+    :func:`splat_tile_rows`'s)."""
     from sbmc_tpu_torch.ops import _build
     bs, c, h, w, k = _check(data, klogits, sum_r, sum_w, max_w)
     lib = _build.load_cuda()
     out_r = torch.empty_like(sum_r)
     out_w = torch.empty_like(sum_w)
     out_m = torch.empty_like(max_w)
-    _launch("progressive_splat", lib.sbmc_progressive_splat, data.device,
-            data.data_ptr(), klogits.data_ptr(),
+    args = (data.data_ptr(), klogits.data_ptr(),
             int(klogits.dtype == torch.bfloat16), sum_r.data_ptr(),
             sum_w.data_ptr(), max_w.data_ptr(), out_r.data_ptr(),
             out_w.data_ptr(), out_m.data_ptr(), bs, c, h, w, k)
+    if (route or _route(klogits)) == "tiled":
+        if tile_h is None:
+            tile_h = splat_tile_rows(bs, h, w, _sm_count(data.device))
+        _launch("progressive_splat", lib.sbmc_progressive_splat, data.device,
+                *args, tile_h)
+    else:
+        _launch("progressive_splat_generic",
+                lib.sbmc_progressive_splat_generic, data.device, *args)
     return out_r, out_w, out_m
 
 
@@ -345,19 +423,27 @@ def _ddata_cuda(klogits, new_max, d_r):
     return d_data
 
 
-def _dlogits_cuda(data, klogits, new_max, d_r, d_w):
-    """``d_klogits`` of one splat step on the card (kernel ``psb_dlogits``),
-    in the logits' dtype; the arguments are those of
-    ``reference.progressive_splat_dlogits_ref``."""
+def _dlogits_cuda(data, klogits, new_max, d_r, d_w, route=None):
+    """``d_klogits`` of one splat step on the card, in the logits' dtype:
+    the kernel of ``route`` (by default :func:`splat_route`'s), the vector
+    one with :func:`dlogits_row_blocks`'s blocks per tile. The other
+    arguments are those of ``reference.progressive_splat_dlogits_ref``."""
     from sbmc_tpu_torch.ops import _build
     bs, c, h, w, k = _check(data, klogits, d_r, d_w, new_max)
     lib = _build.load_cuda()
     d_logits = torch.empty_like(klogits)
-    _launch("progressive_splat_dlogits", lib.sbmc_progressive_splat_dlogits,
-            klogits.device, data.data_ptr(), klogits.data_ptr(),
+    args = (data.data_ptr(), klogits.data_ptr(),
             int(klogits.dtype == torch.bfloat16), new_max.data_ptr(),
             d_r.data_ptr(), d_w.data_ptr(), d_logits.data_ptr(), bs, c, h, w,
             k)
+    if (route or _route(klogits, d_logits)) == "tiled":
+        _launch("progressive_splat_dlogits",
+                lib.sbmc_progressive_splat_dlogits, klogits.device, *args,
+                dlogits_row_blocks(bs, h, w, k, _sm_count(klogits.device)))
+    else:
+        _launch("progressive_splat_dlogits_generic",
+                lib.sbmc_progressive_splat_dlogits_generic, klogits.device,
+                *args)
     return d_logits
 
 

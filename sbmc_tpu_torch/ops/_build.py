@@ -28,14 +28,20 @@ HOST_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: sbmc_progressive_splat(data, logits, logits_bf16, sum_r, sum_w, max_w,
-#:                        out_r, out_w, out_m, bs, c, h, w, k[, stream])
+#: sbmc_progressive_splat_generic(data, logits, logits_bf16, sum_r, sum_w,
+#:                                max_w, out_r, out_w, out_m, bs, c, h, w,
+#:                                k[, stream]); the tiled sbmc_progressive_splat
+#:                                takes tile_h before the stream, the host
+#:                                build of its rows `groups` last
 _PSF_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
 #: sbmc_progressive_splat_ddata(logits, logits_bf16, new_max, d_r, d_data,
 #:                              bs, c, h, w, k[, stream])
 _DDATA_ARGS = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I]
-#: sbmc_progressive_splat_dlogits(data, logits, logits_bf16, new_max, d_r,
-#:                                d_w, d_logits, bs, c, h, w, k[, stream])
+#: sbmc_progressive_splat_dlogits_generic(data, logits, logits_bf16, new_max,
+#:                                        d_r, d_w, d_logits, bs, c, h, w,
+#:                                        k[, stream]); the vector
+#:                                        sbmc_progressive_splat_dlogits takes
+#:                                        row_blocks before the stream
 _DLOGITS_ARGS = [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I]
 #: sbmc_kernel_weighting(data, weights, weights_bf16, out, sum_w,
 #:                       bs, c, h, w, k[, stream])
@@ -54,10 +60,13 @@ _KW_EXP_ARGS = [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I]
 #: source -> {exported function: argument types}; the CUDA entry points take
 #: the stream as one more pointer.
 _CUDA = {
-    "progressive_splat.cu": {"sbmc_progressive_splat": _PSF_ARGS + [_P]},
+    "progressive_splat.cu": {
+        "sbmc_progressive_splat": _PSF_ARGS + [_I, _P],
+        "sbmc_progressive_splat_generic": _PSF_ARGS + [_P]},
     "progressive_splat_bwd.cu": {
         "sbmc_progressive_splat_ddata": _DDATA_ARGS + [_P],
-        "sbmc_progressive_splat_dlogits": _DLOGITS_ARGS + [_P]},
+        "sbmc_progressive_splat_dlogits": _DLOGITS_ARGS + [_I, _P],
+        "sbmc_progressive_splat_dlogits_generic": _DLOGITS_ARGS + [_P]},
     "kernel_weighting.cu": {
         "sbmc_kernel_weighting": _KW_ARGS + [_P],
         "sbmc_kernel_weighting_dw": _KW_DW_ARGS + [_P],
@@ -67,10 +76,13 @@ _CUDA = {
         "sbmc_scatter2gather_max": _S2G_MAX_ARGS + [_P]},
 }
 _HOST = {
-    "progressive_splat_host.cpp": {"sbmc_progressive_splat_host": _PSF_ARGS},
+    "progressive_splat_host.cpp": {
+        "sbmc_progressive_splat_host": _PSF_ARGS,
+        "sbmc_progressive_splat_rows_host": _PSF_ARGS + [_I]},
     "progressive_splat_bwd_host.cpp": {
         "sbmc_progressive_splat_ddata_host": _DDATA_ARGS,
-        "sbmc_progressive_splat_dlogits_host": _DLOGITS_ARGS},
+        "sbmc_progressive_splat_dlogits_host": _DLOGITS_ARGS,
+        "sbmc_progressive_splat_dlogits_rows_host": _DLOGITS_ARGS},
     "kernel_weighting_host.cpp": {
         "sbmc_kernel_weighting_host": _KW_ARGS,
         "sbmc_kernel_weighting_dw_host": _KW_DW_ARGS,

@@ -11,10 +11,11 @@
 //   g[dy*k+dx, p] = L[(k-1-dy)*k + (k-1-dx), p + d]     (0 outside the image)
 //
 // which is scatter2gather without materialising the k^2-plane transposed
-// tensor. The online softmax keeps a running max m per pixel; a tap that
-// raises m rescales the accumulators by exp(m_old - m_new) first, so every
-// logit is read once. Data outside the image is 0, so such a tap adds
-// exp(0 - m) to sum_w and nothing to sum_r (the zero-padded transpose).
+// tensor. The online softmax keeps a running max m per pixel; the generic
+// kernel rescales the accumulators by exp(m_old - m_new) at each tap that
+// raises m, the tiled kernel once per row of k taps, so every logit is read
+// once. Data outside the image is 0, so such a tap adds exp(0 - m) to sum_w
+// and nothing to sum_r (the zero-padded transpose).
 
 #pragma once
 
@@ -42,7 +43,83 @@ PSF_HD float psf_load(const uint16_t* p, int64_t i) {
 #endif
 }
 
-// One pixel of one batch item. Pointers are already offset to the item:
+// ---------------------------------------------------------------------------
+// Row-wise online softmax of the tiled kernel (psf_tma in
+// progressive_splat.cu), as __host__ __device__ pieces the host build runs
+// too.
+//
+// The tiled kernel takes exp(x) as exp2(x * log2(e)): exp2f is one MUFU.EX2
+// on the card plus a range fixup, where expf adds a range reduction. The
+// extra rounding of the product is about |x| * 2^-24 relative, far inside
+// the kernels' tolerance (2e-5 relative).
+constexpr float kPsfLog2e = 1.4426950408889634f;
+
+PSF_HD float psf_exp(float x) { return exp2f(x * kPsfLog2e); }
+
+// A partial online-softmax state of one pixel: the running max m, and
+// sum_w and sum_r both scaled by exp(-m).
+template <int C>
+struct PsfState {
+  float m;
+  float w;
+  float r[C];
+};
+
+// An empty state at max m (the kernel starts every pixel at the old max).
+template <int C>
+PSF_HD PsfState<C> psf_state_at(float m) {
+  PsfState<C> s;
+  s.m = m;
+  s.w = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) s.r[c] = 0.f;
+  return s;
+}
+
+// a <- a (+) b: both taken to the larger max, each scaled by exp(m_i - m).
+// It joins groups of tap rows, and the old state with the new taps.
+template <int C>
+PSF_HD void psf_merge(PsfState<C>& a, const PsfState<C>& b) {
+  const float m = fmaxf(a.m, b.m);
+  const float fa = psf_exp(a.m - m);
+  const float fb = psf_exp(b.m - m);
+  a.m = m;
+  a.w = a.w * fa + b.w * fb;
+#pragma unroll
+  for (int c = 0; c < C; ++c) a.r[c] = a.r[c] * fa + b.r[c] * fb;
+}
+
+// One row of K gather taps (dx = 0..K-1) into s: the row's max first, one
+// rescale of the accumulators to it (one exp, taken whether or not the max
+// moved: no data-dependent branch), then K exps and FMAs. v[dx] is the
+// tap's logit, dat.get(dx, d) fills d[C] with the data at the tap's source
+// pixel (0 outside the image, where v[dx] is 0 too).
+template <int C, int K, typename Data>
+PSF_HD void psf_row_update(PsfState<C>& s, const float (&v)[K],
+                           const Data& dat) {
+  float rm = v[0];
+#pragma unroll
+  for (int dx = 1; dx < K; ++dx) rm = fmaxf(rm, v[dx]);
+  const float m = fmaxf(s.m, rm);
+  const float f = psf_exp(s.m - m);
+  s.m = m;
+  s.w *= f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) s.r[c] *= f;
+#pragma unroll
+  for (int dx = 0; dx < K; ++dx) {
+    const float e = psf_exp(v[dx] - m);
+    float d[C];
+    dat.get(dx, d);
+    s.w += e;
+#pragma unroll
+    for (int c = 0; c < C; ++c) s.r[c] += e * d[c];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// One pixel of one batch item, the per-tap loop of the generic kernel
+// (psf_generic). Pointers are already offset to the item:
 // data/sum_r/out_r hold C planes, logits k*k planes, the rest one plane,
 // each plane h*w elements.
 template <int C, typename T>

@@ -1,4 +1,4 @@
-// Per-pixel arithmetic of the fused progressive splat step's backward.
+// Arithmetic of the fused progressive splat step's backward.
 //
 // Shared by the CUDA kernels (progressive_splat_bwd.cu) and a host build
 // (progressive_splat_bwd_host.cpp) that lets the CPU tests check the index
@@ -108,5 +108,91 @@ PSF_HD void psb_dlogits_pixel(const float* data, const T* logits,
       }
       psb_store(d_logits, t * hw + p, g);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The vector kernel of d_L (psb_dlogits_vec in progressive_splat_bwd.cu):
+// one work item is V = 16 / sizeof(T) consecutive pixels of one row and the
+// k taps of one tap row dy, each tap one 16-byte load of L and one 16-byte
+// store of d_L at the item's own pixels. exp is psf_exp (exp2 of the
+// log2(e)-scaled argument, progressive_splat.cuh).
+
+// 16 bytes of logits widened to float: 4 float32 or 8 bfloat16.
+PSF_HD void psb_load_vec(const float* p, float (&v)[4]) {
+#ifdef __CUDA_ARCH__
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+#else
+  for (int i = 0; i < 4; ++i) v[i] = p[i];
+#endif
+}
+
+PSF_HD void psb_load_vec(const uint16_t* p, float (&v)[8]) {
+#ifdef __CUDA_ARCH__
+  const uint4 q = *reinterpret_cast<const uint4*>(p);
+  const uint32_t u[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // little-endian: the low half comes first
+    v[2 * i] = __uint_as_float(u[i] << 16);
+    v[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+#else
+  for (int i = 0; i < 8; ++i) v[i] = psf_load(p, i);
+#endif
+}
+
+// 16 bytes of gradient in the logits' type (bf16 rounded to nearest even).
+PSF_HD void psb_store_vec(float* p, const float (&v)[4]) {
+#ifdef __CUDA_ARCH__
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+#else
+  for (int i = 0; i < 4; ++i) p[i] = v[i];
+#endif
+}
+
+PSF_HD void psb_store_vec(uint16_t* p, const float (&v)[8]) {
+#ifdef __CUDA_ARCH__
+  uint32_t u[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    u[i] = static_cast<uint32_t>(psb_bf16_bits(v[2 * i])) |
+           (static_cast<uint32_t>(psb_bf16_bits(v[2 * i + 1])) << 16);
+  *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
+#else
+  for (int i = 0; i < 8; ++i) psb_store(p, i, v[i]);
+#endif
+}
+
+// One work item: pixels p .. p + V - 1 of one batch item (pointers offset to
+// the item, logits and d_logits k*k planes of hw elements), tap row dy.
+// dat[j][c] is data[c, p + j]. small.get(col, m, a) gives, at the pixel
+// (y + dy - o, x - o + col) of the item's row y and first column x, the
+// running max m and a = (d_w, d_r[0..C-1]); outside the image m = +inf and
+// a = 0, so that tap's gradient is exp(-inf) * 0 = 0.
+template <int C, int K, int V, typename T, typename Small>
+PSF_HD void psb_dlogits_row(const float (&dat)[V][C], const T* logits,
+                            T* d_logits, int64_t hw, int64_t p, int dy,
+                            const Small& small) {
+#pragma unroll
+  for (int dx = 0; dx < K; ++dx) {
+    const int64_t off = static_cast<int64_t>(dy * K + dx) * hw + p;
+    float l[V];
+    psb_load_vec(logits + off, l);
+    float g[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      float m;
+      float a[C + 1];
+      small.get(dx + j, m, a);
+      float inner = a[0];
+#pragma unroll
+      for (int c = 0; c < C; ++c) inner += dat[j][c] * a[c + 1];
+      g[j] = psf_exp(l[j] - m) * inner;
+    }
+    psb_store_vec(d_logits + off, g);
   }
 }

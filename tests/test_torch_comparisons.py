@@ -169,7 +169,7 @@ def records(tmp_path_factory):
 @pytest.mark.parametrize("method", ["nlm", "cbf", "rpf", "nfor"])
 def test_denoise_buffers_matches_jax(records, method):
     feats, labels = records
-    got = T.denoise_buffers(feats, labels, method=method)
+    got = T.denoise_buffers(feats, labels, method=method, device="cpu")
     want = J.denoise_buffers(feats, labels, method=method)
     assert got.shape == want.shape == (3, 32, 32) and got.dtype == np.float32
     assert np.isfinite(got).all()
@@ -189,11 +189,12 @@ def test_denoise_buffers_falls_back_without_coordinates(records):
             if n not in ("dx", "dy", "lens_u", "lens_v", "t")]
     sub = feats[:, keep]
     names = [labels[i] for i in keep]
-    got = T.denoise_buffers(sub, names, method="rpf", radii=(2,))
+    got = T.denoise_buffers(sub, names, method="rpf", radii=(2,),
+                            device="cpu")
     want = J.denoise_buffers(sub, names, method="rpf", radii=(2,))
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4)
     with pytest.raises(ValueError, match="unknown baseline"):
-        T.denoise_buffers(feats, labels, method="bm3d")
+        T.denoise_buffers(feats, labels, method="bm3d", device="cpu")
 
 
 def test_denoise_buffers_takes_tensors_on_their_device(records):
@@ -203,3 +204,14 @@ def test_denoise_buffers_takes_tensors_on_their_device(records):
     want = T.denoise_buffers(feats, labels, method="cbf", window_r=2,
                              device="cpu")
     np.testing.assert_array_equal(got, want)
+
+
+def test_denoise_buffers_puts_numpy_input_on_the_card(records):
+    """A numpy array with no device goes to the card, as the JAX package's
+    goes to its default accelerator: without CUDA that raises, as
+    ``resolve_device("cuda")`` does."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+    feats, labels = records
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        T.denoise_buffers(feats, labels, method="cbf", window_r=2)

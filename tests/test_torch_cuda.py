@@ -42,6 +42,25 @@ def _counts():
     return {name: n for name, n in ops.launch_counts.items() if n}
 
 
+def _variant(name, logits):
+    """The counter of the splat kernel ``name`` (``progressive_splat`` or
+    ``progressive_splat_dlogits``) that ``logits`` are dispatched to: the
+    tiled kernel's own, or its generic variant's."""
+    route = ops.splat_route(logits.shape[-1],
+                            ops.reference.ksize_of(logits),
+                            logits.element_size())
+    return name if route == "tiled" else name + "_generic"
+
+
+#: (channels, (h, w), k) the splat kernels are checked at: odd widths that
+#: take the generic kernels, then widths whose logits rows are a multiple of
+#: 16 bytes in both types, which take the tiled ones (ragged 16- and 8-row
+#: tiles, 32-wide and 64-wide tiles, image smaller than the halo).
+SPLAT_CASES = [(3, (37, 53), 3), (3, (130, 3), 5), (2, (5, 7), 21),
+               (3, (37, 53), 21), (3, (37, 72), 3), (2, (21, 40), 5),
+               (3, (45, 136), 21), (2, (5, 8), 21)]
+
+
 def _inputs(rng, bs, c, h, w, k, dtype, init, device):
     data = torch.tensor(rng.randn(bs, c, h, w), dtype=torch.float32)
     logits = torch.tensor(3 * rng.randn(bs, k * k, h, w),
@@ -60,19 +79,41 @@ def _inputs(rng, bs, c, h, w, k, dtype, init, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("init", [True, False])
-@pytest.mark.parametrize("c,hw,k", [(3, (37, 53), 3), (3, (130, 3), 5),
-                                    (2, (5, 7), 21), (3, (37, 53), 21)])
+@pytest.mark.parametrize("c,hw,k", SPLAT_CASES)
 def test_splat_kernel_matches_plain(device, c, hw, k, dtype, init):
     rng = np.random.RandomState(k * 100 + hw[0])
     args = _inputs(rng, 2, c, *hw, k, dtype, init, device)
     with torch.inference_mode():
-        before = ops.launch_counts["progressive_splat"]
+        ops.reset_launch_counts()
         got = ops.progressive_splat_update(*args)
-        assert ops.launch_counts["progressive_splat"] == before + 1
+        assert _counts() == {_variant("progressive_splat", args[1]): 1}
         want = ops.progressive_splat_update_ref(*args)
         torch.cuda.synchronize()
     for g, r in zip(got, want):
         assert g.dtype == torch.float32 and g.shape == r.shape
+        assert torch.all((g - r).abs() <= ATOL + RTOL * r.abs()), \
+            float((g - r).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_h", [8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [2, 3])
+@pytest.mark.parametrize("k", [3, 5, 21])
+def test_tiled_splat_kernel_at_each_tile_height(device, tile_h, dtype, c, k):
+    """Both tile heights of the tiled kernel, whichever one
+    ``ops.splat_tile_rows`` would pick at this shape (float32 16-row tiles
+    run with the fewest stages, one block per SM)."""
+    rng = np.random.RandomState(k * 10 + c)
+    args = _inputs(rng, 2, c, 37, 64, k, dtype, False, device)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        got = ops._progressive_splat_cuda(*args, route="tiled",
+                                          tile_h=tile_h)
+        assert _counts() == {"progressive_splat": 1}
+        want = ops.progressive_splat_update_ref(*args)
+        torch.cuda.synchronize()
+    for g, r in zip(got, want):
         assert torch.all((g - r).abs() <= ATOL + RTOL * r.abs()), \
             float((g - r).abs().max())
 
@@ -100,7 +141,7 @@ def test_splat_kernel_rejects_bad_inputs(device):
                                        mw)
     out[0].sum().backward()
     assert data.grad.shape == data.shape
-    assert _counts() == {"progressive_splat": 1,
+    assert _counts() == {_variant("progressive_splat", logits): 1,
                          "progressive_splat_ddata": 1}
 
 
@@ -109,8 +150,7 @@ BWD_ATOL, BWD_RTOL = 3e-4, 2e-5
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c,hw,k", [(3, (37, 53), 3), (3, (130, 3), 5),
-                                    (2, (5, 7), 21), (3, (37, 53), 21)])
+@pytest.mark.parametrize("c,hw,k", SPLAT_CASES)
 def test_backward_kernels_match_plain(device, c, hw, k, dtype):
     rng = np.random.RandomState(k * 100 + hw[0] + 1)
     data, logits, sr, sw, mw = _inputs(rng, 2, c, *hw, k, dtype, False,
@@ -125,7 +165,7 @@ def test_backward_kernels_match_plain(device, c, hw, k, dtype):
         got_data = ops._ddata_cuda(logits, new_max, d_r)
         got_logits = ops._dlogits_cuda(data, logits, new_max, d_r, d_w)
         assert _counts() == {"progressive_splat_ddata": 1,
-                             "progressive_splat_dlogits": 1}
+                             _variant("progressive_splat_dlogits", logits): 1}
         want_data, want_logits = ops.progressive_splat_bwd_ref(
             data, logits, new_max, d_r, d_w)
         torch.cuda.synchronize()
@@ -165,8 +205,9 @@ def test_function_backward_on_the_card_matches_cpu(device, dtype):
         ops.reset_launch_counts()
         (state.sum_r / (state.sum_w + 1e-8)).square().sum().backward()
         if dev.type == "cuda":
-            assert ops.launch_counts["progressive_splat_ddata"] == 2
-            assert ops.launch_counts["progressive_splat_dlogits"] == 2
+            assert _counts() == {"progressive_splat_ddata": 2,
+                                 _variant("progressive_splat_dlogits",
+                                          lg): 2}
         grads.append([t.grad.float().cpu() for t in leaves])
     for i, (g, r) in enumerate(zip(grads[1], grads[0])):
         rt = 2.0 ** -7 if (dtype == torch.bfloat16 and i % 2) else 1e-4
@@ -346,7 +387,7 @@ def test_composed_step_matches_fused_kernel(device, c, hw, k, dtype, init):
                                             sum_w, max_w)
         torch.cuda.synchronize()
     assert _counts() == {"scatter2gather_max": 1, "kernel_weighting_exp": 1,
-                         "progressive_splat": 1}
+                         _variant("progressive_splat", logits): 1}
     for a, b in zip(got, want):
         _close(a, b)
 

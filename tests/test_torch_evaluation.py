@@ -271,7 +271,8 @@ def test_denoise_baselines_cli(scenes, tmp_path):
     assert [r["scene"] for r in res] == ["scene_0000", "scene_0001"]
     for i, r in enumerate(res):
         assert r["output"].endswith("cbf_%s.exr" % r["scene"])
-        want = denoise_buffers(raw[i]["features"], raw.labels, method="cbf")
+        want = denoise_buffers(raw[i]["features"], raw.labels, method="cbf",
+                               device="cpu")
         np.testing.assert_array_equal(
             exr.read(r["output"]),
             want.transpose(1, 2, 0).astype(np.float16).astype(np.float32))
