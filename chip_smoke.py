@@ -51,12 +51,16 @@ Phases, each printing one line (or a few) before the last:
 The composed kernels' phases run between these (4b to 4d after 4, 6b after
 6, 8b to 8e after 8):
 
-4b. composed kernels: holds kernel weighting, its gradient to the weights
-    and scatter2gather against their plain versions (k in {3, 5, 21}, odd
-    shapes, 2 and 3 channels, float32 and bfloat16 weights, and the shapes
-    of the paths below; scatter2gather bit-exact in both types); times each
-    at KPCN's training shape (4, 3, 92, 92) and at (1, 3, 1080, 2048),
-    k = 21;
+4b. composed kernels: holds kernel weighting and its gradient to the
+    weights (each as the tiled kernel and the generic one) and
+    scatter2gather against their plain versions (k in {3, 5, 21}, odd
+    shapes, 2 and 3 channels, float32 and bfloat16 weights, a base not
+    aligned to two elements, k = 7, which only the generic kernels take,
+    the shapes of the paths below and a ragged 1080p KPCN tile;
+    scatter2gather bit-exact in both types; the weight gradient written in
+    the weights' type); times each at KPCN's training shape (4, 3, 92, 92)
+    and at (1, 3, 1080, 2048), k = 21, float32 and bfloat16, the tiled
+    kernels at every group count too;
 6b. gradient, composed: ``kernel_apply(splat=True)`` and KPCN at full width
     (float32) with the buffers requiring a gradient, card against CPU: loss,
     every parameter gradient and the gradient to the buffers, which is where
@@ -94,7 +98,8 @@ Every path records the shapes and logit or weight types it gives the splat
 step, kernel weighting and scatter2gather; the run fails if a kernel met a
 shape on a path at which it was not held against its plain version, or if
 any path (but the composed step's yardstick at odd widths) launched a
-generic variant of the splat kernels (NEVER_ON_A_PATH). Then
+generic variant of the splat or kernel-weighting kernels
+(NEVER_ON_A_PATH). Then
 one JSON line with each kernel's numbers (``launches`` by path) and, last,
 the device line. Any failure raises and exits non-zero without printing a
 result.
@@ -139,7 +144,11 @@ KERNELS = (
      "sbmc_tpu/ops/pallas_kernels.py:755"),
     ("kernel_weighting", _CSRC + "kernel_weighting.cu",
      "sbmc_tpu/ops/pallas_kernels.py:151"),
+    ("kernel_weighting_generic", _CSRC + "kernel_weighting.cu",
+     "sbmc_tpu/ops/pallas_kernels.py:151"),
     ("kernel_weighting_dw", _CSRC + "kernel_weighting.cu",
+     "sbmc_tpu/ops/pallas_kernels.py:321"),
+    ("kernel_weighting_dw_generic", _CSRC + "kernel_weighting.cu",
      "sbmc_tpu/ops/pallas_kernels.py:321"),
     ("scatter2gather", _CSRC + "scatter2gather.cu",
      "sbmc_tpu/ops/pallas_kernels.py:393"),
@@ -169,20 +178,24 @@ MUST_LAUNCH = {
     "kernel_weighting_exp": ("composed_step",),
     "progressive_splat_generic": (),
     "progressive_splat_dlogits_generic": (),
+    "kernel_weighting_generic": (),
+    "kernel_weighting_dw_generic": (),
 }
-#: The generic variants of the splat kernels (the first port's per-pixel
-#: kernels) take only shapes the tiled kernels cannot address, which no
-#: path gives them: the kernel phases check them at odd widths, and the run
-#: fails if any path launched one.
+#: The generic variants of the splat and kernel-weighting kernels (the first
+#: port's per-pixel kernels) take only shapes the tiled kernels cannot
+#: address, which no path gives them: the kernel phases check them there
+#: and at the paths' shapes, and the run fails if any path launched one.
 NEVER_ON_A_PATH = ("progressive_splat_generic",
-                   "progressive_splat_dlogits_generic")
+                   "progressive_splat_dlogits_generic",
+                   "kernel_weighting_generic", "kernel_weighting_dw_generic")
 #: The wrapped op whose recorded cases speak for each kernel.
 _OP_OF = {"progressive_splat": "splat", "progressive_splat_ddata": "splat",
           "progressive_splat_dlogits": "splat",
           "progressive_splat_generic": "splat",
           "progressive_splat_dlogits_generic": "splat",
-          "kernel_weighting": "kw",
-          "kernel_weighting_dw": "kw", "scatter2gather": "s2g",
+          "kernel_weighting": "kw", "kernel_weighting_generic": "kw",
+          "kernel_weighting_dw": "kw", "kernel_weighting_dw_generic": "kw",
+          "scatter2gather": "s2g",
           "scatter2gather_max": "s2g_max", "kernel_weighting_exp": "kw_exp"}
 
 #: (bs, c, h, w, logit type) the paths give the splat step, k = 21: the
@@ -232,8 +245,7 @@ STEP_SHAPES = (
     (1, 3, 1080, 2048, 21, torch.bfloat16),
 )
 #: kernel -> {(data shape, k2, logit or weight type)} held against the plain
-#: version. scatter2gather sees no data: its cases carry (bs, h, w); the
-#: weight gradient's output is float32 whatever the weights are.
+#: version. scatter2gather sees no data: its cases carry (bs, h, w).
 _COMPARED = {name: set() for name, _, _ in KERNELS}
 #: kernel -> its largest abs error against the plain version so far.
 _MAX_ERR = {}
@@ -404,8 +416,6 @@ def _check_shapes(path, seen, kernels):
         if not cases:
             raise AssertionError("the %s path never reached the op of %s"
                                  % (path, name))
-        if name == "kernel_weighting_dw":
-            cases = {c[:2] + ("torch.float32",) for c in cases}
         missing = cases - _COMPARED[name]
         if missing:
             raise AssertionError(
@@ -666,19 +676,20 @@ def _time_bwd(ops, inputs, plain_iters):
 
 
 def _record_times(numbers, name, tag, ms, plain_ms, bound_ms, by,
-                  device_ms=None):
+                  device_ms=None, **extra):
     """Prints one kernel's times at one shape and files them in
     ``numbers[name]``: the first shape is the main path's, the others go
     under ``other_shapes``. ``ms`` is on the host clock; ``device_ms``, where
-    given, the device time alone."""
+    given, the device time alone; ``extra`` goes into the row as it is."""
     device = "" if device_ms is None else ", %.4f ms on the device, %s" % (
         device_ms, _share(device_ms, bound_ms))
     print("%s at (%s), k=21: %.4f ms, %s%s; plain version %.4f ms; bound "
-          "%.4f ms (%s)" % (name, tag, ms, _share(ms, bound_ms), device,
-                            plain_ms, bound_ms, by))
+          "%.4f ms (%s)%s" % (name, tag, ms, _share(ms, bound_ms), device,
+                              plain_ms, bound_ms, by,
+                              "; " + json.dumps(extra) if extra else ""))
     entry = numbers.setdefault(name, {"other_shapes": []})
-    row = {"shape": tag, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": by}
+    row = dict(extra, shape=tag, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=by)
     if device_ms is not None:
         row["device_ms"] = device_ms
     if "ms" not in entry:
@@ -1081,132 +1092,218 @@ def _train_phase(ops, tmp, steps=10, spp=8, bs=4):
     return launches
 
 
-def _kw_inputs(rng, bs, c, h, w, k, dtype):
-    """data, weights, and the cotangents of kernel weighting, on the card."""
+def _kw_inputs(rng, bs, c, h, w, k, dtype, misalign=False):
+    """data, weights, and the cotangents of kernel weighting, on the card;
+    with ``misalign`` the weights start one element past an aligned base."""
     dev = torch.device("cuda")
 
     def t(a, dt=torch.float32):
         return torch.tensor(a, dtype=torch.float32).to(dt).to(dev)
 
-    return (t(rng.randn(bs, c, h, w)), t(rng.randn(bs, k * k, h, w), dtype),
-            t(rng.randn(bs, c, h, w)), t(rng.randn(bs, h, w)))
+    weights = t(rng.randn(bs, k * k, h, w), dtype)
+    if misalign:
+        buf = torch.empty(weights.numel() + 1, dtype=dtype, device=dev)
+        weights = buf[1:].view(weights.shape).copy_(weights)
+    return (t(rng.randn(bs, c, h, w)), weights, t(rng.randn(bs, c, h, w)),
+            t(rng.randn(bs, h, w)))
 
 
-def _compare_composed(ops, inputs):
-    """Max abs errors of (kernel_weighting, kernel_weighting_dw); raises
-    beyond ``ATOL + RTOL * |plain|``, and if scatter2gather is not exact."""
+def _kw_check(name, case, got, want, dtype, rtol=RTOL):
+    """Raises unless ``got`` has ``want``'s shape, the type ``dtype`` and
+    lies within ``ATOL + rtol * |want|``; returns the max abs error."""
+    if got.dtype != dtype or got.shape != want.shape:
+        raise AssertionError("%s returned %s %s at %s" % (
+            name, got.dtype, tuple(got.shape), case))
+    diff = (got.float() - want.float()).abs()
+    if not bool(torch.all(diff <= ATOL + rtol * want.float().abs())):
+        raise AssertionError(
+            "%s kernel disagrees with its plain version at %s: max abs err "
+            "%.3g" % (name, case, float(diff.max())))
+    _note_err(name, float(diff.max()))
+    return float(diff.max())
+
+
+def _compare_composed(ops, inputs, groups=None):
+    """Holds kernel weighting and its weight gradient (the kernels the
+    route takes, at ``groups`` groups of tap rows or the route's; and the
+    generic ones where the route takes the tiled ones) against their plain
+    versions, within ``ATOL + RTOL * |plain|``; the gradient for bfloat16
+    weights is bfloat16, within ``ATOL + 2^-7 * |plain|`` of the plain
+    float32 gradient rounded once. Raises on a failure, and if
+    scatter2gather is not exact."""
     data, weights, d_out, d_sw = inputs
-    k2 = weights.shape[1]
-    k = int(round(k2 ** 0.5))
+    k = ops.reference.ksize_of(weights)
+    dtype = weights.dtype
     case = _case(data, weights)
-    _COMPARED["kernel_weighting"].add(case)
-    _COMPARED["kernel_weighting_dw"].add(case[:2] + ("torch.float32",))
-    _COMPARED["scatter2gather"].add(_s2g_case(weights))
-    out, sum_w = ops.kernel_weighting(data, weights)
-    d_w = ops._kernel_weighting_dw_cuda(data, d_out, d_sw, k)
-    g = ops.scatter2gather(weights)
+    routes = ["generic"]
+    if ops.kw_route(k) == "tiled":
+        routes.insert(0, "tiled")
     want_out, want_sw = ops.kernel_weighting_ref(data, weights)
-    want_dw = ops.kernel_weighting_dw_ref(data, d_out, d_sw, k)
+    want_dw = ops.kernel_weighting_dw_ref(data, d_out, d_sw, k).to(dtype)
+    rtol_dw = BF16_RTOL if dtype == torch.bfloat16 else RTOL
+    for route in routes:
+        suffix = "" if route == "tiled" else "_generic"
+        fwd, dw = "kernel_weighting" + suffix, "kernel_weighting_dw" + suffix
+        _COMPARED[fwd].add(case)
+        _COMPARED[dw].add(case)
+        if route == "tiled" and groups is None:
+            out, sum_w = ops.kernel_weighting(data, weights)
+        else:
+            out, sum_w = ops._kernel_weighting_cuda(data, weights, route,
+                                                    groups)
+        d_w = ops._kernel_weighting_dw_cuda(data, d_out, d_sw, k, dtype,
+                                            route, groups)
+        torch.cuda.synchronize()
+        _kw_check(fwd, case, out, want_out, torch.float32)
+        _kw_check(fwd, case, sum_w, want_sw, torch.float32)
+        _kw_check(dw, case, d_w, want_dw, dtype, rtol_dw)
+        del out, sum_w, d_w
+    _COMPARED["scatter2gather"].add(_s2g_case(weights))
+    g = ops.scatter2gather(weights)
     want_g = ops.scatter2gather_ref(weights)
     torch.cuda.synchronize()
     if g.dtype != weights.dtype or not torch.equal(g, want_g):
         raise AssertionError("scatter2gather kernel is not bit-exact at %s"
                              % (case,))
-    del g, want_g
-    errs = []
-    for name, pairs in (("kernel_weighting", ((out, want_out),
-                                              (sum_w, want_sw))),
-                        ("kernel_weighting_dw", ((d_w, want_dw),))):
-        err = 0.0
-        for got, want in pairs:
-            if got.dtype != torch.float32 or got.shape != want.shape:
-                raise AssertionError("%s returned %s %s" % (
-                    name, got.dtype, tuple(got.shape)))
-            if not bool(torch.all((got - want).abs()
-                                  <= ATOL + RTOL * want.abs())):
-                raise AssertionError(
-                    "%s kernel disagrees with its plain version at %s: max "
-                    "abs err %.3g" % (name, case,
-                                      float((got - want).abs().max())))
-            err = max(err, float((got - want).abs().max()))
-        errs.append(err)
-    return errs
 
 
-def _time_composed(ops, inputs, plain_iters):
-    """{kernel: (ms, plain ms, bound ms, bound by)} on these inputs."""
+def _time_composed(ops, inputs, plain_iters, graph_iters):
+    """[(kernel, ms, plain ms, bound ms, bound by, device ms, extra)] on
+    these inputs: ``ms`` on the host clock (events around 20 calls through
+    the wrapper), ``device_ms`` by CUDA-graph replay (``graph_iters`` calls
+    a graph); for the tiled kernels ``extra`` holds the count of groups the
+    route picks, the device time at every count (the best of two turns
+    over the counts, taken after the other times) and a yardstick."""
     data, weights, d_out, d_sw = inputs
     bs, c, h, w = data.shape
     k2 = weights.shape[1]
     k = int(round(k2 ** 0.5))
     px = bs * h * w
+    dtype = weights.dtype
     wbytes = weights.numel() * weights.element_size()
-    out = {}
-    # Forward: reads the weights and c data planes, writes c + 1 planes; per
-    # tap an add to sum_w and one FMA per channel.
-    out["kernel_weighting"] = (
-        _time_ms(lambda: ops.kernel_weighting(data, weights), 3, 20),
-        _time_ms(lambda: ops.kernel_weighting_ref(data, weights), 1,
-                 plain_iters),
-    ) + _bound(wbytes + px * 4 * (2 * c + 1), px * k2 * (2 * c + 1))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+
+    def add(name, fn, plain, bound, extra=dict):
+        times = (_time_ms(fn, 3, 20), _time_ms(plain, 1, plain_iters))
+        device_ms = _graph_ms(fn, graph_iters)
+        rows.append((name,) + times + bound + (device_ms, extra()))
+
+    def by_groups(chosen, fn_of):
+        counts = [g for g in (1, 2, 4, 8) if g <= k]
+        turns = [[_graph_ms(fn_of(g), graph_iters) for g in counts]
+                 for _ in range(2)]
+        return {"groups": chosen, "device_ms_by_groups": {
+            g: min(t) for g, t in zip(counts, zip(*turns))}}
+
+    # Forward: reads the weights and c data planes, writes c + 1 planes;
+    # per tap an add to sum_w and one FMA per channel. Its yardstick of the
+    # reachable read rate: torch.sum over the same weights.
+    fwd_bound = _bound(wbytes + px * 4 * (2 * c + 1), px * k2 * (2 * c + 1))
+    plain_fwd = lambda: ops.kernel_weighting_ref(data, weights)  # noqa: E731
+    add("kernel_weighting", lambda: ops.kernel_weighting(data, weights),
+        plain_fwd, fwd_bound, lambda: dict(by_groups(
+            ops.kw_groups(bs, h, w, k, ops.kw_pixels(w, 2),
+                          weights.element_size(), sms),
+            lambda g: lambda: ops._kernel_weighting_cuda(
+                data, weights, "tiled", g)),
+            weights_sum_device_ms=_graph_ms(
+                lambda: weights.sum(dtype=torch.float32), graph_iters)))
+    add("kernel_weighting_generic",
+        lambda: ops._kernel_weighting_cuda(data, weights, "generic"),
+        plain_fwd, fwd_bound)
+    # Weight gradient: reads 2c + 1 float32 planes, writes k2 planes in the
+    # weights' type (the generic kernel: float32); per tap c FMAs and an
+    # add. The plain version is the CPU path's: float32, then the cast. Its
+    # yardstick of the reachable write rate: a fill of the same planes.
+    plain_dw = lambda: ops.kernel_weighting_dw_ref(  # noqa: E731
+        data, d_out, d_sw, k).to(dtype)
+    planes = torch.empty_like(weights)
+    add("kernel_weighting_dw",
+        lambda: ops._kernel_weighting_dw_cuda(data, d_out, d_sw, k, dtype),
+        plain_dw, _bound(px * (4 * (2 * c + 1) + k2 * weights.element_size()),
+                         px * k2 * (2 * c + 1)),
+        lambda: dict(by_groups(
+            ops.kw_dw_groups(k),
+            lambda g: lambda: ops._kernel_weighting_dw_cuda(
+                data, d_out, d_sw, k, dtype, "tiled", g)),
+            fill_device_ms=_graph_ms(lambda: planes.fill_(1.0),
+                                     graph_iters)))
+    del planes
+    add("kernel_weighting_dw_generic",
+        lambda: ops._kernel_weighting_dw_cuda(data, d_out, d_sw, k,
+                                              route="generic"),
+        plain_dw, _bound(px * 4 * (2 * c + 1 + k2), px * k2 * (2 * c + 1)),
+        lambda: {"writes": "float32"})
     # Transpose: reads and writes the k2 planes; no arithmetic.
-    out["scatter2gather"] = (
-        _time_ms(lambda: ops.scatter2gather(weights), 3, 20),
-        _time_ms(lambda: ops.scatter2gather_ref(weights), 1, plain_iters),
-    ) + _bound(2 * wbytes, 0)
-    if weights.dtype == torch.float32:
-        # Weight gradient: reads 2c + 1 planes, writes k2 float32 planes;
-        # per tap c FMAs and an add.
-        out["kernel_weighting_dw"] = (
-            _time_ms(lambda: ops._kernel_weighting_dw_cuda(
-                data, d_out, d_sw, k), 3, 20),
-            _time_ms(lambda: ops.kernel_weighting_dw_ref(
-                data, d_out, d_sw, k), 1, plain_iters),
-        ) + _bound(px * 4 * (k2 + 2 * c + 1), px * k2 * (2 * c + 1))
-    return out
+    add("scatter2gather", lambda: ops.scatter2gather(weights),
+        lambda: ops.scatter2gather_ref(weights), _bound(2 * wbytes, 0))
+    return rows
 
 
 def _composed_kernel_phase(ops):
-    """Kernel weighting, its weight gradient and scatter2gather against
-    their plain versions, then their times."""
+    """Kernel weighting and its weight gradient (tiled and generic) and
+    scatter2gather against their plain versions, then their times."""
     rng = np.random.RandomState(3)
-    err = [0.0, 0.0]
     cases = 0
 
-    def check(inputs):
-        nonlocal err, cases
-        err = [max(a, b) for a, b in zip(err, _compare_composed(ops,
-                                                                inputs))]
+    def check(inputs, groups=None):
+        nonlocal cases
+        _compare_composed(ops, inputs, groups)
         cases += 1
 
     for k in (3, 5, 21):
         for c, hw in ((3, (37, 53)), (3, (130, 3)), (2, (5, 7))):
             for dtype in (torch.float32, torch.bfloat16):
                 check(_kw_inputs(rng, 2, c, *hw, k, dtype))
-    for bs, c, h, w, dtype in KW_PATH_SHAPES:
+    # Every group count of the tiled kernels at every k, weight type and
+    # channel count (a width of 64: the widest items; 37 rows: ragged
+    # tiles), whichever count the route would pick; a base one element off
+    # at a width of 90 (1-pixel items in the forward, 2-pixel ones in the
+    # gradient); k = 7, which only the generic kernels take.
+    for k in (3, 5, 21):
+        for dtype in (torch.float32, torch.bfloat16):
+            for c in (2, 3):
+                for g in (1, 2, 4, 8):
+                    if g <= k:
+                        check(_kw_inputs(rng, 2, c, 37, 64, k, dtype), g)
+            check(_kw_inputs(rng, 2, 3, 21, 90, k, dtype, misalign=True))
+    for dtype in (torch.float32, torch.bfloat16):
+        check(_kw_inputs(rng, 2, 3, 37, 53, 7, dtype))
+    # The paths' shapes, and a ragged KPCN tile of the default denoise CLI
+    # on a 1080x1920 frame (312x384 less the 36 px of the valid convs).
+    for bs, c, h, w, dtype in KW_PATH_SHAPES + ((1, 3, 276, 348,
+                                                  torch.bfloat16),):
         check(_kw_inputs(rng, bs, c, h, w, 21, dtype))
     print("composed kernel check: %d cases, max abs err kernel_weighting "
-          "%.3g, kernel_weighting_dw %.3g (tolerance %.0e + %.0e * |plain|); "
-          "scatter2gather bit-exact in float32 and bfloat16"
-          % (cases, err[0], err[1], ATOL, RTOL))
+          "tiled %.3g, generic %.3g, kernel_weighting_dw tiled %.3g, generic "
+          "%.3g (tolerance %.0e + %.0e * |plain|; bf16 d_w %.0e + 2^-7 * "
+          "|plain|); scatter2gather bit-exact in float32 and bfloat16"
+          % (cases, _MAX_ERR["kernel_weighting"],
+             _MAX_ERR["kernel_weighting_generic"],
+             _MAX_ERR["kernel_weighting_dw"],
+             _MAX_ERR["kernel_weighting_dw_generic"], ATOL, RTOL, ATOL))
     numbers = {}
     # KPCN's training shape first (the main path's), then one full 1080x2048
-    # tile in both weight types.
-    for shape, dtype, iters in (((4, 3, 92, 92), torch.float32, 3),
-                                ((4, 3, 92, 92), torch.bfloat16, 3),
-                                ((1, 3, 1080, 2048), torch.float32, 2),
-                                ((1, 3, 1080, 2048), torch.bfloat16, 2)):
+    # tile, each in both weight types; new and generic kernels in the same
+    # run.
+    for shape, dtype, iters, graph_iters in (
+            ((4, 3, 92, 92), torch.float32, 3, 20),
+            ((4, 3, 92, 92), torch.bfloat16, 3, 20),
+            ((1, 3, 1080, 2048), torch.float32, 2, 5),
+            ((1, 3, 1080, 2048), torch.bfloat16, 2, 5)):
         inputs = _kw_inputs(rng, *shape, 21, dtype)
         check(inputs)
         tag = "%s %s" % ("x".join(map(str, shape)),
                          str(dtype).replace("torch.", ""))
-        for name, times in sorted(_time_composed(ops, inputs,
-                                                 iters).items()):
-            _record_times(numbers, name, tag, *times)
+        for name, *times, extra in _time_composed(ops, inputs, iters,
+                                                  graph_iters):
+            _record_times(numbers, name, tag, *times, **extra)
         del inputs
         torch.cuda.empty_cache()
-    numbers["kernel_weighting"]["max_abs_err"] = err[0]
-    numbers["kernel_weighting_dw"]["max_abs_err"] = err[1]
+    for name in ("kernel_weighting", "kernel_weighting_generic",
+                 "kernel_weighting_dw", "kernel_weighting_dw_generic"):
+        numbers[name]["max_abs_err"] = _MAX_ERR[name]
     numbers["scatter2gather"]["max_abs_err"] = 0.0
     return numbers
 

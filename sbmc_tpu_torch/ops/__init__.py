@@ -7,9 +7,13 @@ mirroring the ``custom_vjp``s of ``sbmc_tpu.ops``. For CUDA tensors
 port of the Pallas kernel ``_kw_fwd_kernel``); its backward gives ``d_data``
 as the forward kernel applied to the cotangent with the weights transposed
 by ``csrc/scatter2gather.cu`` (the port of ``_s2g_kernel``), and
-``d_weights`` from ``kw_dw`` (the port of ``_kw_dw_kernel``), each only when
-its gradient is asked for. ``scatter2gather`` is its own adjoint: its
-backward is the same kernel on the cotangent.
+``d_weights`` from ``kw_dw`` (the port of ``_kw_dw_kernel``, written in the
+weights' dtype), each only when its gradient is asked for. Both have two
+kernels, chosen by shape (:func:`kw_route`): a tiled one for the kernel
+sizes the models use, and the first port's per-pixel kernel
+(``kernel_weighting_generic``, ``kernel_weighting_dw_generic``) for the
+others. ``scatter2gather`` is its own adjoint: its backward is the same
+kernel on the cotangent.
 
 ``scatter2gather_max`` and ``kernel_weighting_exp`` are plain functions and
 not differentiable, as in ``sbmc_tpu.ops``. For CUDA tensors they launch
@@ -65,6 +69,10 @@ __all__ = [
     "progressive_splat_bwd_ref",
     "splat_route",
     "splat_tile_rows",
+    "kw_route",
+    "kw_pixels",
+    "kw_groups",
+    "kw_dw_groups",
     "dlogits_row_blocks",
     "launch_counts",
     "reset_launch_counts",
@@ -77,12 +85,13 @@ launch_counts = {"progressive_splat": 0, "progressive_splat_generic": 0,
                  "progressive_splat_ddata": 0,
                  "progressive_splat_dlogits": 0,
                  "progressive_splat_dlogits_generic": 0, "kernel_weighting": 0,
-                 "kernel_weighting_dw": 0, "scatter2gather": 0,
+                 "kernel_weighting_generic": 0, "kernel_weighting_dw": 0,
+                 "kernel_weighting_dw_generic": 0, "scatter2gather": 0,
                  "scatter2gather_max": 0, "kernel_weighting_exp": 0}
 
 _CHANNELS = (2, 3)  # the kernels' template set
-#: Kernel sizes the tiled splat kernels are built for: the models' 21, and
-#: 3 and 5 for the tests.
+#: Kernel sizes the tiled splat and kernel-weighting kernels are built for:
+#: the models' 21, and 3 and 5 for the tests.
 TILED_KSIZES = (3, 5, 21)
 
 
@@ -105,7 +114,7 @@ def kernel_weighting(data, weights):
     Returns:
       ``(output [bs, c, h, w], sum_w [bs, h, w])`` in float32; ``sum_w``
       sums every tap. The gradient to bfloat16 weights is computed in
-      float32 and rounded to bfloat16.
+      float32 and rounded once to bfloat16.
     """
     return _KernelWeighting.apply(data, weights)
 
@@ -226,11 +235,13 @@ class _KernelWeighting(torch.autograd.Function):
             # transposed to the other form.
             d_data = _kw_fwd(d_output, _s2g(weights))[0]
         if need_weights:
-            dw = (kernel_weighting_dw_ref
-                  if _on_cpu(data, d_output, d_sum_w)
-                  else _kernel_weighting_dw_cuda)
-            d_weights = dw(data, d_output, d_sum_w,
-                           reference.ksize_of(weights)).to(weights.dtype)
+            k = reference.ksize_of(weights)
+            if _on_cpu(data, d_output, d_sum_w):
+                d_weights = kernel_weighting_dw_ref(
+                    data, d_output, d_sum_w, k).to(weights.dtype)
+            else:
+                d_weights = _kernel_weighting_dw_cuda(
+                    data, d_output, d_sum_w, k, weights.dtype)
         return d_data, d_weights
 
 
@@ -326,6 +337,61 @@ def dlogits_row_blocks(bs, h, w, k, sms):
     ``k``."""
     tiles = bs * -(-h // 8) * -(-w // 64)
     return min(k, max(1, -(-3 * sms // tiles)))
+
+
+def kw_route(k):
+    """Which kernels kernel weighting and its weight gradient launch on the
+    card for ``k x k`` kernels.
+
+    ``"tiled"``: ``kw_fwd`` and ``kw_dw`` (``kernel_weighting``,
+    ``kernel_weighting_dw``), built for ``k`` in :data:`TILED_KSIZES` and
+    any width: every shape the model paths give them.
+
+    ``"generic"``: other kernel sizes, the per-pixel kernels
+    ``kernel_weighting_generic`` and ``kernel_weighting_dw_generic``. This
+    is a dispatch by shape, not a fallback: either launch raises if it
+    fails.
+    """
+    return "tiled" if k in TILED_KSIZES else "generic"
+
+
+def kw_pixels(w, widest, offset=0):
+    """Pixels per work item of the tiled kernels: the widest ``v`` of
+    ``widest``, ..., 2, 1 that divides the width ``w`` and the tap planes'
+    base address in elements (``offset``), so that each tap is one access
+    of ``v`` elements. The forward takes at most 2 (8-byte float32 or
+    4-byte bfloat16 loads), the weight gradient at most 4 (16- or 8-byte
+    stores)."""
+    v = widest
+    while v > 1 and (w % v or offset % v):
+        v //= 2
+    return v
+
+
+def _allowed_groups(k):
+    return [g for g in (1, 2, 4, 8) if g <= k]
+
+
+def kw_groups(bs, h, w, k, v, itemsize, sms):
+    """Groups of tap rows in a block of the tiled forward (its tile is 8 /
+    groups rows of 32 work items of ``v`` pixels): the fewest of 1, 2, 4 and
+    8, at most ``k``, whose grid has at least ``4 / itemsize`` blocks per SM
+    (``sms``), so that as many weight bytes are in flight whatever their
+    type; else the most. chip_smoke.py times every count beside this one
+    (PERF.md)."""
+    allowed = _allowed_groups(k)
+    for g in allowed:
+        if bs * -(-h // (8 // g)) * -(-w // (32 * v)) * itemsize >= 4 * sms:
+            return g
+    return allowed[-1]
+
+
+def kw_dw_groups(k):
+    """Groups of tap rows in a block of the tiled weight gradient: 8
+    (one-row tiles), at most ``k``. The gradient has no reduction over taps
+    to pay for more groups; chip_smoke.py times every count beside this one
+    (PERF.md)."""
+    return _allowed_groups(k)[-1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -487,9 +553,11 @@ def _check_data(name, t, like=None):
                          f"channels, got {t.shape[1]}")
 
 
-def _kernel_weighting_cuda(data, weights):
-    """Kernel weighting on the card (kernel ``kw_fwd``); the arguments and
-    results are those of ``reference.kernel_weighting_ref``."""
+def _kernel_weighting_cuda(data, weights, route=None, groups=None):
+    """Kernel weighting on the card: the kernel of ``route`` (by default
+    :func:`kw_route`'s), the tiled one with ``groups`` groups of tap rows
+    (by default :func:`kw_groups`') and :func:`kw_pixels`' work items. The
+    arguments and results are those of ``reference.kernel_weighting_ref``."""
     from sbmc_tpu_torch.ops import _build
     _device_of(data, weights)
     bs, h, w, k = _check_weights(weights)
@@ -498,17 +566,31 @@ def _kernel_weighting_cuda(data, weights):
     lib = _build.load_cuda()
     out = torch.empty_like(data)
     sum_w = torch.empty((bs, h, w), dtype=torch.float32, device=data.device)
-    _launch("kernel_weighting", lib.sbmc_kernel_weighting, data.device,
-            data.data_ptr(), weights.data_ptr(),
+    args = (data.data_ptr(), weights.data_ptr(),
             int(weights.dtype == torch.bfloat16), out.data_ptr(),
             sum_w.data_ptr(), bs, c, h, w, k)
+    if (route or kw_route(k)) == "tiled":
+        v = kw_pixels(w, 2, weights.data_ptr() // weights.element_size())
+        if groups is None:
+            groups = kw_groups(bs, h, w, k, v, weights.element_size(),
+                               _sm_count(data.device))
+        _launch("kernel_weighting", lib.sbmc_kernel_weighting, data.device,
+                *args, v, groups)
+    else:
+        _launch("kernel_weighting_generic", lib.sbmc_kernel_weighting_generic,
+                data.device, *args)
     return out, sum_w
 
 
-def _kernel_weighting_dw_cuda(data, d_output, d_sum_w, k):
-    """Gradient of kernel weighting to its weights on the card (kernel
-    ``kw_dw``), float32; the arguments are those of
-    ``reference.kernel_weighting_dw_ref``."""
+def _kernel_weighting_dw_cuda(data, d_output, d_sum_w, k,
+                              dtype=torch.float32, route=None, groups=None):
+    """Gradient of kernel weighting to its weights on the card, in ``dtype``
+    (the weights', float32 or bfloat16): the kernel of ``route`` (by default
+    :func:`kw_route`'s), the tiled one (``kw_dw``, which rounds its float32
+    sums to bfloat16 once as it stores them) with ``groups`` groups of tap
+    rows (by default :func:`kw_dw_groups`') and :func:`kw_pixels`' work
+    items; the generic one writes float32, rounded afterwards. The other
+    arguments are those of ``reference.kernel_weighting_dw_ref``."""
     from sbmc_tpu_torch.ops import _build
     _device_of(data, d_output, d_sum_w)
     _check_data("data", data)
@@ -522,13 +604,24 @@ def _kernel_weighting_dw_cuda(data, d_output, d_sum_w, k):
         raise ValueError("kernel size must be odd")
     if bs > 65535:
         raise ValueError(f"batch {bs} exceeds the kernel's grid limit 65535")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"d_weights must be float32 or bfloat16, got {dtype}")
     lib = _build.load_cuda()
+    ptrs = (data.data_ptr(), d_output.data_ptr(), d_sum_w.data_ptr())
+    if (route or kw_route(k)) == "tiled":
+        d_w = torch.empty((bs, k * k, h, w), dtype=dtype, device=data.device)
+        _launch("kernel_weighting_dw", lib.sbmc_kernel_weighting_dw,
+                data.device, *ptrs, d_w.data_ptr(),
+                int(dtype == torch.bfloat16), bs, c, h, w, k,
+                kw_pixels(w, 4, d_w.data_ptr() // d_w.element_size()),
+                groups or kw_dw_groups(k))
+        return d_w
     d_w = torch.empty((bs, k * k, h, w), dtype=torch.float32,
                       device=data.device)
-    _launch("kernel_weighting_dw", lib.sbmc_kernel_weighting_dw, data.device,
-            data.data_ptr(), d_output.data_ptr(), d_sum_w.data_ptr(),
+    _launch("kernel_weighting_dw_generic",
+            lib.sbmc_kernel_weighting_dw_generic, data.device, *ptrs,
             d_w.data_ptr(), bs, c, h, w, k)
-    return d_w
+    return d_w.to(dtype)
 
 
 def _scatter2gather_cuda(weights):

@@ -43,12 +43,17 @@ _DDATA_ARGS = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I]
 #:                                        sbmc_progressive_splat_dlogits takes
 #:                                        row_blocks before the stream
 _DLOGITS_ARGS = [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I]
-#: sbmc_kernel_weighting(data, weights, weights_bf16, out, sum_w,
-#:                       bs, c, h, w, k[, stream])
+#: sbmc_kernel_weighting_generic(data, weights, weights_bf16, out, sum_w,
+#:                               bs, c, h, w, k[, stream]); the tiled
+#:                               sbmc_kernel_weighting takes v and groups
+#:                               before the stream
 _KW_ARGS = [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I]
-#: sbmc_kernel_weighting_dw(data, d_out, d_sum_w, d_w,
-#:                          bs, c, h, w, k[, stream])
+#: sbmc_kernel_weighting_dw_generic(data, d_out, d_sum_w, d_w,
+#:                                  bs, c, h, w, k[, stream])
 _KW_DW_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I]
+#: sbmc_kernel_weighting_dw(data, d_out, d_sum_w, d_w, out_bf16,
+#:                          bs, c, h, w, k, v, groups[, stream])
+_KW_DW_TILED_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I]
 #: sbmc_scatter2gather(weights, itemsize, out, bs, h, w, k[, stream])
 _S2G_ARGS = [_P, _I, _P, _I, _I, _I, _I]
 #: sbmc_scatter2gather_max(weights, itemsize, out, kmax, bs, h, w, k[, stream])
@@ -68,8 +73,10 @@ _CUDA = {
         "sbmc_progressive_splat_dlogits": _DLOGITS_ARGS + [_I, _P],
         "sbmc_progressive_splat_dlogits_generic": _DLOGITS_ARGS + [_P]},
     "kernel_weighting.cu": {
-        "sbmc_kernel_weighting": _KW_ARGS + [_P],
-        "sbmc_kernel_weighting_dw": _KW_DW_ARGS + [_P],
+        "sbmc_kernel_weighting": _KW_ARGS + [_I, _I, _P],
+        "sbmc_kernel_weighting_generic": _KW_ARGS + [_P],
+        "sbmc_kernel_weighting_dw": _KW_DW_TILED_ARGS + [_P],
+        "sbmc_kernel_weighting_dw_generic": _KW_DW_ARGS + [_P],
         "sbmc_kernel_weighting_exp": _KW_EXP_ARGS + [_P]},
     "scatter2gather.cu": {
         "sbmc_scatter2gather": _S2G_ARGS + [_P],
@@ -85,7 +92,9 @@ _HOST = {
         "sbmc_progressive_splat_dlogits_rows_host": _DLOGITS_ARGS},
     "kernel_weighting_host.cpp": {
         "sbmc_kernel_weighting_host": _KW_ARGS,
+        "sbmc_kernel_weighting_tiles_host": _KW_ARGS + [_I, _I],
         "sbmc_kernel_weighting_dw_host": _KW_DW_ARGS,
+        "sbmc_kernel_weighting_dw_tiles_host": _KW_DW_TILED_ARGS,
         "sbmc_kernel_weighting_exp_host": _KW_EXP_ARGS},
     "scatter2gather_host.cpp": {
         "sbmc_scatter2gather_host": _S2G_ARGS,

@@ -1,11 +1,13 @@
 """Minimal OpenEXR 2 scanline reader/writer (float32/float16, NONE/ZIP/ZIPS);
-a copy of ``sbmc_tpu/utils/exr.py`` without its optional OpenEXRCore reader.
+a copy of ``sbmc_tpu/utils/exr.py``.
 
 Plays the role pyexr plays for the reference (scripts/denoise.py:170,
 sbmc/evaluation.py) without external bindings: enough of the EXR format to
 write denoiser outputs and read them back for evaluation — single-part
 scanline images, RGB(A)/arbitrary channels, NONE/ZIP/ZIPS compression (ZIP
-uses the EXR byte-reorder + delta predictor over zlib).
+uses the EXR byte-reorder + delta predictor over zlib). Files in any other
+compression (PIZ, PXR24, DWA, ...) are read through the OpenEXRCore bridge
+(:mod:`sbmc_tpu_torch.utils._native_exr`).
 """
 
 import struct
@@ -148,6 +150,22 @@ def _read_attrs(f):
     return attrs
 
 
+def _native_read(path, comp_id):
+    """Decode through the OpenEXRCore bridge; returns the read_channels
+    result. Raises ``NotImplementedError`` if the bridge cannot be built."""
+    from sbmc_tpu_torch.utils import _native_exr
+    try:
+        mod = _native_exr.load()
+    except (OSError, RuntimeError) as e:
+        raise NotImplementedError(
+            f"EXR compression id {comp_id} is read through the OpenEXRCore "
+            f"bridge (src/fastexr.cpp), which is unavailable: {e}") from e
+    names, planes, h, w = mod.read(path)
+    out = {name: np.frombuffer(buf, np.float32).reshape(h, w)
+           for name, buf in zip(names, planes)}
+    return out, (h, w)
+
+
 def _parse_chlist(data):
     chans = []
     off = 0
@@ -163,7 +181,10 @@ def _parse_chlist(data):
 
 def read_channels(path):
     """Read an EXR; returns (dict name -> [h, w] float32 array, (h, w)).
-    Only NONE/ZIP/ZIPS compression is read."""
+
+    Compressions beyond NONE/ZIP/ZIPS (PIZ, PXR24, DWA, ...) are decoded by
+    the OpenEXRCore bridge.
+    """
     with open(path, "rb") as f:
         magic, _version = struct.unpack("<ii", f.read(8))
         if magic != _MAGIC:
@@ -172,8 +193,7 @@ def read_channels(path):
         chans = _parse_chlist(attrs["channels"][1])
         comp_id = attrs["compression"][1][0]
         if comp_id not in _ZIP_BLOCK:
-            raise NotImplementedError(
-                f"unsupported EXR compression id {comp_id}")
+            return _native_read(path, comp_id)
         x0, y0, x1, y1 = struct.unpack("<4i", attrs["dataWindow"][1])
         w, h = x1 - x0 + 1, y1 - y0 + 1
 

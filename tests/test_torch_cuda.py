@@ -16,7 +16,10 @@ bfloat16 value, ``2**-7`` relative. Kernel weighting and its weight gradient:
 the forward's bound (sums over up to 441 taps, or over the channels, in
 another order); scatter2gather only moves values: bit-exact. The exp
 kernels: scatter2gather_max bit-exact (moves and a max), kernel weighting
-of exp(logits - max) the forward's bound; the splat step composed from them
+of exp(logits - max) the forward's bound; the weight gradient written for
+bfloat16 weights within ``2e-4 + 2**-7 * |plain|`` of the plain float32
+gradient rounded once, and bit for bit the tiled kernel's own float32
+gradient rounded once; the splat step composed from them
 against the fused kernel, the forward's bound too (the fused kernel keeps a
 running max per tap, so it rounds its exponentials otherwise).
 """
@@ -411,3 +414,111 @@ def test_exp_kernels_reject_bad_inputs(device):
                                      logits, maxes)
         with pytest.raises(ValueError, match="several devices"):
             ops.kernel_weighting_exp(data, logits, maxes.cpu())
+
+
+def _kw_case(rng, c, hw, k, dtype, device):
+    data = torch.tensor(rng.randn(2, c, *hw), dtype=torch.float32)
+    weights = torch.tensor(rng.randn(2, k * k, *hw),
+                           dtype=torch.float32).to(dtype)
+    d_out = torch.tensor(rng.randn(2, c, *hw), dtype=torch.float32)
+    d_sw = torch.tensor(rng.randn(2, *hw), dtype=torch.float32)
+    return [t.to(device) for t in (data, weights, d_out, d_sw)]
+
+
+def _close_dw(got, want_f32, dtype):
+    """The weight gradient in the weights' type against the plain float32
+    one rounded once to it."""
+    want = want_f32.to(dtype)
+    assert got.dtype == dtype and got.shape == want.shape
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else RTOL
+    g, r = got.float(), want.float()
+    assert torch.all((g - r).abs() <= ATOL + rtol * r.abs()), \
+        float((g - r).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,hw,k", [(3, (37, 64), 3), (2, (21, 90), 5),
+                                    (3, (37, 53), 21), (2, (9, 124), 21)])
+def test_tiled_kernel_weighting_at_each_group_count(device, c, hw, k,
+                                                    dtype):
+    """Both tiled kernels at every group count (2-pixel items at even
+    widths, 1-pixel ones at 53), and the generic kernels at the same
+    shapes."""
+    rng = np.random.RandomState(k * 10 + hw[1])
+    data, weights, d_out, d_sw = _kw_case(rng, c, hw, k, dtype, device)
+    with torch.inference_mode():
+        want_out, want_sw = ops.kernel_weighting_ref(data, weights)
+        want_dw = ops.kernel_weighting_dw_ref(data, d_out, d_sw, k)
+        runs = [("tiled", g) for g in (1, 2, 4, 8) if g <= k]
+        for route, groups in runs + [("generic", None)]:
+            ops.reset_launch_counts()
+            out, sum_w = ops._kernel_weighting_cuda(data, weights, route,
+                                                    groups)
+            d_w = ops._kernel_weighting_dw_cuda(data, d_out, d_sw, k, dtype,
+                                                route, groups)
+            suffix = "" if route == "tiled" else "_generic"
+            assert _counts() == {"kernel_weighting" + suffix: 1,
+                                 "kernel_weighting_dw" + suffix: 1}
+            torch.cuda.synchronize()
+            _close(out, want_out)
+            _close(sum_w, want_sw)
+            _close_dw(d_w, want_dw, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_weighting_routes(device, dtype):
+    """k = 7 takes the generic kernels; weights one element past an aligned
+    base take the tiled kernels with 1-pixel items; an odd group count is
+    refused."""
+    rng = np.random.RandomState(7)
+    data, weights, d_out, d_sw = _kw_case(rng, 3, (13, 40), 7, dtype,
+                                          device)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        out, sum_w = ops.kernel_weighting(data, weights)
+        d_w = ops._kernel_weighting_dw_cuda(data, d_out, d_sw, 7, dtype)
+        assert _counts() == {"kernel_weighting_generic": 1,
+                             "kernel_weighting_dw_generic": 1}
+        torch.cuda.synchronize()
+        _close(out, ops.kernel_weighting_ref(data, weights)[0])
+        _close_dw(d_w, ops.kernel_weighting_dw_ref(data, d_out, d_sw, 7),
+                  dtype)
+        data, weights = _kw_case(rng, 3, (13, 40), 5, dtype, device)[:2]
+        buf = torch.empty(weights.numel() + 1, dtype=dtype, device=device)
+        shifted = buf[1:].view(weights.shape).copy_(weights)
+        assert ops.kw_pixels(
+            40, 2, shifted.data_ptr() // shifted.element_size()) == 1
+        ops.reset_launch_counts()
+        got = ops.kernel_weighting(data, shifted)
+        assert _counts() == {"kernel_weighting": 1}
+        torch.cuda.synchronize()
+        for g, r in zip(got, ops.kernel_weighting_ref(data, weights)):
+            _close(g, r)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ops._kernel_weighting_cuda(data, weights, "tiled", 3)
+
+
+@pytest.mark.cuda
+def test_bf16_weight_gradient_on_the_card_is_the_rounded_float32_one(
+        device):
+    """The tiled kernel's bfloat16 gradient is its float32 one rounded once
+    to nearest even, bit for bit, and the Function hands it back in the
+    weights' type."""
+    rng = np.random.RandomState(8)
+    data, weights, d_out, d_sw = _kw_case(rng, 3, (23, 92), 21,
+                                          torch.bfloat16, device)
+    with torch.inference_mode():
+        full = ops._kernel_weighting_dw_cuda(data, d_out, d_sw, 21)
+        half = ops._kernel_weighting_dw_cuda(data, d_out, d_sw, 21,
+                                             torch.bfloat16)
+        torch.cuda.synchronize()
+    assert full.dtype == torch.float32 and half.dtype == torch.bfloat16
+    assert torch.equal(half, full.to(torch.bfloat16))
+    w = weights.clone().requires_grad_()
+    out, sum_w = ops.kernel_weighting(data, w)
+    ops.reset_launch_counts()
+    ((out * d_out).sum() + (sum_w * d_sw).sum()).backward()
+    assert _counts() == {"kernel_weighting_dw": 1}
+    assert w.grad.dtype == torch.bfloat16 and torch.equal(w.grad, half)
