@@ -20,12 +20,15 @@ Phases, each printing one line (or a few) before the last:
    CLI's tiles (1, 3, 512, 512) and (1, 3, 312, 512) and at the training
    shape, with each kernel's share of its bound;
 4. backward kernels: holds the two kernels of the splat step's backward
-   (gradient to the data, gradient to the logits, the latter as the vector
-   and the generic kernel) against their plain version, with the running
-   max of a real forward and random cotangents (k in {3, 5, 21}, odd and
-   vector widths, 2 and 3 channels, float32 and bfloat16 logits, and the
-   shapes of the paths below); times them at the training shape (4, 3,
-   128, 128), k = 21, at (1, 3, 1080, 2048) and at (1, 3, 512, 512), bf16;
+   (gradient to the data, gradient to the logits, each as the vector and
+   the generic kernel) against their plain version, with the running max
+   of a real forward and random cotangents (k in {3, 5, 21} and 7, odd and
+   vector widths, 2 and 3 channels, float32 and bfloat16 logits, the
+   vector d_data kernel at every group count, and the shapes of the paths
+   below); times them at the training shape (4, 3, 128, 128), k = 21, in
+   both logit types, at (1, 3, 1080, 2048) in both and at (1, 3, 512, 512)
+   and (1, 3, 160, 160) bf16, the vector d_data kernel at every group count
+   too, beside a torch.sum of the logits;
 5. reference: the flagship model on the card against the same model on the
    CPU (plain splat), on a small input, in float32 and in bfloat16 convs;
 6. gradient: loss, every parameter gradient and the gradient to the input
@@ -57,10 +60,12 @@ The composed kernels' phases run between these (4b to 4d after 4, 6b after
     shapes, 2 and 3 channels, float32 and bfloat16 weights, a base not
     aligned to two elements, k = 7, which only the generic kernels take,
     the shapes of the paths below and a ragged 1080p KPCN tile;
-    scatter2gather bit-exact in both types; the weight gradient written in
+    scatter2gather, vector and generic, bit-exact in both types, the vector
+    kernel at every item width a row takes; the weight gradient written in
     the weights' type); times each at KPCN's training shape (4, 3, 92, 92)
     and at (1, 3, 1080, 2048), k = 21, float32 and bfloat16, the tiled
-    kernels at every group count too;
+    kernels at every group count too, scatter2gather beside a copy_ of the
+    same bytes;
 6b. gradient, composed: ``kernel_apply(splat=True)`` and KPCN at full width
     (float32) with the buffers requiring a gradient, card against CPU: loss,
     every parameter gradient and the gradient to the buffers, which is where
@@ -78,7 +83,8 @@ The composed kernels' phases run between these (4b to 4d after 4, 6b after
 4c. exp kernels: holds scatter2gather_max (bit-exact, float32 and bfloat16)
     and kernel weighting of exp(logits - max) against their plain versions
     (k in {3, 5, 21}, odd shapes, 2 and 3 channels, and every shape of 4d);
-    times both at (1, 3, 1080, 2048) and (4, 3, 128, 128), k = 21;
+    times both at (1, 3, 1080, 2048) and (4, 3, 128, 128), k = 21, on the
+    host clock and by CUDA-graph replay;
 4d. composed splat step: the step built from ``ops.scatter2gather_max`` and
     ``ops.kernel_weighting_exp`` as the JAX package's unfused branch builds
     it, held against the fused kernel (``ops.progressive_splat_update``) from
@@ -98,7 +104,7 @@ Every path records the shapes and logit or weight types it gives the splat
 step, kernel weighting and scatter2gather; the run fails if a kernel met a
 shape on a path at which it was not held against its plain version, or if
 any path (but the composed step's yardstick at odd widths) launched a
-generic variant of the splat or kernel-weighting kernels
+generic variant of the splat, kernel-weighting or scatter2gather kernels
 (NEVER_ON_A_PATH). Then
 one JSON line with each kernel's numbers (``launches`` by path) and, last,
 the device line. Any failure raises and exits non-zero without printing a
@@ -138,6 +144,8 @@ KERNELS = (
      "sbmc_tpu/ops/pallas_kernels.py:535"),
     ("progressive_splat_ddata", _CSRC + "progressive_splat_bwd.cu",
      "sbmc_tpu/ops/pallas_kernels.py:728"),
+    ("progressive_splat_ddata_generic", _CSRC + "progressive_splat_bwd.cu",
+     "sbmc_tpu/ops/pallas_kernels.py:728"),
     ("progressive_splat_dlogits", _CSRC + "progressive_splat_bwd.cu",
      "sbmc_tpu/ops/pallas_kernels.py:755"),
     ("progressive_splat_dlogits_generic", _CSRC + "progressive_splat_bwd.cu",
@@ -151,6 +159,8 @@ KERNELS = (
     ("kernel_weighting_dw_generic", _CSRC + "kernel_weighting.cu",
      "sbmc_tpu/ops/pallas_kernels.py:321"),
     ("scatter2gather", _CSRC + "scatter2gather.cu",
+     "sbmc_tpu/ops/pallas_kernels.py:393"),
+    ("scatter2gather_generic", _CSRC + "scatter2gather.cu",
      "sbmc_tpu/ops/pallas_kernels.py:393"),
     ("scatter2gather_max", _CSRC + "scatter2gather.cu",
      "sbmc_tpu/ops/pallas_kernels.py:419"),
@@ -177,25 +187,31 @@ MUST_LAUNCH = {
     "scatter2gather_max": ("composed_step",),
     "kernel_weighting_exp": ("composed_step",),
     "progressive_splat_generic": (),
+    "progressive_splat_ddata_generic": (),
     "progressive_splat_dlogits_generic": (),
     "kernel_weighting_generic": (),
     "kernel_weighting_dw_generic": (),
+    "scatter2gather_generic": (),
 }
-#: The generic variants of the splat and kernel-weighting kernels (the first
-#: port's per-pixel kernels) take only shapes the tiled kernels cannot
-#: address, which no path gives them: the kernel phases check them there
-#: and at the paths' shapes, and the run fails if any path launched one.
+#: The generic variants of the splat, kernel-weighting and scatter2gather
+#: kernels (the first port's per-pixel or per-element kernels) take only
+#: shapes the tiled kernels cannot address, which no path gives them: the
+#: kernel phases check them there and at the paths' shapes, and the run
+#: fails if any path launched one.
 NEVER_ON_A_PATH = ("progressive_splat_generic",
+                   "progressive_splat_ddata_generic",
                    "progressive_splat_dlogits_generic",
-                   "kernel_weighting_generic", "kernel_weighting_dw_generic")
+                   "kernel_weighting_generic", "kernel_weighting_dw_generic",
+                   "scatter2gather_generic")
 #: The wrapped op whose recorded cases speak for each kernel.
 _OP_OF = {"progressive_splat": "splat", "progressive_splat_ddata": "splat",
+          "progressive_splat_ddata_generic": "splat",
           "progressive_splat_dlogits": "splat",
           "progressive_splat_generic": "splat",
           "progressive_splat_dlogits_generic": "splat",
           "kernel_weighting": "kw", "kernel_weighting_generic": "kw",
           "kernel_weighting_dw": "kw", "kernel_weighting_dw_generic": "kw",
-          "scatter2gather": "s2g",
+          "scatter2gather": "s2g", "scatter2gather_generic": "s2g",
           "scatter2gather_max": "s2g_max", "kernel_weighting_exp": "kw_exp"}
 
 #: (bs, c, h, w, logit type) the paths give the splat step, k = 21: the
@@ -334,8 +350,9 @@ def _case(data, logits):
 
 def _variant(ops, name, logits):
     """The splat kernel that ``logits`` are dispatched to: ``name``
-    (``progressive_splat`` or ``progressive_splat_dlogits``, the tiled
-    kernels) or its generic variant."""
+    (``progressive_splat``, ``progressive_splat_ddata`` or
+    ``progressive_splat_dlogits``, the tiled kernels) or its generic
+    variant."""
     route = ops.splat_route(logits.shape[-1],
                             ops.reference.ksize_of(logits),
                             logits.element_size())
@@ -615,7 +632,7 @@ def _bwd_inputs(ops, rng, bs, c, h, w, k, dtype):
 def _compare_bwd(ops, inputs):
     """Max abs error of (d_data, d_logits); raises beyond the tolerance."""
     data, logits, new_max, d_r, d_w = inputs
-    names = ("progressive_splat_ddata",
+    names = (_variant(ops, "progressive_splat_ddata", logits),
              _variant(ops, "progressive_splat_dlogits", logits))
     for name in names:
         _COMPARED[name].add(_case(data, logits))
@@ -641,38 +658,67 @@ def _compare_bwd(ops, inputs):
     return errs
 
 
+def _by_groups(counts, fn_of, graph_iters=20):
+    """Device time at each group count (``fn_of(g)`` -> a call), the best of
+    two turns over the counts."""
+    turns = [[_graph_ms(fn_of(g), graph_iters) for g in counts]
+             for _ in range(2)]
+    return {g: min(t) for g, t in zip(counts, zip(*turns))}
+
+
 def _time_bwd(ops, inputs, plain_iters):
-    """(ms, plain ms, bound ms, bound by) of each backward kernel on these
-    inputs."""
+    """[(kernel, ms, plain ms, bound ms, bound by, device ms, extra)] on
+    these inputs: ``ms`` on the host clock (events around 20 calls through
+    the wrapper), ``device_ms`` by CUDA-graph replay; the vector d_data
+    kernel's ``extra`` holds the group count the route picks, the device
+    time at every group count and a yardstick."""
     data, logits, new_max, d_r, d_w = inputs
     bs, c, h, w = data.shape
     k2 = logits.shape[1]
+    k = int(round(k2 ** 0.5))
     px = bs * h * w
-    lbytes = logits.numel() * logits.element_size()
-    out = {}
+    size = logits.element_size()
+    lbytes = logits.numel() * size
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+
+    def add(name, fn, plain_ms, bound, extra=dict):
+        rows.append((name, _time_ms(fn, 3, 20), plain_ms) + bound
+                    + (_graph_ms(fn), extra()))
+
     # d_data: reads the logits, the max plane and c cotangent planes, writes
-    # c planes; per tap a subtract, an exp and one FMA per channel.
-    out["progressive_splat_ddata"] = (
-        _time_ms(lambda: ops._ddata_cuda(logits, new_max, d_r), 3, 20),
-        _time_ms(lambda: ops.reference.progressive_splat_ddata_ref(
-            logits, new_max, d_r), 1, plain_iters),
-    ) + _bound(lbytes + px * 4 * (1 + 2 * c), px * k2 * (2 + 2 * c))
+    # c planes; per tap a subtract, an exp and one FMA per channel. Its
+    # yardstick of the reachable read rate: torch.sum over the logits' tap
+    # dimension (the same bytes read, a float32 plane written).
+    plain_ms = _time_ms(lambda: ops.reference.progressive_splat_ddata_ref(
+        logits, new_max, d_r), 1, plain_iters)
+    bound = _bound(lbytes + px * 4 * (1 + 2 * c), px * k2 * (2 + 2 * c))
+    groups = ops.ddata_groups(bs, h, w, k, size, sms)
+
+    def ddata_at(g):
+        return lambda: ops._ddata_cuda(logits, new_max, d_r, "tiled", g)
+
+    add("progressive_splat_ddata",
+        lambda: ops._ddata_cuda(logits, new_max, d_r), plain_ms, bound,
+        lambda: {"groups": groups,
+                 "device_ms_by_groups": _by_groups(
+                     [g for g in (1, 2, 4, 8) if g <= k], ddata_at),
+                 "logits_sum_device_ms": _graph_ms(
+                     lambda: logits.sum(1, dtype=torch.float32))})
+    add("progressive_splat_ddata_generic",
+        lambda: ops._ddata_cuda(logits, new_max, d_r, "generic"), plain_ms,
+        bound)
     # d_logits: reads the logits, data, max and the c + 1 cotangent planes,
     # writes a gradient of the logits' size and type; per tap a subtract, an
-    # exp, c FMAs and a multiply. The vector kernel, then the generic one,
-    # each on the host clock through its wrapper and as a device time
-    # (_graph_ms).
+    # exp, c FMAs and a multiply. The vector kernel, then the generic one.
     plain_ms = _time_ms(lambda: ops.reference.progressive_splat_dlogits_ref(
         data, logits, new_max, d_r, d_w), 1, plain_iters)
     bound = _bound(2 * lbytes + px * 4 * (2 + 2 * c), px * k2 * (3 + 2 * c))
     for name, route in (("progressive_splat_dlogits", "tiled"),
                         ("progressive_splat_dlogits_generic", "generic")):
-        def fn():
-            return ops._dlogits_cuda(data, logits, new_max, d_r, d_w,
-                                     route=route)
-        out[name] = (_time_ms(fn, 3, 20), plain_ms) + bound + (
-            _graph_ms(fn),)
-    return out
+        add(name, lambda: ops._dlogits_cuda(data, logits, new_max, d_r, d_w,
+                                            route=route), plain_ms, bound)
+    return rows
 
 
 def _record_times(numbers, name, tag, ms, plain_ms, bound_ms, by,
@@ -698,38 +744,81 @@ def _record_times(numbers, name, tag, ms, plain_ms, bound_ms, by,
         entry["other_shapes"].append(row)
 
 
+def _check_ddata(ops, inputs, route, groups=None):
+    """Holds the d_data kernel of ``route`` (the vector one at ``groups``
+    groups) against the plain version."""
+    data, logits, new_max, d_r, _ = inputs
+    name = "progressive_splat_ddata" + ("" if route == "tiled"
+                                        else "_generic")
+    _COMPARED[name].add(_case(data, logits))
+    got = ops._ddata_cuda(logits, new_max, d_r, route, groups)
+    want = ops.reference.progressive_splat_ddata_ref(logits, new_max, d_r)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    if got.dtype != torch.float32 or not bool(
+            torch.all(diff <= BWD_ATOL + BWD_RTOL * want.abs())):
+        raise AssertionError(
+            "d_data kernel %s (groups %s) disagrees with its plain version "
+            "at %s: max abs err %.3g" % (
+                name, groups, _case(data, logits), float(diff.max())))
+    _note_err(name, float(diff.max()))
+
+
 def _bwd_kernel_phase(ops):
     rng = torch.Generator(device="cuda").manual_seed(1)
     cases = 0
-    # Odd widths (the generic logits-gradient kernel), then widths the
-    # vector kernel takes (64: whole 16-byte vectors in both types; 37 rows:
-    # ragged tiles), then every shape the paths give the kernels.
+    # Odd widths (the generic kernels), then widths the vector kernels take
+    # (64: whole 16-byte vectors in both types; 37 rows: ragged tiles), k =
+    # 7 at such a width (only the generic kernels take it), then every shape
+    # the paths give the kernels.
     for k in (3, 5, 21):
         for c, hw in ((3, (37, 53)), (3, (130, 3)), (2, (5, 7)),
                       (3, (37, 64)), (2, (13, 8))):
             for dtype in (torch.float32, torch.bfloat16):
                 _compare_bwd(ops, _bwd_inputs(ops, rng, 2, c, *hw, k, dtype))
                 cases += 1
+    for dtype in (torch.float32, torch.bfloat16):
+        _compare_bwd(ops, _bwd_inputs(ops, rng, 2, 3, 37, 64, 7, dtype))
+        cases += 1
     for bs, c, h, w, dtype in PATH_SHAPES:
         _compare_bwd(ops, _bwd_inputs(ops, rng, bs, c, h, w, 21, dtype))
         cases += 1
-    print("backward kernel check: %d cases, max abs err d_data %.3g, "
-          "d_logits vector %.3g, generic %.3g (tolerance %.0e + %.0e * "
-          "|plain|; bf16 d_logits %.0e + 2^-7 * |plain|)" % (
+    # The vector d_data kernel at every group count, at every k, logit type
+    # and channel count (37x64: ragged tiles; 21x40: a row narrower than a
+    # tile), whatever the route would pick; the generic kernel at the same
+    # shapes.
+    for k in (3, 5, 21):
+        for dtype in (torch.float32, torch.bfloat16):
+            for c, hw in ((2, (37, 64)), (3, (37, 64)), (3, (21, 40))):
+                inputs = _bwd_inputs(ops, rng, 2, c, *hw, k, dtype)
+                for g in [g for g in (1, 2, 4, 8) if g <= k]:
+                    _check_ddata(ops, inputs, "tiled", g)
+                    cases += 1
+                _check_ddata(ops, inputs, "generic")
+                cases += 1
+    print("backward kernel check: %d cases, max abs err d_data vector %.3g, "
+          "generic %.3g, d_logits vector %.3g, generic %.3g (tolerance %.0e "
+          "+ %.0e * |plain|; bf16 d_logits %.0e + 2^-7 * |plain|)" % (
               cases, _MAX_ERR["progressive_splat_ddata"],
+              _MAX_ERR["progressive_splat_ddata_generic"],
               _MAX_ERR["progressive_splat_dlogits"],
               _MAX_ERR["progressive_splat_dlogits_generic"], BWD_ATOL,
               BWD_RTOL, BWD_ATOL))
     numbers = {}
     # The training path's shape (batch 4 of 128x128 tiles, k = 21) in both
-    # logit types, then one full 1080x2048 tile beside the forward's row,
-    # then the default denoise CLI's 512x512 tile.
+    # logit types, then one full 1080x2048 tile in both, then the default
+    # denoise CLI's 512x512 tile and the smoke's denoise tile (160x160, the
+    # most groups); vector and generic kernels in the same run, each checked
+    # first.
     for shape, dtype, iters in (((4, 3, 128, 128), torch.float32, 3),
                                 ((4, 3, 128, 128), torch.bfloat16, 3),
                                 ((1, 3, 1080, 2048), torch.bfloat16, 2),
-                                ((1, 3, 512, 512), torch.bfloat16, 2)):
+                                ((1, 3, 1080, 2048), torch.float32, 2),
+                                ((1, 3, 512, 512), torch.bfloat16, 2),
+                                ((1, 3, 160, 160), torch.bfloat16, 3)):
         inputs = _bwd_inputs(ops, rng, *shape, 21, dtype)
         _compare_bwd(ops, inputs)
+        _check_ddata(ops, inputs, "generic")
         generic = ops._dlogits_cuda(*inputs, route="generic")
         want = ops.reference.progressive_splat_dlogits_ref(*inputs)
         rt = BF16_RTOL if dtype == torch.bfloat16 else BWD_RTOL
@@ -742,8 +831,8 @@ def _bwd_kernel_phase(ops):
         del generic, want, g, r
         tag = "%s %s" % ("x".join(map(str, shape)),
                          str(dtype).replace("torch.", ""))
-        for name, times in sorted(_time_bwd(ops, inputs, iters).items()):
-            _record_times(numbers, name, tag, *times)
+        for name, *times, extra in _time_bwd(ops, inputs, iters):
+            _record_times(numbers, name, tag, *times, **extra)
         del inputs
         torch.cuda.empty_cache()
     for name in numbers:
@@ -1158,13 +1247,34 @@ def _compare_composed(ops, inputs, groups=None):
         _kw_check(fwd, case, sum_w, want_sw, torch.float32)
         _kw_check(dw, case, d_w, want_dw, dtype, rtol_dw)
         del out, sum_w, d_w
-    _COMPARED["scatter2gather"].add(_s2g_case(weights))
-    g = ops.scatter2gather(weights)
-    want_g = ops.scatter2gather_ref(weights)
-    torch.cuda.synchronize()
-    if g.dtype != weights.dtype or not torch.equal(g, want_g):
-        raise AssertionError("scatter2gather kernel is not bit-exact at %s"
-                             % (case,))
+    _check_s2g(ops, weights)
+
+
+def _check_s2g(ops, weights, v=None):
+    """Raises unless scatter2gather is bit-exact: through the op (the kernel
+    the route takes), and through the generic kernel where the route takes
+    the vector one; with ``v``, the vector kernel at items of ``v``
+    elements alone."""
+    want = ops.scatter2gather_ref(weights)
+    if v is not None:
+        runs = [("scatter2gather", lambda: ops._scatter2gather_cuda(
+            weights, "tiled", v))]
+    else:
+        name = ("scatter2gather" if ops.s2g_route(
+            ops.reference.ksize_of(weights)) == "tiled"
+            else "scatter2gather_generic")
+        runs = [(name, lambda: ops.scatter2gather(weights))]
+        if name == "scatter2gather":
+            runs.append(("scatter2gather_generic",
+                         lambda: ops._scatter2gather_cuda(weights,
+                                                          "generic")))
+    for name, run in runs:
+        _COMPARED[name].add(_s2g_case(weights))
+        got = run()
+        torch.cuda.synchronize()
+        if got.dtype != weights.dtype or not torch.equal(got, want):
+            raise AssertionError("%s kernel is not bit-exact at %s (v %s)"
+                                 % (name, _s2g_case(weights), v))
 
 
 def _time_composed(ops, inputs, plain_iters, graph_iters):
@@ -1190,11 +1300,8 @@ def _time_composed(ops, inputs, plain_iters, graph_iters):
         rows.append((name,) + times + bound + (device_ms, extra()))
 
     def by_groups(chosen, fn_of):
-        counts = [g for g in (1, 2, 4, 8) if g <= k]
-        turns = [[_graph_ms(fn_of(g), graph_iters) for g in counts]
-                 for _ in range(2)]
-        return {"groups": chosen, "device_ms_by_groups": {
-            g: min(t) for g, t in zip(counts, zip(*turns))}}
+        return {"groups": chosen, "device_ms_by_groups": _by_groups(
+            [g for g in (1, 2, 4, 8) if g <= k], fn_of, graph_iters)}
 
     # Forward: reads the weights and c data planes, writes c + 1 planes;
     # per tap an add to sum_w and one FMA per channel. Its yardstick of the
@@ -1235,8 +1342,19 @@ def _time_composed(ops, inputs, plain_iters, graph_iters):
                                               route="generic"),
         plain_dw, _bound(px * 4 * (2 * c + 1 + k2), px * k2 * (2 * c + 1)),
         lambda: {"writes": "float32"})
-    # Transpose: reads and writes the k2 planes; no arithmetic.
+    # Transpose: reads and writes the k2 planes; no arithmetic. Its
+    # yardstick of the reachable rate: a copy_ of the same bytes.
+    copy = torch.empty_like(weights)
+    size = weights.element_size()
     add("scatter2gather", lambda: ops.scatter2gather(weights),
+        lambda: ops.scatter2gather_ref(weights), _bound(2 * wbytes, 0),
+        lambda: {"item_bytes": size * ops.s2g_pixels(
+            w, size, weights.data_ptr() // size),
+            "copy_device_ms": _graph_ms(lambda: copy.copy_(weights),
+                                        graph_iters)})
+    del copy
+    add("scatter2gather_generic",
+        lambda: ops._scatter2gather_cuda(weights, "generic"),
         lambda: ops.scatter2gather_ref(weights), _bound(2 * wbytes, 0))
     return rows
 
@@ -1270,6 +1388,18 @@ def _composed_kernel_phase(ops):
             check(_kw_inputs(rng, 2, 3, 21, 90, k, dtype, misalign=True))
     for dtype in (torch.float32, torch.bfloat16):
         check(_kw_inputs(rng, 2, 3, 37, 53, 7, dtype))
+    # The vector scatter2gather at every item width a row takes: 16-byte
+    # rows (64), KPCN's 92 (8-byte bfloat16 items), widths of 2 mod 4 (30)
+    # and odd (53), at every k and type.
+    for k in (3, 5, 21):
+        for dtype in (torch.float32, torch.bfloat16):
+            for hw in ((37, 64), (13, 92), (6, 30), (7, 53)):
+                weights = _kw_inputs(rng, 2, 3, *hw, k, dtype)[1]
+                size = weights.element_size()
+                for v in (1, 2, 4, 8):
+                    if v <= ops.s2g_pixels(hw[1], size, 0):
+                        _check_s2g(ops, weights, v)
+                        cases += 1
     # The paths' shapes, and a ragged KPCN tile of the default denoise CLI
     # on a 1080x1920 frame (312x384 less the 36 px of the valid convs).
     for bs, c, h, w, dtype in KW_PATH_SHAPES + ((1, 3, 276, 348,
@@ -1278,7 +1408,8 @@ def _composed_kernel_phase(ops):
     print("composed kernel check: %d cases, max abs err kernel_weighting "
           "tiled %.3g, generic %.3g, kernel_weighting_dw tiled %.3g, generic "
           "%.3g (tolerance %.0e + %.0e * |plain|; bf16 d_w %.0e + 2^-7 * "
-          "|plain|); scatter2gather bit-exact in float32 and bfloat16"
+          "|plain|); scatter2gather (vector and generic) bit-exact in "
+          "float32 and bfloat16"
           % (cases, _MAX_ERR["kernel_weighting"],
              _MAX_ERR["kernel_weighting_generic"],
              _MAX_ERR["kernel_weighting_dw"],
@@ -1305,6 +1436,7 @@ def _composed_kernel_phase(ops):
                  "kernel_weighting_dw", "kernel_weighting_dw_generic"):
         numbers[name]["max_abs_err"] = _MAX_ERR[name]
     numbers["scatter2gather"]["max_abs_err"] = 0.0
+    numbers["scatter2gather_generic"]["max_abs_err"] = 0.0
     return numbers
 
 
@@ -1352,29 +1484,37 @@ def _compare_exp(ops, data, logits, maxes):
 
 
 def _time_exp(ops, data, logits, maxes, plain_iters):
-    """{kernel: (ms, plain ms, bound ms, bound by)} on these inputs."""
+    """{kernel: (ms, plain ms, bound ms, bound by, device ms)} on these
+    inputs: ``ms`` on the host clock, ``device_ms`` by CUDA-graph replay."""
     bs, c, h, w = data.shape
     k2 = logits.shape[1]
     px = bs * h * w
     lbytes = logits.numel() * logits.element_size()
+
+    def s2g_max():
+        return ops.scatter2gather_max(logits)
+
+    def kw_exp():
+        return ops.kernel_weighting_exp(data, logits, maxes)
+
     return {
         # Reads and writes the k2 planes, writes the float32 max plane; one
         # compare per tap.
         "scatter2gather_max": (
-            _time_ms(lambda: ops.scatter2gather_max(logits), 3, 20),
+            _time_ms(s2g_max, 3, 20),
             _time_ms(lambda: ops.scatter2gather_max_ref(logits), 1,
                      plain_iters),
-        ) + _bound(2 * lbytes + px * 4, px * k2),
+        ) + _bound(2 * lbytes + px * 4, px * k2) + (_graph_ms(s2g_max),),
         # Reads the logits, c data planes and the max plane, writes c + 1
         # planes; per tap a subtract, an exp, an add to sum_w and one FMA per
         # channel.
         "kernel_weighting_exp": (
-            _time_ms(lambda: ops.kernel_weighting_exp(data, logits, maxes), 3,
-                     20),
+            _time_ms(kw_exp, 3, 20),
             _time_ms(lambda: ops.kernel_weighting_exp_ref(data, logits,
                                                           maxes), 1,
                      plain_iters),
-        ) + _bound(lbytes + px * 4 * (2 * c + 2), px * k2 * (3 + 2 * c)),
+        ) + _bound(lbytes + px * 4 * (2 * c + 2), px * k2 * (3 + 2 * c))
+        + (_graph_ms(kw_exp),),
     }
 
 

@@ -13,7 +13,10 @@ kernels, chosen by shape (:func:`kw_route`): a tiled one for the kernel
 sizes the models use, and the first port's per-pixel kernel
 (``kernel_weighting_generic``, ``kernel_weighting_dw_generic``) for the
 others. ``scatter2gather`` is its own adjoint: its backward is the same
-kernel on the cotangent.
+kernel on the cotangent. It has two kernels too, chosen by kernel size
+(:func:`s2g_route`): the vector kernel ``s2g_vec`` (work items of up to 16
+bytes, :func:`s2g_pixels`) for the sizes the models use, and the first
+port's per-element kernel (``scatter2gather_generic``) for the others.
 
 ``scatter2gather_max`` and ``kernel_weighting_exp`` are plain functions and
 not differentiable, as in ``sbmc_tpu.ops``. For CUDA tensors they launch
@@ -27,14 +30,14 @@ tensors its forward launches ``csrc/progressive_splat.cu`` (the port of the
 Pallas kernel ``_psf_kernel``) and its backward launches the two kernels of
 ``csrc/progressive_splat_bwd.cu`` (the ports of ``_psb_ddata_kernel`` and
 ``_psb_dlogits_kernel``), each only when its gradient is asked for. The
-forward and the logits gradient each have two kernels, chosen by shape
-(:func:`splat_route`): a tiled one (TMA-fed forward, 16-byte vector logits
-gradient) at every shape the model paths give them, and the first port's
+forward and both gradients each have two kernels, chosen by shape
+(:func:`splat_route`): a tiled one (TMA-fed forward, 16-byte vector
+gradients) at every shape the model paths give them, and the first port's
 per-pixel kernel (``progressive_splat_generic``,
-``progressive_splat_dlogits_generic``) where TMA or 16-byte vectors cannot
-address the logits. For CPU tensors it runs the plain versions
-(:mod:`sbmc_tpu_torch.ops.reference`). There is no fallback: a CUDA tensor
-either launches a kernel or raises.
+``progressive_splat_ddata_generic``, ``progressive_splat_dlogits_generic``)
+where TMA or 16-byte vectors cannot address the logits. For CPU tensors it
+runs the plain versions (:mod:`sbmc_tpu_torch.ops.reference`). There is no
+fallback: a CUDA tensor either launches a kernel or raises.
 
 The backward mirrors ``sbmc_tpu.ops._psu_bwd``: the running max is a
 constant (its contributions cancel in ``sum_r / sum_w``), so ``max_w`` gets
@@ -42,6 +45,7 @@ a zero gradient and the new max is not differentiable.
 """
 
 import functools
+import math
 
 import torch
 
@@ -74,6 +78,9 @@ __all__ = [
     "kw_groups",
     "kw_dw_groups",
     "dlogits_row_blocks",
+    "ddata_groups",
+    "s2g_route",
+    "s2g_pixels",
     "launch_counts",
     "reset_launch_counts",
     "reference",
@@ -83,11 +90,13 @@ __all__ = [
 #: one where it launches its kernel, and nowhere else.
 launch_counts = {"progressive_splat": 0, "progressive_splat_generic": 0,
                  "progressive_splat_ddata": 0,
+                 "progressive_splat_ddata_generic": 0,
                  "progressive_splat_dlogits": 0,
                  "progressive_splat_dlogits_generic": 0, "kernel_weighting": 0,
                  "kernel_weighting_generic": 0, "kernel_weighting_dw": 0,
                  "kernel_weighting_dw_generic": 0, "scatter2gather": 0,
-                 "scatter2gather_max": 0, "kernel_weighting_exp": 0}
+                 "scatter2gather_generic": 0, "scatter2gather_max": 0,
+                 "kernel_weighting_exp": 0}
 
 _CHANNELS = (2, 3)  # the kernels' template set
 #: Kernel sizes the tiled splat and kernel-weighting kernels are built for:
@@ -304,16 +313,18 @@ def splat_route(w, k, itemsize, aligned=True):
     the card for logits ``[bs, k*k, h, w]`` of ``itemsize`` bytes.
 
     ``"tiled"``: the TMA-fed forward (``progressive_splat``) and the 16-byte
-    vector logits gradient (``progressive_splat_dlogits``). They need ``k``
-    in :data:`TILED_KSIZES`, a logits row of ``w * itemsize`` bytes that is
-    a multiple of 16 (TMA's row stride; whole 16-byte vectors per row) and
-    16-byte aligned logits (``aligned``). Every shape the model paths give
-    the step has them (widths 2048, 512, 160, 128, 64, 48).
+    vector gradients (``progressive_splat_ddata``,
+    ``progressive_splat_dlogits``). They need ``k`` in
+    :data:`TILED_KSIZES`, a logits row of ``w * itemsize`` bytes that is a
+    multiple of 16 (TMA's row stride; whole 16-byte vectors per row) and
+    16-byte aligned logits and outputs (``aligned``). Every shape the model
+    paths give the step has them (widths 2048, 512, 160, 128, 64, 48).
 
     ``"generic"``: otherwise (odd widths, other kernel sizes), the per-pixel
-    kernels ``progressive_splat_generic`` and
+    kernels ``progressive_splat_generic``,
+    ``progressive_splat_ddata_generic`` and
     ``progressive_splat_dlogits_generic``. This is a dispatch by shape, not
-    a fallback: either launch raises if it fails.
+    a fallback: any launch raises if it fails.
     """
     if k in TILED_KSIZES and (w * itemsize) % 16 == 0 and aligned:
         return "tiled"
@@ -337,6 +348,50 @@ def dlogits_row_blocks(bs, h, w, k, sms):
     ``k``."""
     tiles = bs * -(-h // 8) * -(-w // 64)
     return min(k, max(1, -(-3 * sms // tiles)))
+
+
+def _ddata_tiles(bs, h, w, itemsize, groups):
+    """Tiles of the vector d_data kernel: 64 pixels wide, and as tall as
+    its ``256 / groups`` items of 16 bytes make them."""
+    rows = 64 // (itemsize * groups)
+    return bs * -(-h // rows) * -(-w // 64)
+
+
+def ddata_groups(bs, h, w, k, itemsize, sms):
+    """Groups of tap rows in a block of the vector d_data kernel, whose tile
+    is ``64 / (groups * itemsize)`` rows of 64 pixels: the fewest of 1, 2, 4
+    and 8, at most ``k``, whose grid has at least 1.5 tiles per SM
+    (``sms``); else the most. On the card that was the fastest count, or
+    within 2% of it, at the training batch, at 512x512, at 160x160 and at
+    1080x2048; chip_smoke.py times every count beside this one (PERF.md)."""
+    allowed = _allowed_groups(k)
+    for g in allowed:
+        if 2 * _ddata_tiles(bs, h, w, itemsize, g) >= 3 * sms:
+            return g
+    return allowed[-1]
+
+
+def s2g_route(k):
+    """Which kernel scatter2gather launches on the card for ``k x k``
+    kernels.
+
+    ``"tiled"``: the vector kernel ``s2g_vec`` (``scatter2gather``), built
+    for ``k`` in :data:`TILED_KSIZES` and any width and base
+    (:func:`s2g_pixels`): every shape the model paths give it.
+
+    ``"generic"``: other kernel sizes, the per-element kernel
+    ``scatter2gather_generic``. This is a dispatch by shape, not a
+    fallback: either launch raises if it fails.
+    """
+    return "tiled" if k in TILED_KSIZES else "generic"
+
+
+def s2g_pixels(w, itemsize, *offsets):
+    """Elements per work item of the vector scatter2gather: the widest ``v``
+    of ``16 / itemsize``, ..., 2, 1 that divides the width ``w`` and every
+    base in ``offsets`` (in elements: the input's and the output's), so that
+    each item is one aligned access of 16, 8, 4 or 2 bytes on either side."""
+    return kw_pixels(w, 16 // itemsize, math.gcd(*offsets))
 
 
 def kw_route(k):
@@ -474,18 +529,29 @@ def _progressive_splat_cuda(data, klogits, sum_r, sum_w, max_w, route=None,
     return out_r, out_w, out_m
 
 
-def _ddata_cuda(klogits, new_max, d_r):
-    """``d_data`` of one splat step on the card (kernel ``psb_ddata``); the
+def _ddata_cuda(klogits, new_max, d_r, route=None, groups=None):
+    """``d_data`` of one splat step on the card: the kernel of ``route`` (by
+    default :func:`splat_route`'s), the vector one with ``groups`` groups of
+    tap rows in a block (by default :func:`ddata_groups`'). The other
     arguments are those of ``reference.progressive_splat_ddata_ref``."""
     from sbmc_tpu_torch.ops import _build
     # d_r has data's shape and type; d_w's slot checks the other plane.
     bs, c, h, w, k = _check(d_r, klogits, d_r, new_max, new_max)
     lib = _build.load_cuda()
     d_data = torch.empty_like(d_r)
-    _launch("progressive_splat_ddata", lib.sbmc_progressive_splat_ddata,
-            klogits.device, klogits.data_ptr(),
-            int(klogits.dtype == torch.bfloat16), new_max.data_ptr(),
-            d_r.data_ptr(), d_data.data_ptr(), bs, c, h, w, k)
+    args = (klogits.data_ptr(), int(klogits.dtype == torch.bfloat16),
+            new_max.data_ptr(), d_r.data_ptr(), d_data.data_ptr(), bs, c, h,
+            w, k)
+    if (route or _route(klogits, d_data)) == "tiled":
+        if groups is None:
+            groups = ddata_groups(bs, h, w, k, klogits.element_size(),
+                                  _sm_count(klogits.device))
+        _launch("progressive_splat_ddata", lib.sbmc_progressive_splat_ddata,
+                klogits.device, *args, groups)
+    else:
+        _launch("progressive_splat_ddata_generic",
+                lib.sbmc_progressive_splat_ddata_generic, klogits.device,
+                *args)
     return d_data
 
 
@@ -624,16 +690,26 @@ def _kernel_weighting_dw_cuda(data, d_output, d_sum_w, k,
     return d_w.to(dtype)
 
 
-def _scatter2gather_cuda(weights):
-    """scatter2gather on the card (kernel ``s2g``), in the input's dtype."""
+def _scatter2gather_cuda(weights, route=None, v=None):
+    """scatter2gather on the card, in the input's dtype: the kernel of
+    ``route`` (by default :func:`s2g_route`'s), the vector one with work
+    items of ``v`` elements (by default :func:`s2g_pixels`')."""
     from sbmc_tpu_torch.ops import _build
     _device_of(weights)
     bs, h, w, k = _check_weights(weights)
     lib = _build.load_cuda()
     out = torch.empty_like(weights)
-    _launch("scatter2gather", lib.sbmc_scatter2gather, weights.device,
-            weights.data_ptr(), weights.element_size(), out.data_ptr(), bs,
-            h, w, k)
+    itemsize = weights.element_size()
+    args = (weights.data_ptr(), itemsize, out.data_ptr(), bs, h, w, k)
+    if (route or s2g_route(k)) == "tiled":
+        if v is None:
+            v = s2g_pixels(w, itemsize, weights.data_ptr() // itemsize,
+                           out.data_ptr() // itemsize)
+        _launch("scatter2gather", lib.sbmc_scatter2gather, weights.device,
+                *args, v)
+    else:
+        _launch("scatter2gather_generic", lib.sbmc_scatter2gather_generic,
+                weights.device, *args)
     return out
 
 

@@ -34,8 +34,12 @@ _I = ctypes.c_int
 #:                                takes tile_h before the stream, the host
 #:                                build of its rows `groups` last
 _PSF_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
-#: sbmc_progressive_splat_ddata(logits, logits_bf16, new_max, d_r, d_data,
-#:                              bs, c, h, w, k[, stream])
+#: sbmc_progressive_splat_ddata_generic(logits, logits_bf16, new_max, d_r,
+#:                                      d_data, bs, c, h, w, k[, stream]); the
+#:                                      vector sbmc_progressive_splat_ddata
+#:                                      takes groups before the stream, the
+#:                                      host build of its tiles `groups`
+#:                                      last
 _DDATA_ARGS = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I]
 #: sbmc_progressive_splat_dlogits_generic(data, logits, logits_bf16, new_max,
 #:                                        d_r, d_w, d_logits, bs, c, h, w,
@@ -54,7 +58,10 @@ _KW_DW_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I]
 #: sbmc_kernel_weighting_dw(data, d_out, d_sum_w, d_w, out_bf16,
 #:                          bs, c, h, w, k, v, groups[, stream])
 _KW_DW_TILED_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I]
-#: sbmc_scatter2gather(weights, itemsize, out, bs, h, w, k[, stream])
+#: sbmc_scatter2gather_generic(weights, itemsize, out, bs, h, w, k[, stream]);
+#:                             the vector sbmc_scatter2gather (and its host
+#:                             build) takes v, the elements of an item,
+#:                             before the stream
 _S2G_ARGS = [_P, _I, _P, _I, _I, _I, _I]
 #: sbmc_scatter2gather_max(weights, itemsize, out, kmax, bs, h, w, k[, stream])
 _S2G_MAX_ARGS = [_P, _I, _P, _P, _I, _I, _I, _I]
@@ -69,7 +76,8 @@ _CUDA = {
         "sbmc_progressive_splat": _PSF_ARGS + [_I, _P],
         "sbmc_progressive_splat_generic": _PSF_ARGS + [_P]},
     "progressive_splat_bwd.cu": {
-        "sbmc_progressive_splat_ddata": _DDATA_ARGS + [_P],
+        "sbmc_progressive_splat_ddata": _DDATA_ARGS + [_I, _P],
+        "sbmc_progressive_splat_ddata_generic": _DDATA_ARGS + [_P],
         "sbmc_progressive_splat_dlogits": _DLOGITS_ARGS + [_I, _P],
         "sbmc_progressive_splat_dlogits_generic": _DLOGITS_ARGS + [_P]},
     "kernel_weighting.cu": {
@@ -79,7 +87,8 @@ _CUDA = {
         "sbmc_kernel_weighting_dw_generic": _KW_DW_ARGS + [_P],
         "sbmc_kernel_weighting_exp": _KW_EXP_ARGS + [_P]},
     "scatter2gather.cu": {
-        "sbmc_scatter2gather": _S2G_ARGS + [_P],
+        "sbmc_scatter2gather": _S2G_ARGS + [_I, _P],
+        "sbmc_scatter2gather_generic": _S2G_ARGS + [_P],
         "sbmc_scatter2gather_max": _S2G_MAX_ARGS + [_P]},
 }
 _HOST = {
@@ -88,6 +97,7 @@ _HOST = {
         "sbmc_progressive_splat_rows_host": _PSF_ARGS + [_I]},
     "progressive_splat_bwd_host.cpp": {
         "sbmc_progressive_splat_ddata_host": _DDATA_ARGS,
+        "sbmc_progressive_splat_ddata_tiles_host": _DDATA_ARGS + [_I],
         "sbmc_progressive_splat_dlogits_host": _DLOGITS_ARGS,
         "sbmc_progressive_splat_dlogits_rows_host": _DLOGITS_ARGS},
     "kernel_weighting_host.cpp": {
@@ -98,6 +108,7 @@ _HOST = {
         "sbmc_kernel_weighting_exp_host": _KW_EXP_ARGS},
     "scatter2gather_host.cpp": {
         "sbmc_scatter2gather_host": _S2G_ARGS,
+        "sbmc_scatter2gather_vec_host": _S2G_ARGS + [_I],
         "sbmc_scatter2gather_max_host": _S2G_MAX_ARGS},
 }
 

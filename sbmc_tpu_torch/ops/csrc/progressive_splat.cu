@@ -188,19 +188,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (clock64() - start > (1LL << 34)) __trap();
 }
 
-// A box start clamped into [0, n - 1].
-__device__ __forceinline__ int psf_clamp(int v, int n) {
-  return min(max(v, 0), n - 1);
-}
-
-// The column a box for source column gx starts at: clamped into the row,
-// then down to a 16-byte boundary (kAlign elements). w is a multiple of
-// kAlign, so the start stays in the row.
-template <int kAlign>
-__device__ __forceinline__ int box_x(int gx, int w) {
-  return psf_clamp(gx, w) & ~(kAlign - 1);
-}
-
 // One box of the [bs*k*k, h, w] logits into shared memory; completes
 // transaction bytes on `bar`.
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
@@ -286,7 +273,7 @@ __global__ void __launch_bounds__(kThreads)
         T* dst = ring + static_cast<int64_t>(s) * K * L::kBoxElems;
         for (int dx = 0; dx < K; ++dx)
           tma_load_3d(dst + dx * L::kBoxElems, &logits_map, &full[s],
-                      box_x<L::kAlign>(x0 + dx - kO, w),
+                      psf_box_x<L::kAlign>(x0 + dx - kO, w),
                       psf_clamp(y0 + dy - kO, h),
                       plane0 + (K - 1 - dy) * K + (K - 1 - dx));
       }
@@ -333,10 +320,12 @@ __global__ void __launch_bounds__(kThreads)
   // whose first column is not on a 16-byte boundary, which a tap's shift
   // by dx - o makes the rule, and which the negative start of a halo tap
   // before the image breaks too. So the producer clamps every start into
-  // the image and aligns its column down (box_x); TMA zero-fills what runs
-  // past the right or bottom edge. Tiles whose halo taps start outside the
-  // image (within o of an edge) read their boxes shifted and masked; every
-  // other tile reads them at a constant column offset per tap.
+  // the image and aligns its column down (psf_box_x); TMA zero-fills what
+  // runs past the right or bottom edge. Tiles whose halo taps start outside
+  // the image (within o of an edge) read their boxes shifted and masked;
+  // every other tile reads them at a constant column offset per tap. The
+  // host build reads its emulated boxes the same way
+  // (progressive_splat_host.cpp).
   const bool edge = x0 < kO || y0 < kO || x0 + kO >= w || y0 + kO >= h;
   for (int dy = 0; dy < K; ++dy) {
     const int s = dy % stages;
@@ -369,7 +358,8 @@ __global__ void __launch_bounds__(kThreads)
           v[j][dx] = yy >= 0 && yy < h && xx >= 0 && xx < w
                          ? psf_load(row, dx * L::kBoxElems +
                                              (py + 8 * j + ry) * L::kBoxW +
-                                             px + gx - box_x<L::kAlign>(gx, w))
+                                             px + gx -
+                                             psf_box_x<L::kAlign>(gx, w))
                          : 0.f;
         }
     }

@@ -77,7 +77,7 @@ PSF_HD PsfState<C> psf_state_at(float m) {
 }
 
 // a <- a (+) b: both taken to the larger max, each scaled by exp(m_i - m).
-// It joins groups of tap rows, and the old state with the new taps.
+// It joins the old state with the new taps.
 template <int C>
 PSF_HD void psf_merge(PsfState<C>& a, const PsfState<C>& b) {
   const float m = fmaxf(a.m, b.m);
@@ -115,6 +115,31 @@ PSF_HD void psf_row_update(PsfState<C>& s, const float (&v)[K],
 #pragma unroll
     for (int c = 0; c < C; ++c) s.r[c] += e * d[c];
   }
+}
+
+// ---------------------------------------------------------------------------
+// The tiled kernel's TMA boxes (psf_tma). Tap (dy, dx) of the tile at
+// (y0, x0) is one box of logits plane (K-1-dy)*K + (K-1-dx), TH rows of
+// kBoxW = 32 + kAlign columns (kAlign elements: 16 bytes), starting at row
+// psf_clamp(y0 + dy - o, h) and column psf_box_x(x0 + dx - o, w): TMA takes
+// only a box that starts inside the tensor on a 16-byte column. It fills
+// what runs past the image's right or bottom edge with zeros.
+
+// A box start clamped into [0, n - 1].
+PSF_HD int psf_clamp(int v, int n) {
+#ifdef __CUDA_ARCH__
+  return min(max(v, 0), n - 1);
+#else
+  return v < 0 ? 0 : (v > n - 1 ? n - 1 : v);
+#endif
+}
+
+// The column a box for source column gx starts at: clamped into the row,
+// then down to a 16-byte boundary. w is a multiple of kAlign, so the start
+// stays in the row.
+template <int kAlign>
+PSF_HD int psf_box_x(int gx, int w) {
+  return psf_clamp(gx, w) & ~(kAlign - 1);
 }
 
 // ---------------------------------------------------------------------------

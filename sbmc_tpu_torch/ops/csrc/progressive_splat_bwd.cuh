@@ -196,3 +196,126 @@ PSF_HD void psb_dlogits_row(const float (&dat)[V][C], const T* logits,
     psb_store_vec(d_logits + off, g);
   }
 }
+
+// ---------------------------------------------------------------------------
+// The vector kernel of d_data (psb_ddata_vec in progressive_splat_bwd.cu): a
+// work item is V = 16 / sizeof(T) consecutive pixels of one row, as in the
+// vector kernel of d_L, and the k taps of one tap row dy; d_data sums over
+// the taps, so the item keeps C x V float32 sums. The tap row's k 16-byte
+// loads of L are issued first, all in flight at once; then each of the
+// V + k - 1 halo columns s of the row serves the taps dx = s - j of the V
+// pixels j, so the small planes are read V + k - 1 times a row instead of
+// V * k. exp(L - m) is taken as exp2(L * log2(e) - m2) with m2 = m * log2(e)
+// formed once per halo pixel: one FMA and one exp2 per tap (psf_exp's form,
+// with the product folded into the FMA).
+
+// m * log2(e), the running max as the kernel stages it (+inf stays +inf, so
+// a tap whose target lies outside the image weighs exp2(-inf) = 0).
+PSF_HD float psb_m2(float m) { return m * kPsfLog2e; }
+
+// 16 bytes of logits as four raw words.
+PSF_HD void psb_load_raw(const void* p, uint32_t (&u)[4]) {
+#ifdef __CUDA_ARCH__
+  const uint4 q = __ldg(static_cast<const uint4*>(p));
+  u[0] = q.x;
+  u[1] = q.y;
+  u[2] = q.z;
+  u[3] = q.w;
+#else
+  memcpy(u, p, 16);
+#endif
+}
+
+PSF_HD float psb_bits_float(uint32_t bits) {
+#ifdef __CUDA_ARCH__
+  return __uint_as_float(bits);
+#else
+  float f;
+  memcpy(&f, &bits, sizeof(f));
+  return f;
+#endif
+}
+
+// Logit j of the 16 raw bytes, widened to float (bfloat16: the low half of
+// a word comes first, little-endian).
+PSF_HD float psb_widen(const uint32_t (&u)[4], int j, float) {
+  return psb_bits_float(u[j]);
+}
+PSF_HD float psb_widen(const uint32_t (&u)[4], int j, uint16_t) {
+  const uint32_t word = u[j >> 1];
+  return psb_bits_float((j & 1) ? (word & 0xffff0000u) : (word << 16));
+}
+
+template <int C, int V>
+PSF_HD void psb_ddata_zero(float (&acc)[V][C]) {
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[j][c] = 0.f;
+}
+
+// a += b: joins the partial sums of the groups of tap rows, in group order.
+template <int C, int V>
+PSF_HD void psb_ddata_merge(float (&a)[V][C], const float (&b)[V][C]) {
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+#pragma unroll
+    for (int c = 0; c < C; ++c) a[j][c] += b[j][c];
+}
+
+// Tap row dy of one work item, added to acc. l points at the item's first
+// pixel in tap plane dy * K (planes hw elements apart). small.get(dy, s, m2,
+// d) gives, at the pixel (y + dy - o, x - o + s) of the item's row y and
+// first column x, m2 = psb_m2(m) and d[C] = d_r: +inf and zeros outside the
+// image.
+template <int C, int K, int V, typename T, typename Small>
+PSF_HD void psb_ddata_row(const T* l, int64_t hw, int dy, const Small& small,
+                          float (&acc)[V][C]) {
+  uint32_t raw[K][4];
+#pragma unroll
+  for (int dx = 0; dx < K; ++dx) psb_load_raw(l + dx * hw, raw[dx]);
+#pragma unroll
+  for (int s = 0; s < K + V - 1; ++s) {
+    float m2;
+    float d[C];
+    small.get(dy, s, m2, d);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int dx = s - j;
+      if (dx < 0 || dx >= K) continue;
+      const float e = exp2f(fmaf(psb_widen(raw[dx], j, T()), kPsfLog2e, -m2));
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[j][c] = fmaf(e, d[c], acc[j][c]);
+    }
+  }
+}
+
+// The partial sums of group g of G at one work item: the tap rows g,
+// g + G, ... in order. l0 points at the item's first pixel in tap plane 0.
+template <int C, int K, int V, typename T, typename Small>
+PSF_HD void psb_ddata_group(const T* l0, int64_t hw, int g, int groups,
+                            const Small& small, float (&acc)[V][C]) {
+  psb_ddata_zero(acc);
+  for (int dy = g; dy < K; dy += groups)
+    psb_ddata_row<C, K, V>(l0 + static_cast<int64_t>(dy) * K * hw, hw, dy,
+                           small, acc);
+}
+
+// d_data of one work item, channel c at d + c * hw: V float32 values, one
+// (float32 logits) or two (bfloat16) 16-byte streaming stores on the card.
+template <int C, int V>
+PSF_HD void psb_ddata_store(float* d, int64_t hw, const float (&acc)[V][C]) {
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+#pragma unroll
+    for (int j0 = 0; j0 < V; j0 += 4) {
+      float* p = d + c * hw + j0;
+#ifdef __CUDA_ARCH__
+      __stcs(reinterpret_cast<float4*>(p),
+             make_float4(acc[j0][c], acc[j0 + 1][c], acc[j0 + 2][c],
+                         acc[j0 + 3][c]));
+#else
+      for (int j = 0; j < 4; ++j) p[j] = acc[j0 + j][c];
+#endif
+    }
+}

@@ -1,5 +1,5 @@
 // Host build of the fused progressive splat step's backward: the generic
-// kernels' per-pixel functions and the vector kernel's work item
+// kernels' per-pixel functions and the vector kernels' work items
 // (progressive_splat_bwd.cuh) run in plain loops. It exists so the CPU tests
 // can check the kernels' index math (p + d_t, the image bounds) and the
 // bfloat16 rounding against the plain PyTorch version without a GPU:
@@ -145,12 +145,116 @@ int dlogits_rows_c(const float* data, const void* logits, int logits_bf16,
                            k);
 }
 
+// The small planes at the shifted pixels of a d_data work item: the host's
+// stand-in for the vector kernel's halo (m2 = psb_m2(m), as the kernel
+// stages it).
+template <int C>
+struct PlaneDdSmall {
+  const float* new_max;
+  const float* d_r;
+  int64_t hw;
+  int h, w, y0, x0;  // the item's row and first column, less o
+  void get(int dy, int col, float& m2, float (&d)[C]) const {
+    const int sy = y0 + dy, sx = x0 + col;
+    if (sy < 0 || sy >= h || sx < 0 || sx >= w) {
+      m2 = INFINITY;
+      for (int c = 0; c < C; ++c) d[c] = 0.f;
+      return;
+    }
+    const int64_t q = static_cast<int64_t>(sy) * w + sx;
+    m2 = psb_m2(new_max[q]);
+    for (int c = 0; c < C; ++c) d[c] = d_r[c * hw + q];
+  }
+};
+
+// Every d_data work item (batch item, row, vector of V pixels) in turn, as
+// psb_ddata_vec assembles it: the sums of each of `groups` groups of tap
+// rows (group g: rows g, g + groups, ...), joined in group order, stored.
+template <int C, int K, typename T>
+void run_ddata_tiles(const T* logits, const float* new_max, const float* d_r,
+                     float* d_data, int bs, int h, int w, int groups) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int o = (K - 1) / 2;
+  const int64_t hw = static_cast<int64_t>(h) * w;
+  for (int64_t n = 0; n < bs; ++n)
+    for (int y = 0; y < h; ++y)
+      for (int x = 0; x < w; x += V) {
+        const int64_t p = static_cast<int64_t>(y) * w + x;
+        const PlaneDdSmall<C> small{new_max + n * hw, d_r + n * C * hw, hw,
+                                    h, w, y - o, x - o};
+        const T* l0 = logits + n * K * K * hw + p;
+        float acc[V][C];
+        psb_ddata_group<C, K, V>(l0, hw, 0, groups, small, acc);
+        for (int g = 1; g < groups; ++g) {
+          float b[V][C];
+          psb_ddata_group<C, K, V>(l0, hw, g, groups, small, b);
+          psb_ddata_merge(acc, b);
+        }
+        psb_ddata_store<C, V>(d_data + n * C * hw + p, hw, acc);
+      }
+}
+
+template <int C, typename T>
+int ddata_tiles_k(const T* logits, const float* new_max, const float* d_r,
+                  float* d_data, int bs, int h, int w, int k, int groups) {
+  if ((groups != 1 && groups != 2 && groups != 4 && groups != 8) ||
+      groups > k)
+    return 1;
+  switch (k) {
+    case 3:
+      run_ddata_tiles<C, 3>(logits, new_max, d_r, d_data, bs, h, w, groups);
+      return 0;
+    case 5:
+      run_ddata_tiles<C, 5>(logits, new_max, d_r, d_data, bs, h, w, groups);
+      return 0;
+    case 21:
+      run_ddata_tiles<C, 21>(logits, new_max, d_r, d_data, bs, h, w, groups);
+      return 0;
+    default:
+      return 1;
+  }
+}
+
+template <int C>
+int ddata_tiles_c(const void* logits, int logits_bf16, const float* new_max,
+                  const float* d_r, float* d_data, int bs, int h, int w,
+                  int k, int groups) {
+  if (logits_bf16)
+    return ddata_tiles_k<C>(static_cast<const uint16_t*>(logits), new_max,
+                            d_r, d_data, bs, h, w, k, groups);
+  return ddata_tiles_k<C>(static_cast<const float*>(logits), new_max, d_r,
+                          d_data, bs, h, w, k, groups);
+}
+
 }  // namespace
 
-// The vector kernel's arithmetic, work item by work item. Same arguments as
-// sbmc_progressive_splat_dlogits_host. Returns 0, or 1 outside the vector
-// kernel's set: c 2 or 3, k 3, 5 or 21, w a multiple of the vector width
-// (4 float32 or 8 bfloat16 logits).
+// The vector d_data kernel's arithmetic, work item by work item, with its
+// tap rows in `groups` groups joined in group order. Same arguments as
+// sbmc_progressive_splat_ddata_host plus `groups`. Returns 0, or 1
+// outside the vector kernel's set: c 2 or 3, k 3, 5 or 21, w a multiple of
+// the vector width (4 float32 or 8 bfloat16 logits), groups 1, 2, 4 or 8
+// and at most k.
+extern "C" int sbmc_progressive_splat_ddata_tiles_host(
+    const void* logits, int logits_bf16, const float* new_max,
+    const float* d_r, float* d_data, int bs, int c, int h, int w, int k,
+    int groups) {
+  if (w % (logits_bf16 ? 8 : 4) != 0) return 1;
+  switch (c) {
+    case 2:
+      return ddata_tiles_c<2>(logits, logits_bf16, new_max, d_r, d_data, bs,
+                              h, w, k, groups);
+    case 3:
+      return ddata_tiles_c<3>(logits, logits_bf16, new_max, d_r, d_data, bs,
+                              h, w, k, groups);
+    default:
+      return 1;
+  }
+}
+
+// The vector d_logits kernel's arithmetic, work item by work item. Same
+// arguments as sbmc_progressive_splat_dlogits_host. Returns 0, or 1 outside
+// the vector kernel's set: c 2 or 3, k 3, 5 or 21, w a multiple of the
+// vector width (4 float32 or 8 bfloat16 logits).
 extern "C" int sbmc_progressive_splat_dlogits_rows_host(
     const float* data, const void* logits, int logits_bf16,
     const float* new_max, const float* d_r, const float* d_w, void* d_logits,
@@ -169,9 +273,9 @@ extern "C" int sbmc_progressive_splat_dlogits_rows_host(
 }
 
 // The generic kernels' arithmetic: same arguments as the CUDA entry points
-// sbmc_progressive_splat_ddata and sbmc_progressive_splat_dlogits_generic,
-// minus the stream. Both return 0, or 1 for a channel count other than 2 or
-// 3 (the kernels' template set).
+// sbmc_progressive_splat_ddata_generic and
+// sbmc_progressive_splat_dlogits_generic, minus the stream. Both return 0,
+// or 1 for a channel count other than 2 or 3 (the kernels' template set).
 
 extern "C" int sbmc_progressive_splat_ddata_host(
     const void* logits, int logits_bf16, const float* new_max,

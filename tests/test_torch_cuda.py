@@ -46,9 +46,10 @@ def _counts():
 
 
 def _variant(name, logits):
-    """The counter of the splat kernel ``name`` (``progressive_splat`` or
-    ``progressive_splat_dlogits``) that ``logits`` are dispatched to: the
-    tiled kernel's own, or its generic variant's."""
+    """The counter of the splat kernel ``name`` (``progressive_splat``,
+    ``progressive_splat_ddata`` or ``progressive_splat_dlogits``) that
+    ``logits`` are dispatched to: the tiled kernel's own, or its generic
+    variant's."""
     route = ops.splat_route(logits.shape[-1],
                             ops.reference.ksize_of(logits),
                             logits.element_size())
@@ -145,7 +146,7 @@ def test_splat_kernel_rejects_bad_inputs(device):
     out[0].sum().backward()
     assert data.grad.shape == data.shape
     assert _counts() == {_variant("progressive_splat", logits): 1,
-                         "progressive_splat_ddata": 1}
+                         _variant("progressive_splat_ddata", logits): 1}
 
 
 BWD_ATOL, BWD_RTOL = 3e-4, 2e-5
@@ -167,7 +168,7 @@ def test_backward_kernels_match_plain(device, c, hw, k, dtype):
         ops.reset_launch_counts()
         got_data = ops._ddata_cuda(logits, new_max, d_r)
         got_logits = ops._dlogits_cuda(data, logits, new_max, d_r, d_w)
-        assert _counts() == {"progressive_splat_ddata": 1,
+        assert _counts() == {_variant("progressive_splat_ddata", logits): 1,
                              _variant("progressive_splat_dlogits", logits): 1}
         want_data, want_logits = ops.progressive_splat_bwd_ref(
             data, logits, new_max, d_r, d_w)
@@ -208,7 +209,7 @@ def test_function_backward_on_the_card_matches_cpu(device, dtype):
         ops.reset_launch_counts()
         (state.sum_r / (state.sum_w + 1e-8)).square().sum().backward()
         if dev.type == "cuda":
-            assert _counts() == {"progressive_splat_ddata": 2,
+            assert _counts() == {_variant("progressive_splat_ddata", lg): 2,
                                  _variant("progressive_splat_dlogits",
                                           lg): 2}
         grads.append([t.grad.float().cpu() for t in leaves])
@@ -522,3 +523,86 @@ def test_bf16_weight_gradient_on_the_card_is_the_rounded_float32_one(
     ((out * d_out).sum() + (sum_w * d_sw).sum()).backward()
     assert _counts() == {"kernel_weighting_dw": 1}
     assert w.grad.dtype == torch.bfloat16 and torch.equal(w.grad, half)
+
+
+#: (channels, (h, w), k) at which the vector d_data kernel is checked: rows
+#: of whole 16-byte vectors in both types, ragged tiles (37, 45 rows; 40 and
+#: 136 columns), an image smaller than the halo.
+DDATA_CASES = [(3, (37, 64), 3), (2, (21, 40), 5), (3, (45, 136), 21),
+               (2, (5, 8), 21)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,hw,k", DDATA_CASES)
+def test_vector_ddata_kernel_at_each_group_count(device, c, hw, k, dtype):
+    """The vector d_data kernel at every group count, and the generic kernel
+    at the same shapes, against the plain version."""
+    rng = np.random.RandomState(k * 10 + hw[1] + 5)
+    data, logits, sr, sw, mw = _inputs(rng, 2, c, *hw, k, dtype, False,
+                                       device)
+    d_r = torch.tensor(rng.randn(2, c, *hw), dtype=torch.float32,
+                       device=device)
+    with torch.inference_mode():
+        new_max = ops.progressive_splat_update(data, logits, sr, sw, mw)[2]
+        want = ops.reference.progressive_splat_ddata_ref(logits, new_max,
+                                                         d_r)
+        runs = [("tiled", g) for g in (1, 2, 4, 8) if g <= k]
+        for route, groups in runs + [("generic", None)]:
+            ops.reset_launch_counts()
+            got = ops._ddata_cuda(logits, new_max, d_r, route, groups)
+            suffix = "" if route == "tiled" else "_generic"
+            assert _counts() == {"progressive_splat_ddata" + suffix: 1}
+            torch.cuda.synchronize()
+            assert got.dtype == torch.float32
+            assert torch.all((got - want).abs()
+                             <= BWD_ATOL + BWD_RTOL * want.abs()), \
+                (route, groups, float((got - want).abs().max()))
+        # The route's own choice; three groups are refused.
+        ops.reset_launch_counts()
+        got = ops._ddata_cuda(logits, new_max, d_r)
+        assert _counts() == {"progressive_splat_ddata": 1}
+        torch.cuda.synchronize()
+        assert torch.all((got - want).abs()
+                         <= BWD_ATOL + BWD_RTOL * want.abs())
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ops._ddata_cuda(logits, new_max, d_r, "tiled", 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,hw,k", [(2, (37, 53), 3), (1, (13, 92), 5),
+                                     (2, (9, 64), 21), (1, (6, 30), 21),
+                                     (3, (5, 7), 21)])
+def test_vector_scatter2gather_at_each_item_width(device, bs, hw, k, dtype):
+    """The vector kernel bit-exact at every item width the row takes, on a
+    base one element past an aligned one, and the generic kernel at k = 7."""
+    rng = np.random.RandomState(k * 10 + hw[1] + 6)
+    weights = torch.tensor(rng.randn(bs, k * k, *hw),
+                           dtype=torch.float32).to(dtype).to(device)
+    size = weights.element_size()
+    with torch.inference_mode():
+        want = ops.scatter2gather_ref(weights)
+        widest = ops.s2g_pixels(hw[1], size, 0)
+        for v in (1, 2, 4, 8):
+            if v <= widest:
+                ops.reset_launch_counts()
+                got = ops._scatter2gather_cuda(weights, "tiled", v)
+                assert _counts() == {"scatter2gather": 1}
+                assert got.dtype == dtype and torch.equal(got, want), v
+        buf = torch.empty(weights.numel() + 1, dtype=dtype, device=device)
+        shifted = buf[1:].view(weights.shape).copy_(weights)
+        assert torch.equal(ops.scatter2gather(shifted), want)
+        if widest > 1:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                ops._scatter2gather_cuda(shifted, "tiled", widest)
+        seven = torch.tensor(rng.randn(bs, 49, *hw),
+                             dtype=torch.float32).to(dtype).to(device)
+        ops.reset_launch_counts()
+        got = ops.scatter2gather(seven)
+        assert _counts() == {"scatter2gather_generic": 1}
+        assert torch.equal(got, ops.scatter2gather_ref(seven))
+        ops.reset_launch_counts()
+        got = ops._scatter2gather_cuda(weights, "generic")
+        assert _counts() == {"scatter2gather_generic": 1}
+        assert torch.equal(got, want)

@@ -7,10 +7,12 @@ states; its vector logits gradient (``psb_dlogits_vec`` in
 row at a time. Both pieces live in the headers as ``__host__ __device__``
 functions, which the g++ host build (``_build.load_host``) runs here:
 
-- the forward's row update and state merge, assembled over a pixel as the
-  kernel assembles it (rows in order), and with the rows split into 2 or 3
-  groups merged afterwards, against ``reference.progressive_splat_update_ref``
-  and the JAX package's ``progressive_splat_update(backend="xla")``:
+- the forward's box reads, row update and state merge, assembled tile by
+  tile at both tile heights as the kernel assembles them (its TMA boxes
+  emulated: clamped, 16-byte aligned starts, zeros past the right and bottom
+  edges; edge tiles and interior ones, ragged last tiles), against
+  ``reference.progressive_splat_update_ref`` and the JAX package's
+  ``progressive_splat_update(backend="xla")``:
   ``|got - want| <= 2e-4 + 2e-5 * |want|``, the bound chip_smoke.py holds the
   kernel to (float32 sums over up to 441 taps in another order, exp taken as
   exp2 of a scaled argument);
@@ -58,14 +60,21 @@ def _close(got, want, atol, rtol):
         float((got - want).abs().max())
 
 
-@pytest.mark.parametrize("c,shape,k", [(3, (9, 12), 3), (2, (13, 8), 5),
-                                       (3, (11, 16), 21)])
+#: (channels, (h, w), k) of the tiled forward's host build: rows of whole
+#: 16-byte vectors in both types; interior tiles at both tile heights
+#: (19x72 at k = 3, 37x72 and 27x48 at k = 21), an image smaller than one
+#: tile, ragged last tiles (21x40, 27x48).
+ROWS_CASES = [(3, (19, 72), 3), (2, (13, 8), 5), (3, (21, 40), 5),
+              (3, (37, 72), 21), (2, (27, 48), 21)]
+
+
+@pytest.mark.parametrize("c,shape,k", ROWS_CASES)
 @pytest.mark.parametrize("tdt,jdt", [(torch.float32, jnp.float32),
                                      (torch.bfloat16, jnp.bfloat16)])
 @pytest.mark.parametrize("init", [True, False])
-@pytest.mark.parametrize("groups", [1, 2, 3])
+@pytest.mark.parametrize("tile_h", [8, 16])
 def test_row_update_and_merge_match_plain_and_jax(c, shape, k, tdt, jdt,
-                                                  init, groups):
+                                                  init, tile_h):
     lib = _build.load_host()
     rng = np.random.RandomState(40 + k + c)
     bs = 2
@@ -79,7 +88,7 @@ def test_row_update_and_merge_match_plain_and_jax(c, shape, k, tdt, jdt,
     rc = lib.sbmc_progressive_splat_rows_host(
         t_data.data_ptr(), t_logits.data_ptr(), int(tdt == torch.bfloat16),
         *(s.data_ptr() for s in t_state), *(g.data_ptr() for g in got),
-        bs, c, *shape, k, groups)
+        bs, c, *shape, k, tile_h)
     assert rc == 0
     want = reference.progressive_splat_update_ref(t_data, t_logits, *t_state)
     jax_want = jops.progressive_splat_update(
@@ -129,11 +138,15 @@ def test_host_builds_refuse_what_the_tiled_kernels_do_not_take():
     z = torch.zeros(1, 3, 4, 8)
     zl = torch.zeros(1, 49, 4, 8)
     one = torch.zeros(1, 1, 4, 8)
-    # k = 7 is outside the template set; so is a width of 6 bf16 logits.
-    assert lib.sbmc_progressive_splat_rows_host(
-        z.data_ptr(), zl.data_ptr(), 0, z.data_ptr(), one.data_ptr(),
-        one.data_ptr(), z.data_ptr(), one.data_ptr(), one.data_ptr(),
-        1, 3, 4, 8, 7, 1) == 1
+    # k = 7 is outside the template set; so are a tile height of 12 and a
+    # width of 6 bf16 logits.
+    def rows(k, tile_h):
+        return lib.sbmc_progressive_splat_rows_host(
+            z.data_ptr(), zl.data_ptr(), 0, z.data_ptr(), one.data_ptr(),
+            one.data_ptr(), z.data_ptr(), one.data_ptr(), one.data_ptr(),
+            1, 3, 4, 8, k, tile_h)
+    assert rows(7, 8) == 1 and rows(3, 12) == 1
+    assert rows(3, 8) == 0 and rows(3, 16) == 0
     zb = torch.zeros(1, 9, 4, 6, dtype=torch.bfloat16)
     z6, one6 = torch.zeros(1, 3, 4, 6), torch.zeros(1, 1, 4, 6)
     assert lib.sbmc_progressive_splat_dlogits_rows_host(
