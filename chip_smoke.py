@@ -82,9 +82,14 @@ The composed kernels' phases run between these (4b to 4d after 4, 6b after
     weighting and its weight gradient, none the fused splat;
 4c. exp kernels: holds scatter2gather_max (bit-exact, float32 and bfloat16)
     and kernel weighting of exp(logits - max) against their plain versions
-    (k in {3, 5, 21}, odd shapes, 2 and 3 channels, and every shape of 4d);
-    times both at (1, 3, 1080, 2048) and (4, 3, 128, 128), k = 21, on the
-    host clock and by CUDA-graph replay;
+    (k in {3, 5, 21}, odd shapes, 2 and 3 channels, and every shape of 4d;
+    the tiled kw_exp at every group count with 1- and 2-pixel items and
+    with a misaligned logits or maxes base, the generic kernel at k = 7 and
+    at the small cases); times both at (1, 3, 1080, 2048) and (4, 3, 128,
+    128), k = 21, on the host clock and by CUDA-graph replay, kw_exp at
+    every group count and its generic variant too, beside two yardsticks:
+    kw_fwd on weights of the logits' shape and type, and a torch.sum of the
+    logits over their taps;
 4d. composed splat step: the step built from ``ops.scatter2gather_max`` and
     ``ops.kernel_weighting_exp`` as the JAX package's unfused branch builds
     it, held against the fused kernel (``ops.progressive_splat_update``) from
@@ -166,6 +171,8 @@ KERNELS = (
      "sbmc_tpu/ops/pallas_kernels.py:419"),
     ("kernel_weighting_exp", _CSRC + "kernel_weighting.cu",
      "sbmc_tpu/ops/pallas_kernels.py:232"),
+    ("kernel_weighting_exp_generic", _CSRC + "kernel_weighting.cu",
+     "sbmc_tpu/ops/pallas_kernels.py:232"),
 )
 #: The paths on which a kernel must have launched. The data-gradient kernel
 #: lies on neither main path by nature (its gradient goes to a batch input,
@@ -192,17 +199,18 @@ MUST_LAUNCH = {
     "kernel_weighting_generic": (),
     "kernel_weighting_dw_generic": (),
     "scatter2gather_generic": (),
+    "kernel_weighting_exp_generic": (),
 }
-#: The generic variants of the splat, kernel-weighting and scatter2gather
-#: kernels (the first port's per-pixel or per-element kernels) take only
-#: shapes the tiled kernels cannot address, which no path gives them: the
-#: kernel phases check them there and at the paths' shapes, and the run
-#: fails if any path launched one.
+#: The generic variants of the splat, kernel-weighting (plain and exp) and
+#: scatter2gather kernels (the first port's per-pixel or per-element
+#: kernels) take only shapes the tiled kernels cannot address, which no path
+#: gives them: the kernel phases check them there and at the paths' shapes,
+#: and the run fails if any path launched one.
 NEVER_ON_A_PATH = ("progressive_splat_generic",
                    "progressive_splat_ddata_generic",
                    "progressive_splat_dlogits_generic",
                    "kernel_weighting_generic", "kernel_weighting_dw_generic",
-                   "scatter2gather_generic")
+                   "scatter2gather_generic", "kernel_weighting_exp_generic")
 #: The wrapped op whose recorded cases speak for each kernel.
 _OP_OF = {"progressive_splat": "splat", "progressive_splat_ddata": "splat",
           "progressive_splat_ddata_generic": "splat",
@@ -212,7 +220,8 @@ _OP_OF = {"progressive_splat": "splat", "progressive_splat_ddata": "splat",
           "kernel_weighting": "kw", "kernel_weighting_generic": "kw",
           "kernel_weighting_dw": "kw", "kernel_weighting_dw_generic": "kw",
           "scatter2gather": "s2g", "scatter2gather_generic": "s2g",
-          "scatter2gather_max": "s2g_max", "kernel_weighting_exp": "kw_exp"}
+          "scatter2gather_max": "s2g_max", "kernel_weighting_exp": "kw_exp",
+          "kernel_weighting_exp_generic": "kw_exp"}
 
 #: (bs, c, h, w, logit type) the paths give the splat step, k = 21: the
 #: denoise path's tile, a training batch in float32 and with --bf16, a frame
@@ -1440,25 +1449,53 @@ def _composed_kernel_phase(ops):
     return numbers
 
 
-def _exp_inputs(gen, bs, c, h, w, k, dtype):
+def _exp_inputs(gen, bs, c, h, w, k, dtype, misalign=()):
     """data, gather logits and a per-pixel shift for the exp kernels, drawn
     on the card: the shift is the logits' tap max plus a margin in [0, 1),
-    so every exponent is at most 0, as in the splat step."""
+    so every exponent is at most 0, as in the splat step. The tensors named
+    in ``misalign`` ("logits", "maxes") start one element past an aligned
+    base."""
     data = torch.randn(bs, c, h, w, device="cuda", generator=gen)
     logits = (3 * torch.randn(bs, k * k, h, w, device="cuda",
                               generator=gen)).to(dtype)
     maxes = logits.float().amax(1) + torch.rand(bs, h, w, device="cuda",
                                                 generator=gen)
-    return data, logits, maxes
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+        return buf[1:].view(t.shape).copy_(t)
+
+    return (data, shifted(logits) if "logits" in misalign else logits,
+            shifted(maxes) if "maxes" in misalign else maxes)
+
+
+def _check_exp(ops, data, logits, maxes, route=None, groups=None):
+    """Holds kernel weighting of exp(logits - max) against its plain version
+    within ``ATOL + RTOL * |plain|``: through the op (the kernel its route
+    takes), or the kernel of ``route``, the tiled one at ``groups`` groups
+    of tap rows."""
+    k = ops.reference.ksize_of(logits)
+    name = "kernel_weighting_exp" + (
+        "" if (route or ops.kw_route(k)) == "tiled" else "_generic")
+    case = _case(data, logits)
+    _COMPARED[name].add(case)
+    if route is None:
+        got = ops.kernel_weighting_exp(data, logits, maxes)
+    else:
+        got = ops._kernel_weighting_exp_cuda(data, logits, maxes, route,
+                                             groups)
+    want = ops.kernel_weighting_exp_ref(data, logits, maxes)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        _kw_check(name, (case, groups), g, r, torch.float32)
 
 
 def _compare_exp(ops, data, logits, maxes):
-    """Max abs error of kernel_weighting_exp against its plain version;
-    raises beyond ``ATOL + RTOL * |plain|``, and if scatter2gather_max is
-    not bit-exact (gather and tap max)."""
+    """Holds scatter2gather_max bit-exact (gather and tap max) and
+    kernel_weighting_exp (the op) within ``ATOL + RTOL * |plain|`` against
+    their plain versions."""
     case = _case(data, logits)
     _COMPARED["scatter2gather_max"].add(_s2g_case(logits))
-    _COMPARED["kernel_weighting_exp"].add(case)
     g, kmax = ops.scatter2gather_max(logits)
     want_g, want_kmax = ops.scatter2gather_max_ref(logits)
     torch.cuda.synchronize()
@@ -1467,92 +1504,125 @@ def _compare_exp(ops, data, logits, maxes):
         raise AssertionError("scatter2gather_max kernel is not bit-exact at "
                              "%s" % (case,))
     del g, want_g, kmax, want_kmax
-    got = ops.kernel_weighting_exp(data, logits, maxes)
-    want = ops.kernel_weighting_exp_ref(data, logits, maxes)
-    torch.cuda.synchronize()
-    err = 0.0
-    for g, r in zip(got, want):
-        if g.dtype != torch.float32 or g.shape != r.shape:
-            raise AssertionError("kernel_weighting_exp returned %s %s"
-                                 % (g.dtype, tuple(g.shape)))
-        if not bool(torch.all((g - r).abs() <= ATOL + RTOL * r.abs())):
-            raise AssertionError(
-                "kernel_weighting_exp kernel disagrees with its plain version "
-                "at %s: max abs err %.3g" % (case, float((g - r).abs().max())))
-        err = max(err, float((g - r).abs().max()))
-    return err
+    _check_exp(ops, data, logits, maxes)
 
 
-def _time_exp(ops, data, logits, maxes, plain_iters):
-    """{kernel: (ms, plain ms, bound ms, bound by, device ms)} on these
-    inputs: ``ms`` on the host clock, ``device_ms`` by CUDA-graph replay."""
+def _time_exp(ops, data, logits, maxes, plain_iters, graph_iters):
+    """[(kernel, ms, plain ms, bound ms, bound by, device ms, extra)] on
+    these inputs: ``ms`` on the host clock, ``device_ms`` by CUDA-graph
+    replay (``graph_iters`` calls a graph); kw_exp's ``extra`` holds the
+    group count the route picks, the device time at every count (the best
+    of two turns) and two yardsticks, device times: kw_fwd (the op
+    ``kernel_weighting``) on the logits as weights, the same bytes less the
+    max plane, and a torch.sum of the logits over their taps."""
     bs, c, h, w = data.shape
     k2 = logits.shape[1]
+    k = int(round(k2 ** 0.5))
     px = bs * h * w
     lbytes = logits.numel() * logits.element_size()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+
+    def add(name, fn, plain_ms, bound, extra=dict):
+        rows.append((name, _time_ms(fn, 3, 20), plain_ms) + bound
+                    + (_graph_ms(fn, graph_iters), extra()))
 
     def s2g_max():
         return ops.scatter2gather_max(logits)
 
-    def kw_exp():
-        return ops.kernel_weighting_exp(data, logits, maxes)
-
-    return {
-        # Reads and writes the k2 planes, writes the float32 max plane; one
-        # compare per tap.
-        "scatter2gather_max": (
-            _time_ms(s2g_max, 3, 20),
-            _time_ms(lambda: ops.scatter2gather_max_ref(logits), 1,
-                     plain_iters),
-        ) + _bound(2 * lbytes + px * 4, px * k2) + (_graph_ms(s2g_max),),
-        # Reads the logits, c data planes and the max plane, writes c + 1
-        # planes; per tap a subtract, an exp, an add to sum_w and one FMA per
-        # channel.
-        "kernel_weighting_exp": (
-            _time_ms(kw_exp, 3, 20),
-            _time_ms(lambda: ops.kernel_weighting_exp_ref(data, logits,
-                                                          maxes), 1,
-                     plain_iters),
-        ) + _bound(lbytes + px * 4 * (2 * c + 2), px * k2 * (3 + 2 * c))
-        + (_graph_ms(kw_exp),),
-    }
+    # Reads and writes the k2 planes, writes the float32 max plane; one
+    # compare per tap.
+    add("scatter2gather_max", s2g_max,
+        _time_ms(lambda: ops.scatter2gather_max_ref(logits), 1, plain_iters),
+        _bound(2 * lbytes + px * 4, px * k2))
+    # Reads the logits, c data planes and the max plane, writes c + 1
+    # planes; per tap a subtract, an exp, an add to sum_w and one FMA per
+    # channel.
+    plain_ms = _time_ms(lambda: ops.kernel_weighting_exp_ref(data, logits,
+                                                             maxes),
+                        1, plain_iters)
+    bound = _bound(lbytes + px * 4 * (2 * c + 2), px * k2 * (3 + 2 * c))
+    groups = ops.kw_exp_groups(bs, h, w, k, ops.kw_pixels(w, 2), sms)
+    add("kernel_weighting_exp",
+        lambda: ops.kernel_weighting_exp(data, logits, maxes), plain_ms,
+        bound, lambda: {
+            "groups": groups,
+            "device_ms_by_groups": _by_groups(
+                [g for g in (1, 2, 4, 8) if g <= k],
+                lambda g: lambda: ops._kernel_weighting_exp_cuda(
+                    data, logits, maxes, "tiled", g), graph_iters),
+            "kw_fwd_device_ms": _graph_ms(
+                lambda: ops.kernel_weighting(data, logits), graph_iters),
+            "logits_sum_device_ms": _graph_ms(
+                lambda: logits.sum(1, dtype=torch.float32), graph_iters)})
+    add("kernel_weighting_exp_generic",
+        lambda: ops._kernel_weighting_exp_cuda(data, logits, maxes,
+                                               "generic"),
+        plain_ms, bound)
+    return rows
 
 
 def _exp_kernel_phase(ops):
-    """scatter2gather_max and kernel_weighting_exp against their plain
-    versions, then their times (the composed step's tile first)."""
+    """scatter2gather_max and kernel_weighting_exp (tiled and generic)
+    against their plain versions, then their times (the composed step's
+    tile first)."""
     gen = torch.Generator(device="cuda").manual_seed(4)
-    err = 0.0
     cases = 0
     for k in (3, 5, 21):
         for c, hw in ((3, (37, 53)), (3, (130, 3)), (2, (5, 7))):
             for dtype in (torch.float32, torch.bfloat16):
-                err = max(err, _compare_exp(ops, *_exp_inputs(
-                    gen, 2, c, *hw, k, dtype)))
-                cases += 1
+                inputs = _exp_inputs(gen, 2, c, *hw, k, dtype)
+                _compare_exp(ops, *inputs)
+                _check_exp(ops, *inputs, route="generic")
+                cases += 2
     for bs, c, h, w, k, dtype in STEP_SHAPES[:-1]:
-        err = max(err, _compare_exp(ops, *_exp_inputs(gen, bs, c, h, w, k,
-                                                      dtype)))
+        _compare_exp(ops, *_exp_inputs(gen, bs, c, h, w, k, dtype))
+        cases += 1
+    # The tiled kw_exp at every group count, whichever the route would
+    # pick, with 2-pixel items (a width of 64) and 1-pixel ones (53), at
+    # every k, logit type and channel count (37 rows: ragged tiles); a
+    # logits base one element off (1-pixel items at an even width), and a
+    # maxes base one element off; the generic kernel at k = 7, which only
+    # it takes.
+    for k in (3, 5, 21):
+        for dtype in (torch.float32, torch.bfloat16):
+            for c in (2, 3):
+                for hw in ((37, 64), (37, 53)):
+                    inputs = _exp_inputs(gen, 2, c, *hw, k, dtype)
+                    for g in (1, 2, 4, 8):
+                        if g <= k:
+                            _check_exp(ops, *inputs, "tiled", g)
+                            cases += 1
+            for misalign in (("logits",), ("maxes",)):
+                _check_exp(ops, *_exp_inputs(gen, 2, 3, 21, 90, k, dtype,
+                                             misalign))
+                cases += 1
+    for dtype in (torch.float32, torch.bfloat16):
+        _check_exp(ops, *_exp_inputs(gen, 2, 3, 37, 53, 7, dtype))
         cases += 1
     print("exp kernel check: %d cases, scatter2gather_max bit-exact (gather "
           "and tap max) in float32 and bfloat16, kernel_weighting_exp max abs "
-          "err %.3g (tolerance %.0e + %.0e * |plain|)"
-          % (cases, err, ATOL, RTOL))
+          "err tiled %.3g, generic %.3g (tolerance %.0e + %.0e * |plain|)"
+          % (cases, _MAX_ERR["kernel_weighting_exp"],
+             _MAX_ERR["kernel_weighting_exp_generic"], ATOL, RTOL))
     numbers = {}
-    for shape, dtype, iters in (((1, 3, 1080, 2048), torch.bfloat16, 2),
-                                ((1, 3, 1080, 2048), torch.float32, 2),
-                                ((4, 3, 128, 128), torch.float32, 3),
-                                ((4, 3, 128, 128), torch.bfloat16, 3)):
+    for shape, dtype, iters, graph_iters in (
+            ((1, 3, 1080, 2048), torch.bfloat16, 2, 5),
+            ((1, 3, 1080, 2048), torch.float32, 2, 5),
+            ((4, 3, 128, 128), torch.float32, 3, 20),
+            ((4, 3, 128, 128), torch.bfloat16, 3, 20)):
         inputs = _exp_inputs(gen, *shape, 21, dtype)
-        err = max(err, _compare_exp(ops, *inputs))
+        _compare_exp(ops, *inputs)
         tag = "%s %s" % ("x".join(map(str, shape)),
                          str(dtype).replace("torch.", ""))
-        for name, times in sorted(_time_exp(ops, *inputs, iters).items()):
-            _record_times(numbers, name, tag, *times)
+        for name, *times, extra in _time_exp(ops, *inputs, iters,
+                                             graph_iters):
+            _record_times(numbers, name, tag, *times, **extra)
         del inputs
         torch.cuda.empty_cache()
     numbers["scatter2gather_max"]["max_abs_err"] = 0.0
-    numbers["kernel_weighting_exp"]["max_abs_err"] = err
+    for name in ("kernel_weighting_exp", "kernel_weighting_exp_generic"):
+        numbers[name]["max_abs_err"] = _MAX_ERR[name]
     return numbers
 
 

@@ -22,8 +22,11 @@ port's per-element kernel (``scatter2gather_generic``) for the others.
 not differentiable, as in ``sbmc_tpu.ops``. For CUDA tensors they launch
 ``s2g_max`` of ``csrc/scatter2gather.cu`` (the port of ``_s2g_max_kernel``)
 and ``kw_exp`` of ``csrc/kernel_weighting.cu`` (the port of
-``_kw_exp_kernel``); composed as ``sbmc_tpu.ops._psu_fwd``'s unfused branch
-they compute the same splat step as ``progressive_splat_update``.
+``_kw_exp_kernel``: ``kw_fwd``'s tiled design with the exponential formed
+in registers, by :func:`kw_route` for the kernel sizes the models use, and
+the first port's per-pixel kernel ``kernel_weighting_exp_generic`` for the
+others); composed as ``sbmc_tpu.ops._psu_fwd``'s unfused branch they
+compute the same splat step as ``progressive_splat_update``.
 
 ``progressive_splat_update`` is a ``torch.autograd.Function`` too. For CUDA
 tensors its forward launches ``csrc/progressive_splat.cu`` (the port of the
@@ -76,6 +79,7 @@ __all__ = [
     "kw_route",
     "kw_pixels",
     "kw_groups",
+    "kw_exp_groups",
     "kw_dw_groups",
     "dlogits_row_blocks",
     "ddata_groups",
@@ -96,7 +100,7 @@ launch_counts = {"progressive_splat": 0, "progressive_splat_generic": 0,
                  "kernel_weighting_generic": 0, "kernel_weighting_dw": 0,
                  "kernel_weighting_dw_generic": 0, "scatter2gather": 0,
                  "scatter2gather_generic": 0, "scatter2gather_max": 0,
-                 "kernel_weighting_exp": 0}
+                 "kernel_weighting_exp": 0, "kernel_weighting_exp_generic": 0}
 
 _CHANNELS = (2, 3)  # the kernels' template set
 #: Kernel sizes the tiled splat and kernel-weighting kernels are built for:
@@ -398,14 +402,16 @@ def kw_route(k):
     """Which kernels kernel weighting and its weight gradient launch on the
     card for ``k x k`` kernels.
 
-    ``"tiled"``: ``kw_fwd`` and ``kw_dw`` (``kernel_weighting``,
-    ``kernel_weighting_dw``), built for ``k`` in :data:`TILED_KSIZES` and
-    any width: every shape the model paths give them.
+    ``"tiled"``: ``kw_fwd``, ``kw_dw`` and ``kw_exp``
+    (``kernel_weighting``, ``kernel_weighting_dw``,
+    ``kernel_weighting_exp``), built for ``k`` in :data:`TILED_KSIZES` and
+    any width and base alignment: every shape the model paths and the
+    composed splat step give them.
 
     ``"generic"``: other kernel sizes, the per-pixel kernels
-    ``kernel_weighting_generic`` and ``kernel_weighting_dw_generic``. This
-    is a dispatch by shape, not a fallback: either launch raises if it
-    fails.
+    ``kernel_weighting_generic``, ``kernel_weighting_dw_generic`` and
+    ``kernel_weighting_exp_generic``. This is a dispatch by shape, not a
+    fallback: either launch raises if it fails.
     """
     return "tiled" if k in TILED_KSIZES else "generic"
 
@@ -439,6 +445,16 @@ def kw_groups(bs, h, w, k, v, itemsize, sms):
         if bs * -(-h // (8 // g)) * -(-w // (32 * v)) * itemsize >= 4 * sms:
             return g
     return allowed[-1]
+
+
+def kw_exp_groups(bs, h, w, k, v, sms):
+    """Groups of tap rows in a block of the tiled exp forward: the rule of
+    :func:`kw_groups` with the logits counted as float32 whatever their
+    type, i.e. the fewest groups whose grid has a block per SM. Every
+    tap's exp2 keeps a bfloat16 block as busy per byte loaded as a float32
+    block, so bfloat16 logits need no more blocks in flight than float32
+    ones; chip_smoke.py times every count beside this one (PERF.md)."""
+    return kw_groups(bs, h, w, k, v, 4, sms)
 
 
 def kw_dw_groups(k):
@@ -741,17 +757,30 @@ def _check_kw_exp(data, logits, maxes):
     return bs, data.shape[1], h, w, k
 
 
-def _kernel_weighting_exp_cuda(data, logits, maxes):
-    """Kernel weighting of ``exp(logits - maxes)`` on the card (kernel
-    ``kw_exp``); the arguments and results are those of
-    ``reference.kernel_weighting_exp_ref``."""
+def _kernel_weighting_exp_cuda(data, logits, maxes, route=None, groups=None):
+    """Kernel weighting of ``exp(logits - maxes)`` on the card: the kernel
+    of ``route`` (by default :func:`kw_route`'s), the tiled one
+    (``kw_exp``) with ``groups`` groups of tap rows (by default
+    :func:`kw_exp_groups`') and :func:`kw_pixels`' work items, which also
+    load the maxes of their pixels at once. The arguments and results are
+    those of ``reference.kernel_weighting_exp_ref``."""
     from sbmc_tpu_torch.ops import _build
     bs, c, h, w, k = _check_kw_exp(data, logits, maxes)
     lib = _build.load_cuda()
     out = torch.empty_like(data)
     sum_w = torch.empty((bs, h, w), dtype=torch.float32, device=data.device)
-    _launch("kernel_weighting_exp", lib.sbmc_kernel_weighting_exp,
-            data.device, data.data_ptr(), logits.data_ptr(),
+    args = (data.data_ptr(), logits.data_ptr(),
             int(logits.dtype == torch.bfloat16), maxes.data_ptr(),
             out.data_ptr(), sum_w.data_ptr(), bs, c, h, w, k)
+    if (route or kw_route(k)) == "tiled":
+        v = kw_pixels(w, 2, math.gcd(
+            logits.data_ptr() // logits.element_size(),
+            maxes.data_ptr() // maxes.element_size()))
+        if groups is None:
+            groups = kw_exp_groups(bs, h, w, k, v, _sm_count(data.device))
+        _launch("kernel_weighting_exp", lib.sbmc_kernel_weighting_exp,
+                data.device, *args, v, groups)
+    else:
+        _launch("kernel_weighting_exp_generic",
+                lib.sbmc_kernel_weighting_exp_generic, data.device, *args)
     return out, sum_w

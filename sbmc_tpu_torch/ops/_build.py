@@ -65,8 +65,10 @@ _KW_DW_TILED_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I]
 _S2G_ARGS = [_P, _I, _P, _I, _I, _I, _I]
 #: sbmc_scatter2gather_max(weights, itemsize, out, kmax, bs, h, w, k[, stream])
 _S2G_MAX_ARGS = [_P, _I, _P, _P, _I, _I, _I, _I]
-#: sbmc_kernel_weighting_exp(data, logits, logits_bf16, maxes, out, sum_w,
-#:                           bs, c, h, w, k[, stream])
+#: sbmc_kernel_weighting_exp_generic(data, logits, logits_bf16, maxes, out,
+#:                                   sum_w, bs, c, h, w, k[, stream]); the
+#:                                   tiled sbmc_kernel_weighting_exp takes v
+#:                                   and groups before the stream
 _KW_EXP_ARGS = [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I]
 
 #: source -> {exported function: argument types}; the CUDA entry points take
@@ -85,7 +87,8 @@ _CUDA = {
         "sbmc_kernel_weighting_generic": _KW_ARGS + [_P],
         "sbmc_kernel_weighting_dw": _KW_DW_TILED_ARGS + [_P],
         "sbmc_kernel_weighting_dw_generic": _KW_DW_ARGS + [_P],
-        "sbmc_kernel_weighting_exp": _KW_EXP_ARGS + [_P]},
+        "sbmc_kernel_weighting_exp": _KW_EXP_ARGS + [_I, _I, _P],
+        "sbmc_kernel_weighting_exp_generic": _KW_EXP_ARGS + [_P]},
     "scatter2gather.cu": {
         "sbmc_scatter2gather": _S2G_ARGS + [_I, _P],
         "sbmc_scatter2gather_generic": _S2G_ARGS + [_P],
@@ -105,7 +108,8 @@ _HOST = {
         "sbmc_kernel_weighting_tiles_host": _KW_ARGS + [_I, _I],
         "sbmc_kernel_weighting_dw_host": _KW_DW_ARGS,
         "sbmc_kernel_weighting_dw_tiles_host": _KW_DW_TILED_ARGS,
-        "sbmc_kernel_weighting_exp_host": _KW_EXP_ARGS},
+        "sbmc_kernel_weighting_exp_host": _KW_EXP_ARGS,
+        "sbmc_kernel_weighting_exp_tiles_host": _KW_EXP_ARGS + [_I, _I]},
     "scatter2gather_host.cpp": {
         "sbmc_scatter2gather_host": _S2G_ARGS,
         "sbmc_scatter2gather_vec_host": _S2G_ARGS + [_I],

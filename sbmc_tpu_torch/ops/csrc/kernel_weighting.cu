@@ -76,13 +76,30 @@
 // loop, a bounds test in place of the TPU kernel's padded copies, the halo
 // re-read from L1/L2. kw_dw_generic writes float32.
 //
-// kw_exp is kw_fwd_generic's design with one more float32 plane read (maxes,
-// at the thread's own pixel) and each weight formed in registers as
-// expf(float(logit) - max): the exponentiated k^2-plane tensor never exists
-// in device memory, which is what the Pallas kernel fuses it for. Its bound
-// is bytes as kw_fwd's is (one expf per tap stays far below the card's
-// rate). expf is the accurate float32 exponential (no fast-math, no exp2
-// rescale), as the JAX package's plain version computes it.
+// kw_exp, the tiled kernel weighting of exp(logits - maxes), for k in
+// {3, 5, 21} and any width (ops.kw_route), is kw_fwd with one more float32
+// plane read (maxes) and the weight transform KwExp (kernel_weighting.cuh):
+// the same kernel source, instantiated with KwPlain for kw_fwd, whose code
+// does not change. An item loads its V shifts once (one 8-byte load where
+// V = 2, which then also needs an aligned maxes base) and forms each weight
+// in registers as exp2f(fmaf(L, log2(e), -m * log2(e))): one FMA and one
+// MUFU.EX2 per tap, the form the splat kernels take. The exponentiated
+// k^2-plane tensor never exists in device memory, which is what the Pallas
+// kernel fuses it for. Its bound is bytes as kw_fwd's is: at 1080x2048 the
+// 441 exp2 per pixel are about 1 G MUFU results, some 0.25 ms at 16 a clock
+// per SM, under the 0.60 ms of the bfloat16 logits' bytes if the loads
+// hide them. ops.kw_exp_groups picks its groups of tap rows by kw_fwd's
+// rule with bfloat16 logits counted as float32: the exp2 keep a bfloat16
+// block as busy per byte as a float32 one, and at the training shape
+// (4, 3, 128, 128) bfloat16 2 groups beat kw_groups' 4.
+//
+// kw_exp_generic, the first port's kernel, kept for the kernel sizes the
+// tiled one is not built for: kw_fwd_generic's design with the maxes plane
+// read at the thread's own pixel and each weight expf(float(logit) - max),
+// the accurate float32 exponential as the JAX package's plain version
+// computes it. One thread per pixel over 441 serial taps keeps about one
+// logit load in flight a thread: it reaches about a third of its bound at
+// 1080x2048 bf16 (PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -126,10 +143,10 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
 
 template <int C, typename T>
 __global__ void __launch_bounds__(kBlockX* kBlockY)
-    kw_exp_kernel(const float* __restrict__ data,
-                  const T* __restrict__ logits,
-                  const float* __restrict__ maxes, float* __restrict__ out,
-                  float* __restrict__ sum_w, int h, int w, int k) {
+    kw_exp_generic(const float* __restrict__ data,
+                   const T* __restrict__ logits,
+                   const float* __restrict__ maxes, float* __restrict__ out,
+                   float* __restrict__ sum_w, int h, int w, int k) {
   const int x = blockIdx.x * kBlockX + threadIdx.x;
   const int y = blockIdx.y * kBlockY + threadIdx.y;
   if (x >= w || y >= h) return;
@@ -162,12 +179,12 @@ void launch_dw_generic(const float* data, const float* d_out,
 }
 
 template <int C, typename T>
-void launch_exp(const float* data, const void* logits, const float* maxes,
-                float* out, float* sum_w, int bs, int h, int w, int k,
-                cudaStream_t stream) {
-  kw_exp_kernel<C, T><<<grid_of(bs, h, w), dim3(kBlockX, kBlockY), 0,
-                        stream>>>(data, static_cast<const T*>(logits), maxes,
-                                  out, sum_w, h, w, k);
+void launch_exp_generic(const float* data, const void* logits,
+                        const float* maxes, float* out, float* sum_w, int bs,
+                        int h, int w, int k, cudaStream_t stream) {
+  kw_exp_generic<C, T><<<grid_of(bs, h, w), dim3(kBlockX, kBlockY), 0,
+                         stream>>>(data, static_cast<const T*>(logits),
+                                   maxes, out, sum_w, h, w, k);
 }
 
 
@@ -252,12 +269,15 @@ __device__ KwItem kw_item(int th) {
 
 // At least one block per SM: with that bound ptxas keeps a tap row's K
 // loads and the next row's in registers, where it otherwise waited on each
-// row.
-template <int C, int K, int V, typename T>
+// row. Xf is the weight transform (kernel_weighting.cuh): KwPlain for
+// kw_fwd, which never reads `shift`, KwExp for kw_exp, whose shift plane is
+// maxes.
+template <int C, int K, int V, typename T, template <int> class Xf>
 __global__ void __launch_bounds__(kKwThreads, 1)
     kw_fwd(const float* __restrict__ data, const T* __restrict__ weights,
-           float* __restrict__ out, float* __restrict__ sum_w, int h, int w,
-           int groups, int tiles_x) {
+           const float* __restrict__ shift, float* __restrict__ out,
+           float* __restrict__ sum_w, int h, int w, int groups,
+           int tiles_x) {
   using L = KwTile<K, V>;
   extern __shared__ __align__(16) float smem[];
   const int th = 8 / groups;
@@ -280,7 +300,8 @@ __global__ void __launch_bounds__(kKwThreads, 1)
   if (valid)
     a = kw_fwd_group<C, K, V>(
         weights + static_cast<int64_t>(n) * K * K * hw + p, hw, it.g, groups,
-        KwSmemHalo<C, K, V>{smem, plane, it.ty * L::kRow + it.vx});
+        KwSmemHalo<C, K, V>{smem, plane, it.ty * L::kRow + it.vx},
+        Xf<V>::load(shift, static_cast<int64_t>(n) * hw + p));
   if (groups > 1) {
     // Partial sums of groups 1 .. G-1, one float per (group, value, item),
     // items fastest so a warp's stores and loads are conflict-free.
@@ -390,13 +411,14 @@ int launch_tiled(Kernel kernel, bool partials, int bs, int h, int w,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int C, int K, int V, typename T>
-int fwd_tiled(const float* data, const void* weights, float* out,
-              float* sum_w, int bs, int h, int w, int groups,
+template <int C, int K, int V, typename T, template <int> class Xf>
+int fwd_tiled(const float* data, const void* weights, const float* shift,
+              float* out, float* sum_w, int bs, int h, int w, int groups,
               cudaStream_t stream) {
-  return launch_tiled<C, K, V>(kw_fwd<C, K, V, T>, true, bs, h, w, groups,
-                               stream, data, static_cast<const T*>(weights),
-                               out, sum_w);
+  return launch_tiled<C, K, V>(kw_fwd<C, K, V, T, Xf>, true, bs, h, w,
+                               groups, stream, data,
+                               static_cast<const T*>(weights), shift, out,
+                               sum_w);
 }
 
 template <int C, int K, int V, typename T>
@@ -430,15 +452,15 @@ int by_k_v(int k, int v, Args... args) {
   }
 }
 
-template <int C, typename T>
+template <int C, typename T, template <int> class Xf>
 struct Fwd {
   template <int K, int V>
   struct At {
-    static int run(const float* data, const void* weights, float* out,
-                   float* sum_w, int bs, int h, int w, int groups,
-                   cudaStream_t stream) {
-      return fwd_tiled<C, K, V, T>(data, weights, out, sum_w, bs, h, w,
-                                   groups, stream);
+    static int run(const float* data, const void* weights,
+                   const float* shift, float* out, float* sum_w, int bs,
+                   int h, int w, int groups, cudaStream_t stream) {
+      return fwd_tiled<C, K, V, T, Xf>(data, weights, shift, out, sum_w, bs,
+                                       h, w, groups, stream);
     }
   };
 };
@@ -468,10 +490,32 @@ bool tiled_args_ok(const void* planes, int itemsize, int w, int k, int v,
          reinterpret_cast<uintptr_t>(planes) % (v * itemsize) == 0;
 }
 
+// The tiled forward for c channels and the weights' type: kw_fwd (Xf =
+// KwPlain, shift unread) or kw_exp (KwExp, shift = maxes).
+template <template <int> class Xf>
+int fwd_by_c_type(const float* data, const void* weights, int weights_bf16,
+                  const float* shift, float* out, float* sum_w, int bs, int c,
+                  int h, int w, int k, int v, int groups,
+                  cudaStream_t stream) {
+  if (c == 2 && weights_bf16)
+    return by_k_v<2, Fwd<2, uint16_t, Xf>::template At>(
+        k, v, data, weights, shift, out, sum_w, bs, h, w, groups, stream);
+  if (c == 2)
+    return by_k_v<2, Fwd<2, float, Xf>::template At>(
+        k, v, data, weights, shift, out, sum_w, bs, h, w, groups, stream);
+  if (c == 3 && weights_bf16)
+    return by_k_v<2, Fwd<3, uint16_t, Xf>::template At>(
+        k, v, data, weights, shift, out, sum_w, bs, h, w, groups, stream);
+  if (c == 3)
+    return by_k_v<2, Fwd<3, float, Xf>::template At>(
+        k, v, data, weights, shift, out, sum_w, bs, h, w, groups, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// The tiled entry points sbmc_kernel_weighting and
-// sbmc_kernel_weighting_dw return cudaErrorInvalidValue for arguments
+// The tiled entry points sbmc_kernel_weighting, sbmc_kernel_weighting_exp
+// and sbmc_kernel_weighting_dw return cudaErrorInvalidValue for arguments
 // outside tiled_args_ok or k outside {3, 5, 21}.
 //
 // All launch on `stream` and return cudaGetLastError() (a refused launch is
@@ -483,22 +527,11 @@ extern "C" int sbmc_kernel_weighting(const float* data, const void* weights,
                                      int weights_bf16, float* out,
                                      float* sum_w, int bs, int c, int h, int w,
                                      int k, int v, int groups, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!tiled_args_ok(weights, weights_bf16 ? 2 : 4, w, k, v, 2, groups))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (c == 2 && weights_bf16)
-    return by_k_v<2, Fwd<2, uint16_t>::At>(k, v, data, weights, out, sum_w,
-                                           bs, h, w, groups, s);
-  if (c == 2)
-    return by_k_v<2, Fwd<2, float>::At>(k, v, data, weights, out, sum_w,
-                                        bs, h, w, groups, s);
-  if (c == 3 && weights_bf16)
-    return by_k_v<2, Fwd<3, uint16_t>::At>(k, v, data, weights, out, sum_w,
-                                           bs, h, w, groups, s);
-  if (c == 3)
-    return by_k_v<2, Fwd<3, float>::At>(k, v, data, weights, out, sum_w,
-                                        bs, h, w, groups, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return fwd_by_c_type<KwPlain>(data, weights, weights_bf16, nullptr, out,
+                                sum_w, bs, c, h, w, k, v, groups,
+                                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int sbmc_kernel_weighting_generic(const float* data,
@@ -564,20 +597,38 @@ extern "C" int sbmc_kernel_weighting_dw_generic(const float* data,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tiled kw_exp: v also divides the maxes plane's base in elements (its
+// item's shift load).
 extern "C" int sbmc_kernel_weighting_exp(const float* data, const void* logits,
                                          int logits_bf16, const float* maxes,
                                          float* out, float* sum_w, int bs,
-                                         int c, int h, int w, int k,
-                                         void* stream) {
+                                         int c, int h, int w, int k, int v,
+                                         int groups, void* stream) {
+  if (!tiled_args_ok(logits, logits_bf16 ? 2 : 4, w, k, v, 2, groups) ||
+      reinterpret_cast<uintptr_t>(maxes) % (v * sizeof(float)) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return fwd_by_c_type<KwExp>(data, logits, logits_bf16, maxes, out, sum_w,
+                              bs, c, h, w, k, v, groups,
+                              static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int sbmc_kernel_weighting_exp_generic(
+    const float* data, const void* logits, int logits_bf16,
+    const float* maxes, float* out, float* sum_w, int bs, int c, int h, int w,
+    int k, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (c == 2 && logits_bf16)
-    launch_exp<2, uint16_t>(data, logits, maxes, out, sum_w, bs, h, w, k, s);
+    launch_exp_generic<2, uint16_t>(data, logits, maxes, out, sum_w, bs, h,
+                                    w, k, s);
   else if (c == 2)
-    launch_exp<2, float>(data, logits, maxes, out, sum_w, bs, h, w, k, s);
+    launch_exp_generic<2, float>(data, logits, maxes, out, sum_w, bs, h, w,
+                                 k, s);
   else if (c == 3 && logits_bf16)
-    launch_exp<3, uint16_t>(data, logits, maxes, out, sum_w, bs, h, w, k, s);
+    launch_exp_generic<3, uint16_t>(data, logits, maxes, out, sum_w, bs, h,
+                                    w, k, s);
   else if (c == 3)
-    launch_exp<3, float>(data, logits, maxes, out, sum_w, bs, h, w, k, s);
+    launch_exp_generic<3, float>(data, logits, maxes, out, sum_w, bs, h, w,
+                                 k, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

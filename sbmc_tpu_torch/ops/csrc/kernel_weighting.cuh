@@ -14,7 +14,8 @@
 //   d_w[t, p]  = d_sum_w[p] + sum_c data[c, p + d_t] * d_out[c, p]
 //
 // and the exp variant weighs with w[t, p] = exp(logits[t, p] - maxes[p]),
-// formed in registers (expf in float32, the logits widened first).
+// formed in registers (the logits widened first; the generic kernel takes
+// expf, the tiled one exp2 of a fused multiply-add, KwExp below).
 //
 // Both are gathers: every w[t, p] / d_w[t, p] is touched at the thread's own
 // pixel, the halo falls on the C-plane data, and there are no atomics.
@@ -26,7 +27,9 @@
 
 // Forward at one pixel of one batch item. Pointers are already offset to the
 // item: data/out hold C planes, weights k*k planes, sum_w one plane, each
-// plane h*w elements. Weights of either type are widened to float32.
+// plane h*w elements. Weights of either type are widened to float32. A tap
+// outside the image adds weight * 0, as the zero-padded plain version does:
+// NaN for an infinite weight, not nothing.
 template <int C, typename T>
 PSF_HD void kw_fwd_pixel(const float* data, const T* weights, float* out,
                          float* sum_w, int h, int w, int k, int y, int x) {
@@ -46,11 +49,10 @@ PSF_HD void kw_fwd_pixel(const float* data, const T* weights, float* out,
       const int64_t t = static_cast<int64_t>(dy) * k + dx;
       const float wt = psf_load(weights, t * hw + p);
       accw += wt;
-      if (row_in && sx >= 0 && sx < w) {
-        const int64_t q = static_cast<int64_t>(sy) * w + sx;
+      const bool in = row_in && sx >= 0 && sx < w;
+      const int64_t q = static_cast<int64_t>(sy) * w + sx;
 #pragma unroll
-        for (int c = 0; c < C; ++c) acc[c] += wt * data[c * hw + q];
-      }
+      for (int c = 0; c < C; ++c) acc[c] += wt * (in ? data[c * hw + q] : 0.f);
     }
   }
   sum_w[p] = accw;
@@ -114,11 +116,10 @@ PSF_HD void kw_exp_pixel(const float* data, const T* logits,
       const int64_t t = static_cast<int64_t>(dy) * k + dx;
       const float wt = expf(psf_load(logits, t * hw + p) - m);
       accw += wt;
-      if (row_in && sx >= 0 && sx < w) {
-        const int64_t q = static_cast<int64_t>(sy) * w + sx;
+      const bool in = row_in && sx >= 0 && sx < w;
+      const int64_t q = static_cast<int64_t>(sy) * w + sx;
 #pragma unroll
-        for (int c = 0; c < C; ++c) acc[c] += wt * data[c * hw + q];
-      }
+      for (int c = 0; c < C; ++c) acc[c] += wt * (in ? data[c * hw + q] : 0.f);
     }
   }
   sum_w[p] = accw;
@@ -127,17 +128,18 @@ PSF_HD void kw_exp_pixel(const float* data, const T* logits,
 }
 
 // ---------------------------------------------------------------------------
-// The tiled kernels (kw_fwd and kw_dw in kernel_weighting.cu). A work item is
-// V consecutive pixels of one row (the forward's V is 2 where the weight rows
-// allow 2-pixel loads, else 1; the gradient's V is 4, 2 or 1 by the same
-// rule for its stores) and the K taps of one tap row dy. The data of a tap row
+// The tiled kernels (kw_fwd, its exp variant kw_exp, and kw_dw in
+// kernel_weighting.cu). A work item is V consecutive pixels of one row (the
+// forward's V is 2 where the weight rows, and kw_exp's shift plane, allow
+// 2-pixel loads, else 1; the gradient's V is 4, 2 or 1 by the same rule for
+// its stores) and the K taps of one tap row dy. The data of a tap row
 // comes from a halo accessor: halo.get(dy, s, d) fills d[C] with
 // data[., y + dy - o, x - o + s] for the item's first pixel (y, x) and
 // s = 0 .. K + V - 2, 0 outside the image. The kernel reads it from the data
 // tile it staged in shared memory, the host build from the planes.
 
-// V weights of one tap at the item's pixels, widened to float32: one 8-byte
-// (float32) or 4-byte (bfloat16) load where V = 2.
+// V weights of one tap (or V float32 shifts) at the item's pixels, widened
+// to float32: one 8-byte (float32) or 4-byte (bfloat16) load where V = 2.
 PSF_HD void kw_load(const float* p, float (&v)[1]) { v[0] = p[0]; }
 
 PSF_HD void kw_load(const uint16_t* p, float (&v)[1]) {
@@ -227,6 +229,44 @@ PSF_HD void kw_store(uint16_t* p, const float (&v)[4]) {
 #endif
 }
 
+// The tiled forward's weight transforms: kw_fwd_row applies one to each
+// weight of the item's pixel j as it uses it, once per tap. Xf<V>::load
+// takes the transform's per-pixel operands from plane `shift` at element i,
+// the item's first pixel.
+//
+// KwPlain: the weights as they are (kernel weighting, B4); it reads
+// nothing, and the row's code is the plain weighting's.
+template <int V>
+struct KwPlain {
+  static PSF_HD KwPlain load(const float*, int64_t) { return {}; }
+  PSF_HD float operator()(float w, int) const { return w; }
+};
+
+// KwExp: w = exp(L - m) for logit L and shift m = maxes[p] (kernel
+// weighting of exp(logits - maxes), B8), taken as exp2(L * log2(e) -
+// m * log2(e)): the item's V shifts come in one load (8 bytes where V = 2)
+// and are scaled once, so a tap costs one FMA and exp2f (one MUFU.EX2 on
+// the card). The extra roundings, of m * log2(e) and inside the FMA, are
+// about (|L| + |m|) * 2^-24 of the exponent, far inside the kernels'
+// tolerance (2e-5 relative) at the logits' scale. A logit of -inf weighs
+// 0; a logit above its shift by more than the float32 range weighs inf,
+// as expf gives.
+template <int V>
+struct KwExp {
+  float m2[V];
+  static PSF_HD KwExp load(const float* shift, int64_t i) {
+    float m[V];
+    kw_load(shift + i, m);
+    KwExp e;
+#pragma unroll
+    for (int j = 0; j < V; ++j) e.m2[j] = m[j] * kPsfLog2e;
+    return e;
+  }
+  PSF_HD float operator()(float l, int j) const {
+    return exp2f(fmaf(l, kPsfLog2e, -m2[j]));
+  }
+};
+
 // The forward's partial sums at the item's V pixels.
 template <int C, int V>
 struct KwAcc {
@@ -258,10 +298,10 @@ PSF_HD void kw_merge(KwAcc<C, V>& a, const KwAcc<C, V>& b) {
 // The forward's tap row dy of one work item, added to a in tap order. w
 // points at the item's first pixel in tap plane dy * K. The row's K weight
 // loads are issued first, all in flight at once; then each data column s
-// serves the taps dx = s - j of the V pixels.
-template <int C, int K, int V, typename T, typename Halo>
+// serves the taps dx = s - j of the V pixels, each weight through xf.
+template <int C, int K, int V, typename T, typename Halo, typename Xf>
 PSF_HD void kw_fwd_row(const T* w, int64_t hw, int dy, const Halo& halo,
-                       KwAcc<C, V>& a) {
+                       const Xf& xf, KwAcc<C, V>& a) {
   float wt[K][V];
 #pragma unroll
   for (int dx = 0; dx < K; ++dx) kw_load(w + dx * hw, wt[dx]);
@@ -273,23 +313,24 @@ PSF_HD void kw_fwd_row(const T* w, int64_t hw, int dy, const Halo& halo,
     for (int j = 0; j < V; ++j) {
       const int dx = s - j;
       if (dx < 0 || dx >= K) continue;
-      a.w[j] += wt[dx][j];
+      const float wv = xf(wt[dx][j], j);
+      a.w[j] += wv;
 #pragma unroll
-      for (int c = 0; c < C; ++c) a.r[j][c] += wt[dx][j] * d[c];
+      for (int c = 0; c < C; ++c) a.r[j][c] += wv * d[c];
     }
   }
 }
 
 // The forward's partial sums of group g of G: the tap rows g, g + G, ... in
 // order. w points at the item's first pixel in tap plane 0.
-template <int C, int K, int V, typename T, typename Halo>
+template <int C, int K, int V, typename T, typename Halo, typename Xf>
 PSF_HD KwAcc<C, V> kw_fwd_group(const T* w, int64_t hw, int g, int groups,
-                                const Halo& halo) {
+                                const Halo& halo, const Xf& xf) {
   KwAcc<C, V> a;
   kw_zero(a);
   for (int dy = g; dy < K; dy += groups)
     kw_fwd_row<C, K, V>(w + static_cast<int64_t>(dy) * K * hw, hw, dy, halo,
-                        a);
+                        xf, a);
   return a;
 }
 

@@ -1,11 +1,11 @@
 // Host build of kernel weighting, of its gradient to the weights and of its
 // exp variant: the generic kernels' per-pixel functions and the tiled
 // kernels' work items (kernel_weighting.cuh) run in plain loops, the work
-// items assembled as kw_fwd and kw_dw assemble them (the same groups of tap
-// rows, the forward's partial sums joined in group order). It exists so the
-// CPU tests can check the kernels' index math (p + d_t, the image bounds,
-// sum_w over every tap, the in-register exp, the bfloat16 rounding) against
-// the plain PyTorch versions without a GPU:
+// items assembled as kw_fwd, kw_exp and kw_dw assemble them (the same
+// groups of tap rows, the forward's partial sums joined in group order). It
+// exists so the CPU tests can check the kernels' index math (p + d_t, the
+// image bounds, sum_w over every tap, the in-register exp, the bfloat16
+// rounding) against the plain PyTorch versions without a GPU:
 //
 //   g++ -O2 -shared -fPIC -o libkw_host.so kernel_weighting_host.cpp
 
@@ -88,11 +88,13 @@ struct PlaneHalo {
   }
 };
 
-// Every work item of the tiled forward (batch item, row, V pixels), its
-// groups' partial sums joined in group order as kw_fwd joins them.
-template <int C, int K, int V, typename T>
-void run_fwd_tiles(const float* data, const T* weights, float* out,
-                   float* sum_w, int bs, int h, int w, int groups) {
+// Every work item of the tiled forward (batch item, row, V pixels) with the
+// weight transform Xf (KwPlain: kw_fwd; KwExp, shift = maxes: kw_exp), its
+// groups' partial sums joined in group order as the kernel joins them.
+template <int C, int K, int V, typename T, template <int> class Xf>
+void run_fwd_tiles(const float* data, const T* weights, const float* shift,
+                   float* out, float* sum_w, int bs, int h, int w,
+                   int groups) {
   constexpr int o = (K - 1) / 2;
   const int64_t hw = static_cast<int64_t>(h) * w;
   for (int64_t n = 0; n < bs; ++n)
@@ -101,9 +103,10 @@ void run_fwd_tiles(const float* data, const T* weights, float* out,
         const int64_t p = static_cast<int64_t>(y) * w + x;
         const T* wp = weights + n * K * K * hw + p;
         const PlaneHalo<C> halo{data + n * C * hw, hw, h, w, y - o, x - o};
-        KwAcc<C, V> a = kw_fwd_group<C, K, V>(wp, hw, 0, groups, halo);
+        const Xf<V> xf = Xf<V>::load(shift, n * hw + p);
+        KwAcc<C, V> a = kw_fwd_group<C, K, V>(wp, hw, 0, groups, halo, xf);
         for (int g = 1; g < groups; ++g)
-          kw_merge(a, kw_fwd_group<C, K, V>(wp, hw, g, groups, halo));
+          kw_merge(a, kw_fwd_group<C, K, V>(wp, hw, g, groups, halo, xf));
         kw_store(sum_w + n * hw + p, a.w);
         for (int c = 0; c < C; ++c) {
           float v[V];
@@ -168,14 +171,15 @@ int by_k_v(int k, int v, Args... args) {
   }
 }
 
-template <int C, typename T>
+template <int C, typename T, template <int> class Xf>
 struct FwdTiles {
   template <int K, int V>
   struct At {
-    static void run(const float* data, const void* weights, float* out,
-                    float* sum_w, int bs, int h, int w, int groups) {
-      run_fwd_tiles<C, K, V>(data, static_cast<const T*>(weights), out,
-                             sum_w, bs, h, w, groups);
+    static void run(const float* data, const void* weights,
+                    const float* shift, float* out, float* sum_w, int bs,
+                    int h, int w, int groups) {
+      run_fwd_tiles<C, K, V, T, Xf>(data, static_cast<const T*>(weights),
+                                    shift, out, sum_w, bs, h, w, groups);
     }
   };
 };
@@ -201,31 +205,49 @@ bool tiles_ok(int w, int k, int v, int max_v, int groups) {
          w % v == 0;
 }
 
+// The tiled forward with the weight transform Xf, for c channels and the
+// weights' type.
+template <template <int> class Xf>
+int fwd_tiles(const float* data, const void* weights, int weights_bf16,
+              const float* shift, float* out, float* sum_w, int bs, int c,
+              int h, int w, int k, int v, int groups) {
+  if (!tiles_ok(w, k, v, 2, groups)) return 1;
+  if (c == 2 && weights_bf16)
+    return by_k_v<2, FwdTiles<2, uint16_t, Xf>::template At>(
+        k, v, data, weights, shift, out, sum_w, bs, h, w, groups);
+  if (c == 2)
+    return by_k_v<2, FwdTiles<2, float, Xf>::template At>(
+        k, v, data, weights, shift, out, sum_w, bs, h, w, groups);
+  if (c == 3 && weights_bf16)
+    return by_k_v<2, FwdTiles<3, uint16_t, Xf>::template At>(
+        k, v, data, weights, shift, out, sum_w, bs, h, w, groups);
+  if (c == 3)
+    return by_k_v<2, FwdTiles<3, float, Xf>::template At>(
+        k, v, data, weights, shift, out, sum_w, bs, h, w, groups);
+  return 1;
+}
+
 }  // namespace
 
 // The tiled kernels' arithmetic, work item by work item: the arguments of
-// the CUDA entry points sbmc_kernel_weighting and sbmc_kernel_weighting_dw,
-// minus the stream. Both return 0, or 1 outside the tiled kernels' set: c 2
-// or 3, k 3, 5 or 21, v 1 or 2 (the gradient's also 4) dividing w, groups
-// 1, 2, 4 or 8 and at most k.
+// the CUDA entry points sbmc_kernel_weighting, sbmc_kernel_weighting_exp
+// and sbmc_kernel_weighting_dw, minus the stream. All return 0, or 1
+// outside the tiled kernels' set: c 2 or 3, k 3, 5 or 21, v 1 or 2 (the
+// gradient's also 4) dividing w, groups 1, 2, 4 or 8 and at most k.
 
 extern "C" int sbmc_kernel_weighting_tiles_host(
     const float* data, const void* weights, int weights_bf16, float* out,
     float* sum_w, int bs, int c, int h, int w, int k, int v, int groups) {
-  if (!tiles_ok(w, k, v, 2, groups)) return 1;
-  if (c == 2 && weights_bf16)
-    return by_k_v<2, FwdTiles<2, uint16_t>::At>(k, v, data, weights, out, sum_w,
-                                              bs, h, w, groups);
-  if (c == 2)
-    return by_k_v<2, FwdTiles<2, float>::At>(k, v, data, weights, out, sum_w,
-                                           bs, h, w, groups);
-  if (c == 3 && weights_bf16)
-    return by_k_v<2, FwdTiles<3, uint16_t>::At>(k, v, data, weights, out, sum_w,
-                                              bs, h, w, groups);
-  if (c == 3)
-    return by_k_v<2, FwdTiles<3, float>::At>(k, v, data, weights, out, sum_w,
-                                           bs, h, w, groups);
-  return 1;
+  return fwd_tiles<KwPlain>(data, weights, weights_bf16, nullptr, out, sum_w,
+                            bs, c, h, w, k, v, groups);
+}
+
+extern "C" int sbmc_kernel_weighting_exp_tiles_host(
+    const float* data, const void* logits, int logits_bf16,
+    const float* maxes, float* out, float* sum_w, int bs, int c, int h, int w,
+    int k, int v, int groups) {
+  return fwd_tiles<KwExp>(data, logits, logits_bf16, maxes, out, sum_w, bs,
+                          c, h, w, k, v, groups);
 }
 
 extern "C" int sbmc_kernel_weighting_dw_tiles_host(
@@ -249,7 +271,7 @@ extern "C" int sbmc_kernel_weighting_dw_tiles_host(
 
 // The generic kernels' arithmetic: same arguments as the CUDA entry points
 // sbmc_kernel_weighting_generic, sbmc_kernel_weighting_dw_generic (float32
-// d_w) and sbmc_kernel_weighting_exp, minus the stream. All return 0, or 1
+// d_w) and sbmc_kernel_weighting_exp_generic, minus the stream. All return 0, or 1
 // for a channel count other than 2 or 3 (the kernels' template set).
 
 extern "C" int sbmc_kernel_weighting_host(const float* data,

@@ -606,3 +606,90 @@ def test_vector_scatter2gather_at_each_item_width(device, bs, hw, k, dtype):
         got = ops._scatter2gather_cuda(weights, "generic")
         assert _counts() == {"scatter2gather_generic": 1}
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,hw,k", [(3, (37, 64), 3), (2, (21, 90), 5),
+                                    (3, (37, 53), 21), (2, (9, 124), 21),
+                                    (3, (5, 7), 21)])
+def test_tiled_exp_kernel_at_each_group_count(device, c, hw, k, dtype):
+    """kw_exp at every group count (2-pixel items at even widths, 1-pixel
+    ones at odd widths, an image smaller than the halo) and the generic
+    kernel at the same shapes, against the plain version; the op takes the
+    tiled kernel."""
+    rng = np.random.RandomState(k * 10 + hw[1] + 3)
+    data, logits, maxes = _exp_inputs(rng, 2, c, hw, k, dtype, device)
+    with torch.inference_mode():
+        want = ops.kernel_weighting_exp_ref(data, logits, maxes)
+        ops.reset_launch_counts()
+        ops.kernel_weighting_exp(data, logits, maxes)
+        assert _counts() == {"kernel_weighting_exp": 1}
+        runs = [("tiled", g) for g in (1, 2, 4, 8) if g <= k]
+        for route, groups in runs + [("generic", None)]:
+            ops.reset_launch_counts()
+            got = ops._kernel_weighting_exp_cuda(data, logits, maxes, route,
+                                                 groups)
+            suffix = "" if route == "tiled" else "_generic"
+            assert _counts() == {"kernel_weighting_exp" + suffix: 1}
+            torch.cuda.synchronize()
+            for g, r in zip(got, want):
+                _close(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_exp_kernel_routes(device, dtype):
+    """k = 7 takes the generic exp kernel; a logits or maxes base one
+    element past an aligned one takes the tiled kernel with 1-pixel items;
+    an odd group count is refused."""
+    rng = np.random.RandomState(9)
+    data, logits, maxes = _exp_inputs(rng, 2, 3, (13, 40), 7, dtype, device)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        got = ops.kernel_weighting_exp(data, logits, maxes)
+        assert _counts() == {"kernel_weighting_exp_generic": 1}
+        torch.cuda.synchronize()
+        for g, r in zip(got, ops.kernel_weighting_exp_ref(data, logits,
+                                                          maxes)):
+            _close(g, r)
+        data, logits, maxes = _exp_inputs(rng, 2, 3, (13, 40), 5, dtype,
+                                          device)
+        want = ops.kernel_weighting_exp_ref(data, logits, maxes)
+        for t in (logits, maxes):
+            buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)
+            shifted = buf[1:].view(t.shape).copy_(t)
+            args = ((data, shifted, maxes) if t is logits
+                    else (data, logits, shifted))
+            ops.reset_launch_counts()
+            got = ops.kernel_weighting_exp(*args)
+            assert _counts() == {"kernel_weighting_exp": 1}
+            torch.cuda.synchronize()
+            for g, r in zip(got, want):
+                _close(g, r)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ops._kernel_weighting_exp_cuda(data, logits, maxes, "tiled", 3)
+
+
+@pytest.mark.cuda
+def test_exp_kernels_at_extreme_logits(device):
+    """A logit of -inf weighs 0 and one far above its shift weighs inf, in
+    both kernels exactly where the plain version's exp puts them."""
+    rng = np.random.RandomState(10)
+    data, logits, maxes = _exp_inputs(rng, 1, 3, (9, 12), 5, torch.float32,
+                                      device)
+    logits[0, :, 2, 3] = -float("inf")
+    logits[0, 12, 6, 8] = maxes[0, 6, 8] + 200
+    logits[0, 0, 0, 0] = maxes[0, 0, 0] + 300
+    with torch.inference_mode():
+        want = ops.kernel_weighting_exp_ref(data, logits, maxes)
+        for route in ("tiled", "generic"):
+            got = ops._kernel_weighting_exp_cuda(data, logits, maxes, route)
+            torch.cuda.synchronize()
+            for g, r in zip(got, want):
+                assert torch.equal(torch.isnan(g), torch.isnan(r))
+                assert torch.equal(torch.isinf(g), torch.isinf(r))
+                assert torch.equal(g[torch.isinf(g)], r[torch.isinf(r)])
+                fin = torch.isfinite(r)
+                _close(g[fin], r[fin])
+    assert float(want[1][0, 2, 3]) == 0.0 and torch.isinf(want[1][0, 6, 8])

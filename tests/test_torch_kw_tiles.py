@@ -178,6 +178,31 @@ def test_work_items_match_pallas_interpret(shape, k):
     _close(got, _jax_dw(data, wts, ct_out, ct_sw, "pallas_interpret"))
 
 
+def test_infinite_weights_meet_the_zero_padding_as_in_the_plain_version():
+    """An infinite weight on a tap outside the image gives NaN (inf * 0),
+    and inside it gives +-inf, in the tiled kernel's work items and in the
+    generic kernel's pixels, where the zero-padded plain version does."""
+    lib = _build.load_host()
+    rng = np.random.RandomState(17)
+    data, wts = (torch.from_numpy(a) for a in _inputs(rng, 1, 3, 9, 12, 5)[:2])
+    wts[0, 0, 0, 0] = float("inf")    # tap (0, 0) of pixel (0, 0): padding
+    wts[0, 12, 6, 8] = float("inf")   # the centre tap of pixel (6, 8)
+    want = reference.kernel_weighting_ref(data, wts)
+    assert torch.isnan(want[0][0, :, 0, 0]).all()
+    out = torch.full_like(data, float("nan"))
+    sum_w = torch.full((1, 9, 12), float("nan"))
+    assert lib.sbmc_kernel_weighting_host(
+        data.data_ptr(), wts.data_ptr(), 0, out.data_ptr(), sum_w.data_ptr(),
+        1, 3, 9, 12, 5) == 0
+    for got in (_fwd_tiles(data, wts, 1, 2), _fwd_tiles(data, wts, 2, 4),
+                (out, sum_w)):
+        for g, r in zip(got, want):
+            assert torch.equal(torch.isnan(g), torch.isnan(r))
+            assert torch.equal(g[torch.isinf(g)], r[torch.isinf(r)])
+            fin = torch.isfinite(r)
+            _close(g[fin], r[fin].numpy())
+
+
 def test_host_builds_refuse_what_the_tiled_kernels_do_not_take():
     lib = _build.load_host()
     z, one = torch.zeros(1, 3, 4, 7), torch.zeros(1, 4, 7)
