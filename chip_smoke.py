@@ -49,10 +49,16 @@ Phases, each printing one line (or a few) before the last:
    CSV log, then denoises with the trained checkpoint;
 9. scale: times the flagship forward on one full 1080x2048 tile at 4 spp,
    then each classical baseline on one 1080x2048 frame at 4 spp, with its
-   peak device memory.
+   peak device memory;
+10. bench: ``sbmc_tpu_torch.bench`` in-process at its defaults (the
+   flagship architecture with random weights, a 1080x1920 frame at 4 spp,
+   bf16, one uniform 1080x2048 tile), then with the denoise CLI's ragged
+   tiles, then KPCN; prints each JSON line and checks its keys and that the
+   forward kernel launched tiles x spp times a frame (KPCN: two kernel
+   weightings a tile).
 
-The composed kernels' phases run between these (4b to 4d after 4, 6b after
-6, 8b to 8e after 8):
+The composed kernels' phases and the other entry points run between these
+(4b to 4d after 4, 6b after 6, 8b to 8i after 8):
 
 4b. composed kernels: holds kernel weighting and its gradient to the
     weights (each as the tiled kernel and the generic one) and
@@ -103,7 +109,26 @@ The composed kernels' phases run between these (4b to 4d after 4, 6b after
     32), with the four classical baselines; checks the EXRs, ``metrics.csv``,
     the launches (tiles x spp of the splat kernel per scene, two kernel
     weightings per KPCN tile) and each baseline on the card against the same
-    baseline on the CPU.
+    baseline on the CPU;
+8f. reservoir path: ``sbmc_tpu_torch.train --device_reservoir 8
+    --refresh_every 2`` at the flagship architecture on 12 tiles (8's and 4
+    more), so that the feeder thread refreshes slots, in float32 and with
+    ``--bf16``: the launches of 8 (steps x spp of the forward and
+    logits-gradient kernels), at least one refresh, the device buffers and
+    pinned staging buffers never moved, and ms/step beside the host
+    loader's; then refreshes queued back to back on the card, each slot
+    checked after a synchronize;
+8g. decode: the native ``.bin`` decoder (``src/fastbin.cpp``) must be the
+    one in use; on the 128x128 8-spp tiles it gives the pure-Python
+    decoder's arrays bit for bit; both timed;
+8h. checkpoint tools: ``sbmc_tpu_torch.export_params`` exports the float32
+    reservoir run's checkpoint to a float16 snapshot and imports it back;
+    the imported parameters are the trained ones rounded to float16, bit
+    for bit; the 256x256 frame is denoised from both through the CLI, and
+    in float32 the frame from the snapshot is the trained weights' rounded
+    to float16 in memory, within CKPT_EVAL_RTOL;
+8i. trace: ``sbmc_tpu_torch.denoise --trace`` on the 256x256 frame writes a
+    Chrome trace with one ``psf_tma`` kernel event per launch.
 
 Every path records the shapes and logit or weight types it gives the splat
 step, kernel weighting and scatter2gather; the run fails if a kernel met a
@@ -183,11 +208,15 @@ KERNELS = (
 #: exp kernels run where the op API composes them into the splat step.
 MUST_LAUNCH = {
     "progressive_splat": ("denoise", "train", "train_bf16", "gradient",
-                          "eval"),
+                          "eval", "reservoir", "reservoir_bf16",
+                          "checkpoint_tools", "trace", "bench",
+                          "bench_ragged"),
     "progressive_splat_ddata": ("gradient",),
-    "progressive_splat_dlogits": ("train", "train_bf16", "gradient"),
+    "progressive_splat_dlogits": ("train", "train_bf16", "gradient",
+                                  "reservoir", "reservoir_bf16"),
     "kernel_weighting": ("kpcn_train", "kpcn_train_bf16", "kpcn_denoise",
-                         "gather_train", "gradient_composed", "eval"),
+                         "gather_train", "gradient_composed", "eval",
+                         "bench_kpcn"),
     "kernel_weighting_dw": ("kpcn_train", "kpcn_train_bf16", "gather_train",
                             "gradient_composed"),
     "scatter2gather": ("gradient_composed",),
@@ -224,10 +253,13 @@ _OP_OF = {"progressive_splat": "splat", "progressive_splat_ddata": "splat",
           "kernel_weighting_exp_generic": "kw_exp"}
 
 #: (bs, c, h, w, logit type) the paths give the splat step, k = 21: the
-#: denoise path's tile, a training batch in float32 and with --bf16, a frame
-#: denoised with the trained checkpoint, the gradient phase's input, and the
-#: evaluation path's ragged tiles of a 256x256 frame (160 and 64 px sides).
-#: The kernel phases compare at each; _check_shapes holds the paths to it.
+#: denoise path's tile, a training batch in float32 and with --bf16 (from
+#: the host loader or the reservoir), a frame denoised with the trained
+#: checkpoint, the gradient phase's input, the evaluation path's ragged
+#: tiles of a 256x256 frame (160 and 64 px sides), and the bench's 1080x1920
+#: frame: one uniform tile of 1080x2048, or the denoise CLI's ragged tiles
+#: (512 and 312 rows, 512 and 384 columns). The kernel phases compare at
+#: each; _check_shapes holds the paths to it.
 PATH_SHAPES = (
     (1, 3, 160, 160, torch.bfloat16),
     (4, 3, 128, 128, torch.float32),
@@ -237,15 +269,20 @@ PATH_SHAPES = (
     (1, 3, 160, 64, torch.bfloat16),
     (1, 3, 64, 160, torch.bfloat16),
     (1, 3, 64, 64, torch.bfloat16),
+    (1, 3, 1080, 2048, torch.bfloat16),
+    (1, 3, 512, 512, torch.bfloat16),
+    (1, 3, 512, 384, torch.bfloat16),
+    (1, 3, 312, 512, torch.bfloat16),
+    (1, 3, 312, 384, torch.bfloat16),
 )
 #: (bs, c, h, w, weight type) the paths give kernel weighting, k = 21: a
 #: KPCN training batch of 128x128 tiles less the 36 px the valid convs take
 #: (float32, and bfloat16 kernels with --bf16), a KPCN tile of the denoised
 #: frame (160 less 36) from either checkpoint, a gather-model training batch
 #: (its weights are exp(logits - max), float32), and the composed gradient
-#: phase's KPCN tile (64 less 36) and kernel_apply input, and the
+#: phase's KPCN tile (64 less 36) and kernel_apply input, the
 #: evaluation path's ragged KPCN tiles (bf16 checkpoint; 160 and 64 px
-#: sides less 36).
+#: sides less 36), and the KPCN bench's tile (1160x2000 less 36, bf16).
 KW_PATH_SHAPES = (
     (4, 3, 92, 92, torch.float32),
     (4, 3, 92, 92, torch.bfloat16),
@@ -257,6 +294,7 @@ KW_PATH_SHAPES = (
     (1, 3, 124, 28, torch.bfloat16),
     (1, 3, 28, 124, torch.bfloat16),
     (1, 3, 28, 28, torch.bfloat16),
+    (1, 3, 1124, 1964, torch.bfloat16),
 )
 #: (bs, c, h, w, k, logit type) at which phase 4d composes the splat step
 #: from the two exp kernels, each from the initial and from a random state:
@@ -274,6 +312,8 @@ STEP_SHAPES = (
 _COMPARED = {name: set() for name, _, _ in KERNELS}
 #: kernel -> its largest abs error against the plain version so far.
 _MAX_ERR = {}
+#: training run -> (median, min, max) ms of its steps after the first.
+_STEP_MS = {}
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12      # float32 outside the tensor cores
@@ -1033,32 +1073,34 @@ def _main_phase(ops, checkpoint, tmp, tile, pad):
     return launches
 
 class _timed_steps:
-    """While active, every ``DenoiserInterface.train_step`` is timed on the
-    host clock between two synchronisations (``ms``), and the launches made
-    inside the steps are counted (``launches``): the display callback's
-    forward at the end of an epoch launches forward kernels too."""
+    """While active, every ``train_step`` of ``owner`` (the host loader's
+    ``DenoiserInterface``, or the ``DeviceReservoir`` whose step draws and
+    gathers its batch on the card first) is timed on the host clock between
+    two synchronisations (``ms``), and the launches made inside the steps
+    are counted (``launches``): the display callback's forward at the end of
+    an epoch launches forward kernels too."""
 
-    def __init__(self, ops):
+    def __init__(self, ops, owner=None):
+        from sbmc_tpu_torch.train.interface import DenoiserInterface
         self.ops, self.ms, self.launches = ops, [], {}
+        self.cls = owner or DenoiserInterface
 
     def __enter__(self):
-        from sbmc_tpu_torch.train.interface import DenoiserInterface
-        self.cls = DenoiserInterface
-        self.plain = plain = DenoiserInterface.train_step
+        self.plain = plain = self.cls.train_step
         ops, ms, launches = self.ops, self.ms, self.launches
 
-        def timed_step(iface, batch):
+        def timed_step(*args):
             before = dict(ops.launch_counts)
             torch.cuda.synchronize()
             t = time.perf_counter()
-            metrics = plain(iface, batch)
+            metrics = plain(*args)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t) * 1e3)
             for name, n in ops.launch_counts.items():
                 launches[name] = launches.get(name, 0) + n - before[name]
             return metrics
 
-        DenoiserInterface.train_step = timed_step
+        self.cls.train_step = timed_step
         return self
 
     def __exit__(self, *exc):
@@ -1066,12 +1108,13 @@ class _timed_steps:
 
 
 def _run_training(ops, tag, what, argv, steps, kernels, in_steps_want,
-                  display_want, arch):
+                  display_want, arch, owner=None):
     """Run ``sbmc_tpu_torch.train`` with ``argv`` for ``steps`` steps and
-    check it: the launches inside the steps (``in_steps_want``) and in all
-    (plus ``display_want`` per display strip), the shapes met by
-    ``kernels``, finite losses in the CSV log, and the checkpoint. Prints
-    one line; returns ``(interface, launch counts)``."""
+    check it: the launches inside the steps (``in_steps_want``; the steps of
+    ``owner``, see ``_timed_steps``) and in all (plus ``display_want`` per
+    display strip), the shapes met by ``kernels``, finite losses in the CSV
+    log, and the checkpoint. Prints one line and notes the median step in
+    ``_STEP_MS[tag]``; returns ``(interface, launch counts)``."""
     from sbmc_tpu_torch import train_cli
     from sbmc_tpu_torch.train.checkpointer import Checkpointer
 
@@ -1079,7 +1122,7 @@ def _run_training(ops, tag, what, argv, steps, kernels, in_steps_want,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    with _timed_steps(ops) as timed, _record_shapes(ops) as seen:
+    with _timed_steps(ops, owner) as timed, _record_shapes(ops) as seen:
         iface = train_cli.main(train_cli.parse_args(
             argv + ["--max_steps", str(steps), "--log_interval", "1",
                     "--num_worker_threads", "2", "--device", "cuda"]))
@@ -1115,6 +1158,7 @@ def _run_training(ops, tag, what, argv, steps, kernels, in_steps_want,
             and "ckpt_%09d.msgpack" % steps in files):
         raise AssertionError("%s: no checkpoint written: %s" % (tag, files))
     rest = sorted(timed.ms[1:])
+    _STEP_MS[tag] = (rest[len(rest) // 2], rest[0], rest[-1])
     print("%s: %d steps of %s: first step %.2f ms, then median %.2f ms/step "
           "(min %.2f, max %.2f); peak device memory %.2f GB; loss %.5g -> "
           "%.5g (%s, input baseline %.5g); launches %s"
@@ -2067,6 +2111,362 @@ def _baseline_scale_phase(labels, spp=4, h=1080, w=2048):
                   torch.cuda.max_memory_allocated() / 1e9))
 
 
+class _watch_reservoir:
+    """While active, notes the ``DeviceReservoir`` that a training run fills
+    and counts its refreshes; a refresh that moves the reservoir's device
+    buffers or its pinned staging buffers fails the run."""
+
+    def __enter__(self):
+        from sbmc_tpu_torch.train.reservoir import DeviceReservoir
+        self.cls = DeviceReservoir
+        self.plain = fill, refresh = DeviceReservoir.fill, \
+            DeviceReservoir.refresh
+        self.res, self.refreshes, self.ptrs = None, 0, None
+        watch = self
+
+        def rec_fill(res, items):
+            fill(res, items)
+            watch.res, watch.ptrs = res, watch.pointers(res)
+
+        def rec_refresh(res, item):
+            refresh(res, item)
+            watch.refreshes += 1
+            if watch.pointers(res) != watch.ptrs:
+                raise AssertionError("a refresh moved the reservoir's "
+                                     "buffers or its staging buffers")
+
+        DeviceReservoir.fill, DeviceReservoir.refresh = rec_fill, rec_refresh
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.fill, self.cls.refresh = self.plain
+
+    @staticmethod
+    def pointers(res):
+        return ({k: v.data_ptr() for k, v in res.buffers.items()},
+                {k: v.data_ptr() for k, v in res._staging.items()})
+
+
+def _check_refresh_in_place(filelist, capacity=4):
+    """Refreshes on the card, queued back to back with no synchronisation
+    between them (each slot written twice through the same pinned staging
+    buffers), leave every slot holding the last tile written to it."""
+    from sbmc_tpu_torch.data.datasets import TilesDataset
+    from sbmc_tpu_torch.models import Multisteps
+    from sbmc_tpu_torch.train.interface import DenoiserInterface
+    from sbmc_tpu_torch.train.reservoir import TRAIN_KEYS, DeviceReservoir
+
+    data = TilesDataset(filelist, cache_preprocessed=True)
+    iface = DenoiserInterface(Multisteps(
+        data.num_features, data.num_global_features, width=8,
+        embedding_width=8, ksize=3, nsteps=1), device="cuda")
+    res = DeviceReservoir(iface, capacity=capacity, batch_size=2)
+    res.fill([data[i] for i in range(capacity)])
+    items = [data[i] for i in range(capacity, 3 * capacity)]
+    for item in items:
+        res.refresh(item)
+    torch.cuda.synchronize()
+    for slot in range(capacity):
+        want = DeviceReservoir._item_arrays(items[capacity + slot])
+        for k in TRAIN_KEYS:
+            if not np.array_equal(res.buffers[k][slot].cpu().numpy(),
+                                  want[k]):
+                raise AssertionError("reservoir slot %d holds another %s "
+                                     "than the last tile written to it"
+                                     % (slot, k))
+    print("reservoir on the card: %d refreshes queued back to back into %d "
+          "slots, each slot holds its last tile (checked after a "
+          "synchronize)" % (len(items), capacity))
+
+
+def _reservoir_phase(ops, tmp, steps=10, spp=8, bs=4, capacity=8):
+    """The training path through the device reservoir at full flagship
+    width: ``sbmc_tpu_torch.train --device_reservoir 8 --refresh_every 2``
+    on 12 tiles (the training phase's 8 and 4 more), so that the feeder
+    thread refreshes slots, in float32 and with ``--bf16``, each against
+    the host-loader steps of the training phase (same configuration);
+    then refreshes on the card checked slot by slot. Returns the launch
+    counts of each run."""
+    from sbmc_tpu_torch.data.synthetic import generate_dataset
+    from sbmc_tpu_torch.train.reservoir import DeviceReservoir
+
+    more = os.path.join(tmp, "train_data_more")
+    t0 = time.perf_counter()
+    generate_dataset(more, n_scenes=4, ts=128, tiles_per_side=1, spp=spp,
+                     gt_spp=64, seed=1)
+    gen_s = time.perf_counter() - t0
+    files = []
+    for d in ("train_data", "train_data_more"):
+        for scene in sorted(os.listdir(os.path.join(tmp, d))):
+            for f in sorted(os.listdir(os.path.join(tmp, d, scene))):
+                files.append(os.path.join(d, scene, f))
+    filelist = os.path.join(tmp, "reservoir_tiles.txt")
+    with open(filelist, "w") as f:
+        f.write("\n".join(files) + "\n")
+    print("reservoir data: 4 more tiles of 128x128 at %d spp written in "
+          "%.1f s; %d tiles in all" % (spp, gen_s, len(files)))
+
+    launches = {}
+    for tag, flags in (("reservoir", []), ("reservoir_bf16", ["--bf16"])):
+        ckpt = os.path.join(tmp, "ckpt_" + tag)
+        with _watch_reservoir() as watch:
+            iface, launches[tag] = _run_training(
+                ops, tag, "the flagship architecture from a reservoir of %d "
+                "tiles on the card, batch %d x %d spp x 128x128 (randomized "
+                "sample counts)" % (capacity, bs, spp),
+                [filelist, ckpt, "--spp", str(spp), "--bs", str(bs),
+                 "--ksize", "21", "--device_reservoir", str(capacity),
+                 "--refresh_every", "2"] + flags, steps,
+                ["progressive_splat", "progressive_splat_dlogits"],
+                {"progressive_splat": steps * spp,
+                 "progressive_splat_dlogits": steps * spp},
+                {"progressive_splat": spp}, "sbmc", owner=DeviceReservoir)
+        res = watch.res
+        if res is None or res.capacity != capacity or watch.refreshes < 1:
+            raise AssertionError("%s: reservoir %s, %d refreshes" % (
+                tag, res and res.capacity, watch.refreshes))
+        if any(not v.is_cuda for v in res.buffers.values()) or any(
+                not v.is_pinned() for v in res._staging.values()):
+            raise AssertionError("%s: buffers off the card or staging not "
+                                 "pinned" % tag)
+        if sum(p.numel() for p in iface.model.parameters()) < 30e6:
+            raise AssertionError("the reservoir run was not the flagship "
+                                 "architecture")
+        gib = sum(v.numel() * v.element_size()
+                  for v in res.buffers.values()) / 2 ** 30
+        mine = _STEP_MS[tag]
+        host = _STEP_MS[tag.replace("reservoir", "train")]
+        print("%s against the host loader: %.2f ms/step median (min %.2f, "
+              "max %.2f) from the reservoir, %.2f (min %.2f, max %.2f) from "
+              "the host loader, same configuration; %d refreshes in %d steps, "
+              "buffers and staging in place; %.3f GiB on the card"
+              % (tag, *mine, *host, watch.refreshes, steps, gib))
+        del iface, res, watch
+    _check_refresh_in_place(filelist)
+    return launches
+
+
+def _decode_phase(tmp, reps=3):
+    """The native ``.bin`` decoder against the pure-Python one on the
+    training phase's synthetic tiles (128x128, 8 spp): it must be the one
+    in use, and give the same arrays bit for bit."""
+    from sbmc_tpu_torch.data import _native, bin_format
+
+    files = []
+    root = os.path.join(tmp, "train_data")
+    for scene in sorted(os.listdir(root)):
+        files += [os.path.join(root, scene, f)
+                  for f in sorted(os.listdir(os.path.join(root, scene)))]
+    mod = _native.get()
+    if mod is None or os.path.dirname(mod.__file__) != _native.BUILD_DIR:
+        raise AssertionError("the native .bin decoder is not in use: %s"
+                             % (mod and mod.__file__))
+
+    def read_all():
+        best = None
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            tiles = [bin_format.read_tile(f) for f in files]
+            ms = (time.perf_counter() - t0) * 1e3 / len(files)
+            best = ms if best is None else min(best, ms)
+        return tiles, best
+
+    native, native_ms = read_all()
+    plain_get = _native.get
+    _native.get = lambda: None
+    try:
+        python, python_ms = read_all()
+    finally:
+        _native.get = plain_get
+    for a, b in zip(native, python):
+        for name in ("pixel_data", "features", "p", "ld", "bt"):
+            x, y = getattr(a, name), getattr(b, name)
+            if x.dtype != y.dtype or x.shape != y.shape or \
+                    x.tobytes() != y.tobytes():
+                raise AssertionError("native and Python decoders disagree "
+                                     "on %s" % name)
+    size = os.path.getsize(files[0]) / 1e6
+    print("decode: %d synthetic .bin tiles of 128x128 at 8 spp (%.2f MB "
+          "each), best of %d: native decoder (src/fastbin.cpp, %d threads) "
+          "%.2f ms/tile, pure-Python %.2f ms/tile (%.1fx); arrays equal bit "
+          "for bit" % (len(files), size, reps, min(os.cpu_count() or 1, 8),
+                       native_ms, python_ms, python_ms / native_ms))
+
+
+#: The float32 frame from the imported checkpoint against the frame from
+#: the trained weights rounded to float16 in memory: the same weights and
+#: code on one card, so they agree to float32 evaluation order, bounded
+#: at 2^-20 of the frame's largest |pixel|.
+CKPT_EVAL_RTOL = 2.0 ** -20
+
+
+def _frame_radiance(model, frame):
+    with torch.inference_mode():
+        return model(frame)["radiance"].float().cpu().numpy()
+
+
+def _checkpoint_tools_phase(ops, tmp, spp=4):
+    """Export the float32 reservoir run's checkpoint to a float16 snapshot,
+    import it back, and denoise the 256x256 frame from both through the
+    CLI. The imported parameters must be the trained ones rounded to
+    float16, bit for bit, and the frame from them (float32, the whole frame
+    as one tile) the frame from the trained model with its weights rounded
+    to float16 in memory, within CKPT_EVAL_RTOL; the trained frame's
+    difference from it, the rounding's effect, is printed."""
+    from sbmc_tpu_torch import denoise, export_params
+    from sbmc_tpu_torch.data.datasets import FullImagesDataset
+    from sbmc_tpu_torch.params import flatten
+    from sbmc_tpu_torch.train.checkpointer import Checkpointer
+    from sbmc_tpu_torch.utils import exr
+
+    src = os.path.join(tmp, "ckpt_reservoir")
+    snap = os.path.join(tmp, "snapshot_reservoir")
+    imported = os.path.join(tmp, "ckpt_imported")
+    t0 = time.perf_counter()
+    steps = (export_params.main(export_params.parse_args(
+        ["export", src, snap])), export_params.main(
+            export_params.parse_args(["import", snap, imported])))
+    tools_s = time.perf_counter() - t0
+    trained = flatten(Checkpointer(src).load_params()[0])
+    back = flatten(Checkpointer(imported).load_params()[0])
+    if sorted(trained) != sorted(back) or steps[0] != steps[1] or any(
+            back[k].dtype != np.float32 or not np.array_equal(
+                back[k], trained[k].astype(np.float16).astype(np.float32))
+            for k in trained):
+        raise AssertionError("checkpoint tools: steps %s; the imported "
+                             "parameters are not the trained ones rounded "
+                             "to float16" % (steps,))
+    for name, ckpt in (("trained", src), ("imported", imported)):
+        out = os.path.join(tmp, "out_" + name, "frame.exr")
+        ops.reset_launch_counts()
+        res = denoise.main(denoise.parse_args(
+            ["--input", os.path.join(tmp, "data"), "--checkpoint", ckpt,
+             "--output", out, "--uniform_tiles", "--tile_size", "160",
+             "--tile_pad", "32", "--spp", str(spp), "--device", "cuda"]))
+        want = {"progressive_splat": res[0]["tiles"] * spp}
+        if _nonzero(ops.launch_counts) != want:
+            raise AssertionError("denoise from the %s checkpoint launched "
+                                 "%s, expected %s" % (
+                                     name, _nonzero(ops.launch_counts),
+                                     want))
+        img = exr.read(out)
+        if img.shape != (256, 256, 3) or not np.isfinite(img).all():
+            raise AssertionError("denoise from the %s checkpoint wrote %s "
+                                 "(finite: %s)" % (name, img.shape,
+                                                   np.isfinite(img).all()))
+    counts = dict(ops.launch_counts)
+    device = torch.device("cuda")
+    model, meta, _ = denoise.load_model(src, device)
+    data_params = dict(meta["data_params"], spp=spp)
+    item = FullImagesDataset(os.path.join(tmp, "data"), **data_params)[0]
+    frame = {k: torch.from_numpy(np.ascontiguousarray(v[None])).to(device)
+             for k, v in item.items() if isinstance(v, np.ndarray)}
+    trained_frame = _frame_radiance(model, frame)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(p.half().float())
+    rounded = _frame_radiance(model, frame)
+    del model
+    back_frame = _frame_radiance(denoise.load_model(imported, device)[0],
+                                 frame)
+    tol = CKPT_EVAL_RTOL * np.abs(rounded).max()
+    err = np.abs(back_frame - rounded).max()
+    if not (np.isfinite(back_frame).all() and err <= tol):
+        raise AssertionError("checkpoint tools: the frame from the imported "
+                             "checkpoint differs from the trained weights' "
+                             "rounded to float16 by %.3g (tolerance %.3g)"
+                             % (err, tol))
+    diff = np.abs(back_frame - trained_frame)
+    print("checkpoint tools: step-%d checkpoint exported to a float16 "
+          "snapshot (%.1f MB) and imported back in %.1f s, the parameters "
+          "the trained ones rounded to float16 bit for bit; the 256x256 "
+          "float32 frame from the snapshot is the trained weights' rounded "
+          "to float16 within %.3g (tolerance 2^-20 of max |pixel|, %.3g); "
+          "the rounding moved the frame (mean |pixel| %.4g) by max %.3g, "
+          "mean %.3g" % (steps[0], os.path.getsize(os.path.join(
+              snap, "params_f16.msgpack")) / 1e6, tools_s, err, tol,
+              np.abs(trained_frame).mean(), diff.max(), diff.mean()))
+    return counts
+
+
+def _trace_phase(ops, tmp, checkpoint, spp=4):
+    """``sbmc_tpu_torch.denoise --trace`` on the 256x256 frame with the
+    flagship: the Chrome trace must name the forward kernel ``psf_tma``."""
+    from sbmc_tpu_torch import denoise
+
+    trace_dir = os.path.join(tmp, "trace")
+    ops.reset_launch_counts()
+    res = denoise.main(denoise.parse_args(
+        ["--input", os.path.join(tmp, "data"), "--checkpoint", checkpoint,
+         "--output", os.path.join(tmp, "out_trace", "frame.exr"),
+         "--uniform_tiles", "--tile_size", "160", "--tile_pad", "32",
+         "--spp", str(spp), "--device", "cuda", "--trace", trace_dir]))
+    path = os.path.join(trace_dir, denoise.TRACE_FILE)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    psf = [e for e in events if "psf_tma" in e.get("name", "")
+           and e.get("cat") == "kernel"]
+    launches = ops.launch_counts["progressive_splat"]
+    if launches != res[0]["tiles"] * spp or len(psf) != launches:
+        raise AssertionError("trace: %d psf_tma kernel events for %d "
+                             "launches" % (len(psf), launches))
+    print("trace: %s (%.1f MB, %d events) names psf_tma: %d kernel events, "
+          "%.4f ms on the device in all, for %d launches"
+          % (path, os.path.getsize(path) / 1e6, len(events), len(psf),
+             sum(e.get("dur", 0) for e in psf) / 1e3, launches))
+    return dict(ops.launch_counts)
+
+
+#: The bench's runs: its defaults (SBMC, 1080x1920 at 4 spp, bf16, the
+#: uniform first-rung tile), the denoise CLI's ragged tiles, and KPCN.
+BENCH_RUNS = (("bench", []), ("bench_ragged", ["--tiling", "ragged"]),
+              ("bench_kpcn", ["--model", "kpcn"]))
+BENCH_KEYS = ("metric", "model", "value", "unit", "vs_baseline",
+              "baseline_estimate", "baseline_fps", "tile", "n_tiles",
+              "resolution", "spp", "frame_seconds", "tiling", "device")
+
+
+def _bench_phase(ops):
+    """``python -m sbmc_tpu_torch.bench`` in-process, each run of
+    BENCH_RUNS: its JSON line, and the forward kernel launched tiles x spp
+    times a frame (KPCN: two kernel weightings a tile)."""
+    from sbmc_tpu_torch import bench
+
+    launches = {}
+    for tag, argv in BENCH_RUNS:
+        args = bench.parse_args(argv + ["--device", "cuda"])
+        kernel = ("kernel_weighting" if args.model == "kpcn"
+                  else "progressive_splat")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        with _record_shapes(ops) as seen:
+            res = bench.main(args)
+        launches[tag] = dict(ops.launch_counts)
+        _check_shapes(tag, seen, [kernel])
+        per_frame = res["n_tiles"] * (2 if args.model == "kpcn"
+                                      else res["spp"])
+        frames = res["warmup"] + res["iters"]
+        if _nonzero(launches[tag]) != {kernel: per_frame * frames}:
+            raise AssertionError("%s launched %s, expected %d frames x %d "
+                                 "of %s" % (tag, _nonzero(launches[tag]),
+                                            frames, per_frame, kernel))
+        missing = [k for k in BENCH_KEYS if k not in res]
+        if missing or not (np.isfinite(res["value"]) and res["value"] > 0) \
+                or res["resolution"] != [1080, 1920] or \
+                res["n_tiles"] != {"bench": 1, "bench_ragged": 28,
+                                   "bench_kpcn": 1}[tag]:
+            raise AssertionError("%s: keys missing %s, or %s" % (
+                tag, missing, res))
+        print("%s: %.4f frames/s (median of %s ms), %d tiles of %s, %d %s "
+              "launches a frame; peak device memory %.2f GB" % (
+                  tag, res["value"], ", ".join("%.2f" % t for t in
+                                               res["frame_ms"]),
+                  res["n_tiles"], res["tile"], per_frame, kernel,
+                  torch.cuda.max_memory_allocated() / 1e9))
+    return launches
+
+
 def main():
     _device_phase()
     if not os.path.isdir(os.path.join(ROOT, "sbmc_tpu_torch")):
@@ -2101,8 +2501,13 @@ def main():
         by_path.update(_gather_phase(ops, tmp))
         by_path.update(_lbf_phase(ops, tmp))
         by_path["eval"], labels = _eval_phase(ops, tmp, checkpoint)
+        by_path.update(_reservoir_phase(ops, tmp))
+        _decode_phase(tmp)
+        by_path["checkpoint_tools"] = _checkpoint_tools_phase(ops, tmp)
+        by_path["trace"] = _trace_phase(ops, tmp, checkpoint)
     _scale_phase(checkpoint)
     _baseline_scale_phase(labels)
+    by_path.update(_bench_phase(ops))
 
     kernels = []
     for name, source, replaces in KERNELS:

@@ -1,5 +1,5 @@
 """Reader/writer for the ``.bin`` per-sample tile format (a copy of
-``sbmc_tpu/data/bin_format.py`` on its pure-Python decode path).
+``sbmc_tpu/data/bin_format.py``).
 
 Byte-compatible with the format produced by the reference's patched PBRTv2
 renderer (SampleRecord::save, pbrt_patches/sbmc_pbrt.diff) and consumed by
@@ -33,7 +33,7 @@ import struct
 
 import numpy as np
 
-from sbmc_tpu_torch.data import lz4f
+from sbmc_tpu_torch.data import _native, lz4f
 
 __all__ = ["Tile", "read_tile", "write_tile", "read_header",
            "decode_bounce_types",
@@ -168,12 +168,18 @@ def read_header(fid):
     return meta, gfeatures
 
 
-def read_tile(path, spp=None):
+def read_tile(path, spp=None, num_threads=0):
     """Read a ``.bin`` tile fully into a :class:`Tile`.
+
+    The sample blocks are decoded by the native multithreaded decoder
+    (``src/fastbin.cpp``, :mod:`sbmc_tpu_torch.data._native`) where it can
+    be built, else in Python; both give the same arrays.
 
     Args:
       path: file path.
       spp: optional number of samples to load (defaults to all).
+      num_threads: decode threads for the native decoder (0: the CPU
+        count, at most 8).
     """
     import io
 
@@ -201,20 +207,29 @@ def read_tile(path, spp=None):
     ld_b = 2 * pd * ts * ts * 4
     bt_b = pd * ts * ts * 2
     total = f_b + p_b + ld_b + bt_b
-    for s in range(n):
-        buf = _read_compressed(fid, total)
-        off = 0
-        feats[s] = np.frombuffer(buf[off:off + f_b],
-                                 np.float32).reshape(sf, ts, ts)
-        off += f_b
-        p[s] = np.frombuffer(buf[off:off + p_b],
-                             np.float32).reshape(4 * pd, ts, ts)
-        off += p_b
-        ld[s] = np.frombuffer(buf[off:off + ld_b],
-                              np.float32).reshape(2 * pd, ts, ts)
-        off += ld_b
-        bt[s] = np.frombuffer(buf[off:off + bt_b],
-                              np.int16).reshape(pd, ts, ts)
+
+    native = _native.get()
+    if native is not None and n > 0:
+        if num_threads <= 0:
+            num_threads = min(os.cpu_count() or 1, 8)
+        native.decode_sample_blocks(
+            raw, fid.tell(), n, f_b, p_b, ld_b, bt_b,
+            feats, p, ld, bt, num_threads)
+    else:
+        for s in range(n):
+            buf = _read_compressed(fid, total)
+            off = 0
+            feats[s] = np.frombuffer(buf[off:off + f_b],
+                                     np.float32).reshape(sf, ts, ts)
+            off += f_b
+            p[s] = np.frombuffer(buf[off:off + p_b],
+                                 np.float32).reshape(4 * pd, ts, ts)
+            off += p_b
+            ld[s] = np.frombuffer(buf[off:off + ld_b],
+                                  np.float32).reshape(2 * pd, ts, ts)
+            off += ld_b
+            bt[s] = np.frombuffer(buf[off:off + bt_b],
+                                  np.int16).reshape(pd, ts, ts)
 
     return Tile(
         tile_size=ts, image_width=meta["image_width"],

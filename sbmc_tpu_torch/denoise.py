@@ -11,6 +11,9 @@ stacks equal-size tiles (the frame zero-padded to the grid) and ships the
 feature stacks to the device as float16; the default path cuts ragged
 tiles. Runs on ``--device cuda`` unless told otherwise, and raises when that
 device is missing. Times are fenced with ``torch.cuda.synchronize()``.
+``--trace DIR`` records the first scene's tiles with ``torch.profiler``
+(host and, on the card, device activity) and writes a Chrome trace,
+``DIR/denoise_trace.json``.
 """
 
 import argparse
@@ -35,6 +38,8 @@ from sbmc_tpu_torch.utils.image import write_png
 __all__ = ["main", "load_model", "parse_args"]
 
 log = logging.getLogger("sbmc_tpu_torch.denoise")
+
+TRACE_FILE = "denoise_trace.json"
 
 
 def load_model(checkpoint, device):
@@ -103,6 +108,21 @@ def _denoise_ragged(model, batch, args, device):
     return merge_tiles(canvas, merged), elapsed, len(tiles)
 
 
+def _traced(run, model, batch, args, device):
+    """``run(model, batch, args, device)`` under ``torch.profiler``; writes
+    the Chrome trace into ``args.trace``."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        out = run(model, batch, args, device)
+    os.makedirs(args.trace, exist_ok=True)
+    path = os.path.join(args.trace, TRACE_FILE)
+    prof.export_chrome_trace(path)
+    log.info("    wrote profiler trace to %s", path)
+    return out
+
+
 def main(args):
     """Denoise every scene of ``args.input``; returns one dict per scene
     with its output path, denoising milliseconds and tile count."""
@@ -143,7 +163,11 @@ def main(args):
             args.output.replace(".exr", "_%s.exr" % scene)
         run = _denoise_uniform if args.uniform_tiles else _denoise_ragged
         with torch.inference_mode():
-            canvas, elapsed, n_tiles = run(model, batch, args, device)
+            if args.trace and scene_id == 0:
+                canvas, elapsed, n_tiles = _traced(run, model, batch, args,
+                                                   device)
+            else:
+                canvas, elapsed, n_tiles = run(model, batch, args, device)
         out_radiance = np.asarray(canvas)[0].transpose(1, 2, 0)
         outdir = os.path.dirname(out_path)
         if outdir:
@@ -186,6 +210,9 @@ def parse_args(argv=None):
     parser.add_argument("--f32_transfer", action="store_true",
                         help="ship feature stacks as float32 instead of "
                         "float16 (uniform-tile path).")
+    parser.add_argument("--trace", type=str, default=None,
+                        help="write a torch.profiler Chrome trace of the "
+                        "first scene into this directory.")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on (default: cuda).")
     parser.add_argument("--verbose", action="store_true")

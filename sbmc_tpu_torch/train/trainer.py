@@ -66,6 +66,56 @@ class Trainer:
             # shadow the last good one.
             self._emit("training_end")
 
+    def train_reservoir(self, reservoir, feeder=None, max_steps=None,
+                        refresh_every=1, val_dataloader=None,
+                        val_interval=2000, epoch_emit_every=1000):
+        """Device-reservoir training loop (see :mod:`.reservoir`).
+
+        Each step first refreshes one slot with a tile the feeder has ready,
+        every ``refresh_every`` steps and only if one is ready, then runs a
+        train step on a batch drawn from the reservoir. Callbacks see the
+        same ``batch_end`` events as :meth:`train`; the loop has no epochs,
+        so ``epoch_end`` fires every ``epoch_emit_every`` steps."""
+        iface = self.interface
+        self._emit("training_start", self)
+        prev_metrics = None
+        refreshed = 0
+        try:
+            while max_steps is None or iface.step < max_steps:
+                if feeder is not None and iface.step % refresh_every == 0:
+                    item = feeder.poll()
+                    if item is not None:
+                        reservoir.refresh(item)
+                        refreshed += 1
+                metrics = reservoir.train_step()
+                if prev_metrics is not None:
+                    iface.check_finite(prev_metrics)
+                    self._emit("batch_end", iface.step - 1, prev_metrics)
+                prev_metrics = metrics
+                if iface.step % epoch_emit_every == 0:
+                    self._emit("epoch_end", iface.step // epoch_emit_every)
+                if iface.step % 100 == 0:
+                    gc.collect()
+                if val_dataloader is not None and \
+                        iface.step % val_interval == 0:
+                    val = self.validate(val_dataloader)
+                    self._emit("validation_end", iface.step // val_interval,
+                               val)
+            if prev_metrics is not None:
+                iface.check_finite(prev_metrics)
+                self._emit("batch_end", iface.step, prev_metrics)
+        except KeyboardInterrupt:
+            LOG.info("training interrupted")
+            self._emit("training_end")
+        else:
+            self._emit("training_end")
+        finally:
+            if feeder is not None:
+                feeder.stop()
+        LOG.info("reservoir refreshes: %d over %d steps", refreshed,
+                 iface.step)
+        return refreshed
+
     def validate(self, dataloader):
         """Running-mean validation."""
         running = {"loss": 0.0, "rmse": 0.0}

@@ -17,8 +17,13 @@ masked to one shape. Runs on ``--device cuda`` unless told otherwise, and
 raises when that device is missing. Checkpoints are written in the JAX
 package's format, so either package resumes and denoises from them.
 
+``--device_reservoir N`` holds N preprocessed tiles on the device and
+draws every batch there (:mod:`sbmc_tpu_torch.train.reservoir`); with more
+tiles than that, a background thread decodes the rest and one slot is
+refreshed every ``--refresh_every`` steps. ``--kpcn_mode`` keeps the host
+loader, as in the JAX script.
+
 Not ported yet, and refused rather than replaced by something else:
-``--device_reservoir`` (with ``--refresh_every``, which only tunes it) and
 training on several GPUs.
 """
 
@@ -33,16 +38,13 @@ from sbmc_tpu_torch.models import KPCN, LBF, Multisteps
 from sbmc_tpu_torch.models.build import model_meta
 from sbmc_tpu_torch.train import (Checkpointer, DenoiserInterface, Trainer,
                                   callbacks)
+from sbmc_tpu_torch.train.reservoir import DeviceReservoir, ReservoirFeeder
 from sbmc_tpu_torch.utils.logging import get_logger, set_logger
 
 __all__ = ["main", "parse_args"]
 
 
 def _refuse_unported(args):
-    if args.device_reservoir > 0:
-        raise NotImplementedError(
-            "--device_reservoir is not ported yet (slice 2, the GPU-resident "
-            "tile reservoir)")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError(
             "training on several GPUs is not ported yet (slice 2, "
@@ -155,10 +157,40 @@ def main(args):
         cbs.append(callbacks.DenoisingDisplayCallback(
             interface, lambda: first,
             os.path.join(args.checkpoint_dir, "viz")))
-    Trainer(interface, cbs).train(loader, num_epochs=args.num_epochs,
-                                  val_dataloader=val_loader,
-                                  max_steps=args.max_steps)
+    trainer = Trainer(interface, cbs)
+    if args.device_reservoir > 0 and not args.kpcn_mode:
+        _train_from_reservoir(args, log, trainer, interface, data,
+                              val_loader)
+    else:
+        if args.device_reservoir > 0:
+            log.info("--device_reservoir ignored (kpcn mode keeps the host "
+                     "loader)")
+        trainer.train(loader, num_epochs=args.num_epochs,
+                      val_dataloader=val_loader, max_steps=args.max_steps)
     return interface
+
+
+def _train_from_reservoir(args, log, trainer, interface, data, val_loader):
+    cap = min(args.device_reservoir, len(data))
+    spp_range = (2, args.spp) if args.randomize_spp else None
+    reservoir = DeviceReservoir(interface, capacity=cap, batch_size=args.bs,
+                                spp_mask_range=spp_range)
+    log.info("Device reservoir: %d tiles on %s, batches drawn on the device "
+             "(spp mask range %s)", cap, interface.device, spp_range)
+    reservoir.fill([data[i] for i in range(cap)])
+    feeder = None
+    if cap < len(data):
+        feeder = ReservoirFeeder(data, depth=2).start()
+    max_steps = args.max_steps
+    if max_steps is None and args.num_epochs is not None:
+        # The reservoir loop counts steps: --num_epochs becomes the steps
+        # that many epochs of the host loader would take.
+        max_steps = max(1, args.num_epochs * len(data) // args.bs)
+        log.info("Reservoir: --num_epochs %d -> max_steps %d",
+                 args.num_epochs, max_steps)
+    trainer.train_reservoir(reservoir, feeder=feeder, max_steps=max_steps,
+                            refresh_every=args.refresh_every,
+                            val_dataloader=val_loader)
 
 
 def parse_args(argv=None):
@@ -199,9 +231,14 @@ def parse_args(argv=None):
     parser.add_argument("--dont_use_bt", action="store_true")
     parser.add_argument("--num_worker_threads", type=int, default=4)
     parser.add_argument("--device_reservoir", type=int, default=0,
-                        help="not ported yet (the GPU-resident tile "
-                        "reservoir); "
-                        "0 disables.")
+                        help="hold this many preprocessed tiles on the "
+                        "device and draw every batch there (no per-step "
+                        "host stack and copy; SBMC and LBF, ignored with "
+                        "--kpcn_mode). 0 disables.")
+    parser.add_argument("--refresh_every", type=int, default=2,
+                        help="with --device_reservoir and more tiles than "
+                        "it holds: overwrite one slot with a freshly "
+                        "decoded tile every N steps.")
     parser.add_argument("--trust_reservoir", action="store_true",
                         help="accepted no-op, as in the JAX script.")
     parser.add_argument("--trust_bf16", action="store_true",
@@ -223,7 +260,10 @@ def parse_args(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on (default: cuda).")
     parser.add_argument("--verbose", action="store_true")
-    return parser.parse_args(argv)
+    args = parser.parse_args(argv)
+    if args.refresh_every < 1:
+        parser.error("--refresh_every must be at least 1")
+    return args
 
 
 if __name__ == "__main__":

@@ -107,6 +107,34 @@ def test_ragged_tiles_match_uniform_tiles(setup):
     np.testing.assert_array_equal(outs[0], outs[1])
 
 
+@pytest.mark.parametrize("extra", [[], ["--uniform_tiles"]],
+                         ids=["ragged", "uniform"])
+def test_trace_writes_a_chrome_trace(setup, tmp_path, extra):
+    """``--trace DIR`` records the first scene's tiles: a Chrome trace with
+    the model's convolutions in it, and the same frame as without it."""
+    import json
+
+    import torch
+    from sbmc_tpu_torch import denoise
+    if THREADS:
+        torch.set_num_threads(1)
+    _, data, ckpt = setup
+    frames = []
+    for trace in (None, str(tmp_path / "trace")):
+        out = str(tmp_path / ("traced" if trace else "plain") / "a.exr")
+        denoise.main(denoise.parse_args(
+            ["--input", data, "--checkpoint", ckpt, "--output", out,
+             "--device", "cpu"] + FLAGS + extra
+            + (["--trace", trace] if trace else [])))
+        frames.append(exr.read(out))
+    np.testing.assert_array_equal(frames[0], frames[1])
+    assert os.listdir(tmp_path / "trace") == [denoise.TRACE_FILE]
+    with open(tmp_path / "trace" / denoise.TRACE_FILE) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert any("convolution" in n for n in names), sorted(names)[:20]
+
+
 def test_cli_refuses_missing_cuda_and_random_weights(setup, tmp_path,
                                                      monkeypatch):
     import torch

@@ -601,15 +601,6 @@ def test_cli_end_to_end_then_resume(tiles, tmp_path):
         assert [r["step"] for r in csv.DictReader(f)] == list("12345")
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--device_reservoir", "4"], "slice 2")])
-def test_cli_unported_flags_raise(tiles, tmp_path, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        train_cli.main(_cli(tiles, str(tmp_path / "c"), "--device", "cpu",
-                            *flags))
-    assert not os.path.exists(str(tmp_path / "c"))
-
-
 @pytest.mark.parametrize("flags,arch", [
     (["--kpcn_mode", "--kpcn_depth", "2", "--kpcn_width", "8", "--ksize",
       "5"], "kpcn"),
