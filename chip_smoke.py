@@ -57,6 +57,26 @@ Phases, each printing one line (or a few) before the last:
    forward kernel launched tiles x spp times a frame (KPCN: two kernel
    weightings a tile).
 
+11. render: the wavefront renderer's kernels (R1 ``tri_nearest``, R2
+   ``tri_any``, R3 ``threefry_uniform``) and its path, in four parts:
+   (a) R1 and R2 against their plain versions at 0, 64, 512 (a moving mesh)
+   and 1024 triangles (the largest bucket the repo's meshes give) on rays
+   that hit, miss, graze edges, run parallel to a face or are NaN; R3 bit
+   for bit against its plain version and the host's numpy draws; each timed
+   at the path's shape (a 64-pass wavefront of 1048576 rays);
+   (b) a 32x32 tile with meshes, image textures and an envmap rendered on
+   the card and by the port on the CPU, the share of samples that differ;
+   (c) ``python -m sbmc_tpu_torch.generate_training_data --renderer
+   wavefront`` at the corpus configuration (2 scenes of 256x256, tiles of
+   128, 8 spp, 512 ground-truth spp, the repo's 10 meshes, 14 textures and
+   6 envmaps): s/scene and its split, the device's busy share over one more
+   tile, the files read back, R1-R3's launches (per tile, 6, 12 and 2 per
+   pass batch); then one tile with R1-R3's plain versions on the card, and
+   one at 8 to 128 passes a wavefront;
+   (d) the flagship architecture trained on that corpus for 4 steps (bf16
+   convs; the forward and logits-gradient kernels steps x spp times) and
+   its frames denoised with the checkpoint.
+
 The composed kernels' phases and the other entry points run between these
 (4b to 4d after 4, 6b after 6, 8b to 8i after 8):
 
@@ -198,6 +218,15 @@ KERNELS = (
      "sbmc_tpu/ops/pallas_kernels.py:232"),
     ("kernel_weighting_exp_generic", _CSRC + "kernel_weighting.cu",
      "sbmc_tpu/ops/pallas_kernels.py:232"),
+    # The renderer's kernels have no Pallas counterpart: they replace the
+    # JAX renderer's triangle test (_tri_ts, reduced by _intersect's argmin
+    # and by _occluded's any) and its jax.random draws.
+    ("tri_nearest", _CSRC + "trace_hits.cu",
+     "sbmc_tpu/render/pathtracer.py:679"),
+    ("tri_any", _CSRC + "trace_hits.cu",
+     "sbmc_tpu/render/pathtracer.py:886"),
+    ("threefry_uniform", _CSRC + "threefry.cu",
+     "sbmc_tpu/render/pathtracer.py:1104"),
 )
 #: The paths on which a kernel must have launched. The data-gradient kernel
 #: lies on neither main path by nature (its gradient goes to a batch input,
@@ -210,10 +239,11 @@ MUST_LAUNCH = {
     "progressive_splat": ("denoise", "train", "train_bf16", "gradient",
                           "eval", "reservoir", "reservoir_bf16",
                           "checkpoint_tools", "trace", "bench",
-                          "bench_ragged"),
+                          "bench_ragged", "render_train", "render_denoise"),
     "progressive_splat_ddata": ("gradient",),
     "progressive_splat_dlogits": ("train", "train_bf16", "gradient",
-                                  "reservoir", "reservoir_bf16"),
+                                  "reservoir", "reservoir_bf16",
+                                  "render_train"),
     "kernel_weighting": ("kpcn_train", "kpcn_train_bf16", "kpcn_denoise",
                          "gather_train", "gradient_composed", "eval",
                          "bench_kpcn"),
@@ -229,6 +259,9 @@ MUST_LAUNCH = {
     "kernel_weighting_dw_generic": (),
     "scatter2gather_generic": (),
     "kernel_weighting_exp_generic": (),
+    "tri_nearest": ("render",),
+    "tri_any": ("render",),
+    "threefry_uniform": ("render",),
 }
 #: The generic variants of the splat, kernel-weighting (plain and exp) and
 #: scatter2gather kernels (the first port's per-pixel or per-element
@@ -2417,6 +2450,800 @@ def _trace_phase(ops, tmp, checkpoint, spp=4):
     return dict(ops.launch_counts)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the wavefront renderer (R1 tri_nearest, R2 tri_any, R3 threefry)
+
+#: R1 and R2 against their plain versions: relative bound on t (the kernel
+#: contracts the dot products into fused multiply-adds, the plain version
+#: rounds every operation), scaled by the condition number of t's numerator
+#: over TRI_COND where it cancels (grazing angles); and the barycentric
+#: distance (float64) from an edge within which a crossing is borderline.
+#: A ray may differ between the two only where its test is borderline
+#: (_tri_borderline), at most 1 ray in 10^4.
+TRI_T_RTOL, TRI_EDGE, TRI_COND = 1e-5, 1e-4, 8.0
+#: Float32 ulps of the magnitudes u and v are summed from that widen the
+#: edge margin where they exceed TRI_EDGE: for small triangles seen from
+#: afar float32 rounding moves a crossing by more than TRI_EDGE
+#: (tests/test_torch_render_hits.py holds the plain version within half of
+#: the widened margin).
+TRI_ULPS = 4.0
+#: The card's render against the port's CPU render: the share of samples
+#: (pixels for the pixel records) beyond 1e-3 + 1e-3 |CPU|, 0 for the camera
+#: records and at most RENDER_SHARE for every other. 11b also plants faults
+#: in the card's shading (_render_faults) and fails unless each one moves
+#: some record past the limit.
+RENDER_SHARE = 0.01
+#: An origin this far out is a miss point (pathtracer._INF = 1e10 along the
+#: ray): the path discards that ray's hits and shadows.
+PATH_DEAD_ORG = 1e9
+#: The datagen CLI's configuration: the corpus the JAX package rendered.
+DATAGEN = ["--renderer", "wavefront", "--count", "2", "--width", "256",
+           "--height", "256", "--tile_size", "128", "--spp", "8",
+           "--gt_spp", "512"]
+#: Plain versions of R1/R2 run on this many rays at a time ([rays, T]
+#: intermediates of a dozen kinds must fit the card).
+PLAIN_CHUNK = 1 << 16
+#: 32-bit integer issue rate of one H100 SXM: each of the 132 SMs issues 64
+#: INT32-pipe and 64 FMA-pipe lanes a clock (nvcc routes integer adds and
+#: shifts to the FMA pipe as IMAD), at the 1.98 GHz boost clock (Hopper
+#: architecture white paper): the integer counterpart of H100_F32_FLOPS.
+H100_INT32_OPS = 128 * 132 * 1.98e9
+#: Operations of one ray x triangle test (six 3-term dot products, the
+#: division, the barycentric tests) and of one threefry value (20 rounds of
+#: add, rotate and xor, 5 key injections, the float conversion).
+TRI_PAIR_OPS, THREEFRY_OPS = 50, 80
+
+
+def _render_scene(seed, n_meshes=2, moving=False, pools=None):
+    from sbmc_tpu_torch.render import scene as rscene
+    sc = rscene.random_tracer_scene(np.random.RandomState(seed),
+                                    n_meshes=n_meshes, obj_prob=1.0,
+                                    **(pools or {}))
+    if moving:
+        sc.motion = np.random.RandomState(seed + 1).normal(
+            0, 0.5, sc.motion.shape)
+    return sc
+
+
+def _tri_rays(gen, sc, n):
+    """``n`` rays around the camera: most towards the centroids of the real
+    triangles (jittered), some at random, plus a NaN ray, rays parallel to
+    the first triangle and through its vertex, edge and hypotenuse."""
+    dev = torch.device("cuda")
+    cam = torch.tensor(sc.cam_pos, dtype=torch.float32, device=dev)
+    org = cam + 0.3 * torch.randn(n, 3, device=dev, generator=gen)
+    real = np.abs(np.cross(sc.tri_e1, sc.tri_e2)).sum(1) > 0
+    cent = (sc.tri_v0 + (sc.tri_e1 + sc.tri_e2) / 3)[real]
+    if not len(cent):
+        cent = sc.centers
+    cent = torch.tensor(cent, dtype=torch.float32, device=dev)
+    pick = torch.randint(0, len(cent), (n,), device=dev, generator=gen)
+    target = cent[pick] + 0.1 * torch.randn(n, 3, device=dev, generator=gen)
+    target[: n // 10] = 5 * torch.randn(n // 10, 3, device=dev,
+                                        generator=gen)
+    dirs = target - org
+    if len(sc.tri_v0):
+        v0, e1, e2 = (np.asarray(x[0], np.float64) for x in
+                      (sc.tri_v0, sc.tri_e1, sc.tri_e2))
+        special = [v0, v0 + 0.5 * e1, v0 + 0.5 * (e1 + e2)]
+        org[-5:] = torch.tensor(np.stack([sc.cam_pos] * 4 + [
+            v0 - 2.0 * np.cross(e1, e2)]), dtype=torch.float32, device=dev)
+        dirs[-5] = float("nan")
+        for i, p in enumerate(special):
+            dirs[-4 + i] = torch.tensor(p - sc.cam_pos, device=dev)
+        dirs[-1] = torch.tensor(e1, device=dev)
+    dirs = dirs / dirs.norm(dim=1, keepdim=True)
+    time_ = torch.rand(n, device=dev, generator=gen)
+    return org.contiguous(), dirs.contiguous(), time_
+
+
+def _tri_f64(tris, org, dirs, time_, idx=None):
+    """Ray i against triangle ``idx[i]`` (``[n]``), or against every
+    triangle (``[n, T]``) where ``idx`` is None, in float64: the distance t,
+    the barycentric margin min(u, v, 1 - u - v) (negative outside), the
+    denominator d.n, the condition number of t = (cn + tt mn - o.n) / (d.n)
+    (the sum of the numerator's terms' magnitudes over the numerator's: its
+    cancellation magnifies the terms' ulps at grazing angles), and the
+    margin within which float32 may put the crossing on either side of an
+    edge: TRI_EDGE, or TRI_ULPS float32 ulps of the magnitudes u and v are
+    summed from, t's error included, where that is more."""
+    c = tris.double()
+    c = c[idx.long()][:, None] if idx is not None else c[None]
+    o, d = org.double()[:, None], dirs.double()[:, None]
+    tt = time_.double()[:, None]
+
+    def dot(v, a):
+        return (v * c[..., a:a + 3]).sum(-1)
+
+    def mag(v, a):
+        return (v * c[..., a:a + 3]).abs().sum(-1)
+
+    den = dot(d, 0)
+    terms = (c[..., 9], tt * c[..., 12], dot(o, 0))
+    num = terms[0] + terms[1] - terms[2]
+    t = num / den
+    u = dot(o, 3) - c[..., 10] - tt * c[..., 13] + t * dot(d, 3)
+    v = dot(o, 6) - c[..., 11] - tt * c[..., 14] + t * dot(d, 6)
+    cond = sum(x.abs() for x in terms) / num.abs()
+    uv_mag = sum(mag(o, g) + c[..., k].abs() + (tt * c[..., m]).abs()
+                 + t.abs() * mag(d, g) * (1 + cond)
+                 for g, k, m in ((3, 10, 13), (6, 11, 14)))
+    edge = torch.clamp_min(TRI_ULPS * 2.0 ** -24 * uv_mag, TRI_EDGE)
+    out = (t, torch.minimum(torch.minimum(u, v), 1 - u - v), den, cond,
+           edge)
+    return tuple(x[:, 0] for x in out) if idx is not None else out
+
+
+def _tri_rtol(cond):
+    """TRI_T_RTOL, widened by the condition number of t over TRI_COND."""
+    return TRI_T_RTOL * torch.clamp_min(cond / TRI_COND, 1.0)
+
+
+def _tri_borderline(tris, org, dirs, time_, idx, t_max=None):
+    """Whether ray i's test against triangle ``idx[i]`` lies within the
+    rounding of a decision: its crossing within _tri_f64's edge margin of
+    an edge, its t within _tri_rtol of the 1e-3 floor or of ``t_max``
+    (R2's dist - 1e-3), or its denominator at the 1e-9 parallel cut."""
+    t, margin, den, cond, edge = _tri_f64(tris, org, dirs, time_, idx)
+    tol = _tri_rtol(cond)
+    near = (margin.abs() < edge) | ((t - 1e-3).abs() <= tol * 1e-3)
+    near |= (den.abs() - 1e-9).abs() <= 1e-9 * TRI_T_RTOL
+    if t_max is not None:
+        near |= (t - t_max).abs() <= tol * t_max.abs()
+    return near
+
+
+def _plain_chunks(fn, *args):
+    """The plain version over the rays in chunks of PLAIN_CHUNK."""
+    n = args[0].shape[0]
+    outs = [fn(*(a[i:i + PLAIN_CHUNK] for a in args[:-1]), args[-1])
+            for i in range(0, n, PLAIN_CHUNK)]
+    return (tuple(torch.cat(parts) for parts in zip(*outs))
+            if isinstance(outs[0], tuple) else torch.cat(outs))
+
+
+def _tri_fault(name, what, ok, details):
+    """Raises for the rays of ``details`` (one dict a differing ray) that
+    are not ``ok``, or for all of them where every one is but they are too
+    many."""
+    bad = [d for d, good in zip(details, ok.tolist()) if not good] or details
+    raise AssertionError("%s (%s): %d of %d differing rays not borderline, "
+                         "at most 1 in 10^4 may differ: %s" % (
+                             name, what, int((~ok).sum()), len(ok),
+                             bad[:8]))
+
+
+def _check_nearest(ops, org, dirs, time_, tris, what, nan_ray=True):
+    """R1 against its plain version on the card. t must agree within
+    _tri_rtol; a ray whose hit or index differs must be borderline
+    (_tri_borderline) on the kernel's or the plain version's triangle, and
+    such rays may number at most 1 in 10^4. ``nan_ray``: the inputs are
+    _tri_rays', whose fifth-last ray is NaN and must miss. Returns the max
+    abs t error where t agrees and the number of borderline rays."""
+    from sbmc_tpu_torch.ops import reference as ref
+    t, idx, back = ops.tri_nearest(org, dirs, time_, tris)
+    pt, pidx, pback = _plain_chunks(ref.tri_nearest_ref, org, dirs, time_,
+                                    tris)
+    torch.cuda.synchronize()
+    close = (t - pt).abs() <= TRI_T_RTOL * pt.abs()
+    if not bool(close.all()) and tris.shape[0]:
+        cond = _tri_f64(tris, org, dirs, time_, pidx)[3]
+        close |= (t - pt).abs() <= _tri_rtol(cond).float() * pt.abs()
+    differ = ~close
+    if tris.shape[0] > 1:
+        # The index and flag must agree unless the two best t are close.
+        two = []
+        for i in range(0, org.shape[0], PLAIN_CHUNK):
+            ts, _ = ref.tri_hits_ref(org[i:i + PLAIN_CHUNK],
+                                     dirs[i:i + PLAIN_CHUNK],
+                                     time_[i:i + PLAIN_CHUNK], tris)
+            two.append(torch.topk(ts, 2, dim=1, largest=False).values)
+        two = torch.cat(two)
+        clear = close & ((two[:, 1] - two[:, 0]) > TRI_T_RTOL * two[:, 0])
+        differ |= clear & ((idx != pidx) | (back != pback))
+    rows = torch.nonzero(differ)[:, 0]
+    if len(rows):
+        sub = (org[rows], dirs[rows], time_[rows])
+        ok = ((_tri_borderline(tris, *sub, idx[rows])
+               & (t[rows] < ref.TRI_MISS))
+              | (_tri_borderline(tris, *sub, pidx[rows])
+                 & (pt[rows] < ref.TRI_MISS)))
+        if not bool(ok.all()) or len(rows) > max(1, org.shape[0] // 10000):
+            fk = _tri_f64(tris, *sub, idx[rows])
+            fp = _tri_f64(tris, *sub, pidx[rows])
+            _tri_fault("tri_nearest", what, ok, [dict(
+                ray=int(r), t=(float(t[r]), float(pt[r])),
+                idx=(int(idx[r]), int(pidx[r])),
+                margin=(float(fk[1][j]), float(fp[1][j])),
+                edge=(float(fk[4][j]), float(fp[4][j])))
+                for j, r in enumerate(rows.tolist()[:64])])
+    if nan_ray and org.shape[0] > 5 and bool(t[-5] != ref.TRI_MISS):
+        raise AssertionError("tri_nearest (%s): the NaN ray hit" % what)
+    err = float((t - pt)[close].abs().max()) if bool(close.any()) else 0.0
+    return err, len(rows)
+
+
+def _check_any(ops, org, dirs, dist, tris, what):
+    """R2 against its plain version on the card. Where the two differ, no
+    triangle may block the ray clearly (t inside (1e-3, dist - 1e-3) and
+    the crossing inside the triangle, each beyond its rounding margin) and
+    one must be borderline (_tri_borderline); such rays may number at most
+    1 in 10^4. Returns their number."""
+    from sbmc_tpu_torch.ops import reference as ref
+    blocked = ops.tri_any(org, dirs, dist, tris)
+    pblocked = _plain_chunks(ref.tri_any_ref, org, dirs, dist, tris)
+    torch.cuda.synchronize()
+    rows = torch.nonzero(blocked != pblocked)[:, 0]
+    if len(rows):
+        t_max = (dist[rows] - 1e-3).double()[:, None]
+        zero = torch.zeros_like(dist[rows])
+        t, margin, den, cond, edge = _tri_f64(tris, org[rows], dirs[rows],
+                                              zero)
+        tol = _tri_rtol(cond)
+        clear = ((den.abs() > 1e-9 * (1 + TRI_T_RTOL))
+                 & (margin >= edge) & (t > 1e-3 * (1 + tol))
+                 & (t < t_max - tol * t_max.abs()))
+        maybe = ((den.abs() > 1e-9 * (1 - TRI_T_RTOL))
+                 & (margin > -edge) & (t > 1e-3 * (1 - tol))
+                 & (t < t_max + tol * t_max.abs()))
+        ok = ~clear.any(1) & maybe.any(1)
+        if not bool(ok.all()) or len(rows) > max(1, org.shape[0] // 10000):
+            _tri_fault("tri_any", what, ok, [dict(
+                ray=int(r), blocked=(bool(blocked[r]), bool(pblocked[r])),
+                dist=float(dist[r]), clear=int(clear[j].sum()),
+                borderline=int((maybe[j] & ~clear[j]).sum()))
+                for j, r in enumerate(rows.tolist()[:64])])
+    return len(rows)
+
+
+def _tri_first_blockers(org, dirs, dist, tris):
+    """Ray x triangle pairs R2 must test on these inputs: up to and with
+    each ray's first blocker, all T where none blocks."""
+    from sbmc_tpu_torch.ops import reference as ref
+    pairs = 0
+    t_n = tris.shape[0]
+    for i in range(0, org.shape[0], PLAIN_CHUNK):
+        ts, _ = ref.tri_hits_ref(org[i:i + PLAIN_CHUNK],
+                                 dirs[i:i + PLAIN_CHUNK],
+                                 torch.zeros_like(dist[i:i + PLAIN_CHUNK]),
+                                 tris)
+        hit = ts < (dist[i:i + PLAIN_CHUNK] - 1e-3)[:, None]
+        first = torch.where(hit.any(1), hit.int().argmax(1) + 1, t_n)
+        pairs += int(first.sum())
+    return pairs
+
+
+def _r3_check(ops):
+    """R3 bit for bit against its plain version and the host numpy keys,
+    bits and floats, at several key counts and sizes (n not a multiple of
+    the 256-thread block too)."""
+    from sbmc_tpu_torch.ops import reference as ref
+    from sbmc_tpu_torch.render import prng
+    cases = 0
+    for n_keys, n in ((1, 1), (3, 255), (5, 257), (35, 16384), (6, 49152),
+                      (2240, 16384)):
+        keys = np.stack([prng.fold_in(prng.PRNGKey(5), i)
+                         for i in range(n_keys)])
+        dk = torch.from_numpy(keys.view(np.int32)).cuda()
+        for lo, hi in ((0.0, 1.0), (prng.NORMAL_LO, 1.0), (-2.5, 3.0)):
+            got = ops.random_uniform(dk, n, lo, hi)
+            want = ref.threefry_uniform_ref(dk, n, lo, hi)
+            if not bool((got.view(torch.int32)
+                         == want.view(torch.int32)).all()):
+                raise AssertionError("threefry_uniform differs from its plain "
+                                     "version at %d keys x %d in [%g, %g)"
+                                     % (n_keys, n, lo, hi))
+            host = got[:4].cpu().numpy()
+            for i in range(min(4, n_keys)):
+                if not np.array_equal(host[i].view(np.uint32), prng.uniform(
+                        keys[i], n, lo, hi).view(np.uint32)):
+                    raise AssertionError("threefry_uniform differs from the "
+                                         "host numpy draw")
+            cases += 1
+        bits = ops.random_bits(dk, n)[:4].cpu().numpy().view(np.uint32)
+        for i in range(min(4, n_keys)):
+            if not np.array_equal(bits[i], prng.random_bits(keys[i], n)):
+                raise AssertionError("threefry bits differ from the host's")
+    return cases
+
+
+def _render_kernel_phase(ops):
+    """11a: R1-R3 against their plain versions on the card, then timed at
+    the renderer's path shape (a 64-pass wavefront of a 128x128 tile:
+    1048576 rays) against the largest triangle bucket."""
+    from sbmc_tpu_torch.ops import reference as ref
+    from sbmc_tpu_torch.render import assets as rassets
+    from sbmc_tpu_torch.render import pathtracer
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    pools = {"obj_pool": rassets.ObjPool(os.path.join(ROOT, "assets",
+                                                      "objs"))}
+    errs, flips = [], [0, 0]
+    buckets = {}
+    for what, sc in (("T=0", _render_scene(2, n_meshes=0)),
+                     ("T=64", _render_scene(4, n_meshes=2)),
+                     ("moving mesh", _render_scene(5, moving=True,
+                                                   pools=pools)),
+                     ("largest bucket", _largest_bucket_scene(pools))):
+        scn = pathtracer.prepare_scene(sc, "cuda")
+        tris = scn["tris"]
+        buckets[what] = tris.shape[0]
+        org, dirs, time_ = _tri_rays(gen, sc, 1 << 17)
+        dist = 15 * torch.rand(org.shape[0], device="cuda", generator=gen)
+        dist[:2] = torch.tensor([ref.TRI_MISS, float("nan")])
+        err, f1 = _check_nearest(ops, org, dirs, time_, tris, what)
+        errs.append(err)
+        flips[0] += f1
+        flips[1] += _check_any(ops, org, dirs, dist, tris, what)
+    if buckets["largest bucket"] != 1024 or buckets["T=0"] != 0 or \
+            buckets["T=64"] != 64:
+        raise AssertionError("triangle buckets %s" % buckets)
+    # R2's outputs are booleans: its error is 1 where a ray flipped.
+    _note_err("tri_nearest", max(errs))
+    _note_err("tri_any", float(flips[1] > 0))
+    r3_cases = _r3_check(ops)
+    _note_err("threefry_uniform", 0.0)
+    print("render kernels: tri_nearest and tri_any agree with their plain "
+          "versions at T %s (131072 rays each: hits, misses, a NaN ray, "
+          "rays parallel to a face and through a vertex and edges; a moving "
+          "mesh): max |t err| %.3g (rel bound %g), %d borderline "
+          "tri_nearest rays, %d borderline tri_any rays; threefry_uniform "
+          "bit-exact against its plain version and the host numpy draws in "
+          "%d cases"
+          % (sorted(buckets.values()), max(errs), TRI_T_RTOL, flips[0],
+             flips[1], r3_cases))
+    return _render_kernel_times(ops, gen, _largest_bucket_scene(pools))
+
+
+def _largest_bucket_scene(pools):
+    """A scene whose two meshes are the repo's largest (360 faces each):
+    1024 triangles, the largest bucket its meshes give."""
+    from sbmc_tpu_torch.render import scene as rscene
+    pool = pools["obj_pool"]
+    big = max(pool.paths, key=lambda p: len(pool._load(p)[1]))
+
+    class _One:
+        def sample(self, rng):
+            return pool._load(big)
+
+    return rscene.random_tracer_scene(np.random.RandomState(6), n_meshes=2,
+                                      obj_pool=_One(), obj_prob=1.0)
+
+
+def _render_kernel_times(ops, gen, sc):
+    """R1-R3 timed at the renderer's path shape: ``ms`` on the host clock
+    through the op, ``device_ms`` by CUDA-graph replay, the plain versions
+    (R1, R2 in chunks of PLAIN_CHUNK rays) on the same inputs."""
+    from sbmc_tpu_torch.ops import reference as ref
+    from sbmc_tpu_torch.render import pathtracer, prng
+    numbers = {}
+    tris = pathtracer.prepare_scene(sc, "cuda")["tris"]
+    n, t_n = pathtracer._WAVEFRONT_RAYS, tris.shape[0]
+    org, dirs, time_ = _tri_rays(gen, sc, n)
+    dist = 15 * torch.rand(n, device="cuda", generator=gen)
+    what = "%d rays x %d triangles" % (n, t_n)
+    err, borderline = _check_nearest(ops, org, dirs, time_, tris, what)
+    borderline_any = _check_any(ops, org, dirs, dist, tris, what)
+    _note_err("tri_nearest", err)
+    _note_err("tri_any", float(borderline_any > 0))
+    print("render kernels at (%s), the ground-truth passes' wavefront: "
+          "tri_nearest max |t err| %.3g, %d borderline rays; tri_any %d "
+          "borderline rays" % (what, err, borderline, borderline_any))
+    keys = torch.from_numpy(np.concatenate([
+        pathtracer.pass_keys(prng.fold_in(prng.PRNGKey(1), i))[0]
+        for i in range(64)]).view(np.int32)).cuda()
+    per_pass = 128 * 128
+    runs = (
+        ("tri_nearest", lambda: ops.tri_nearest(org, dirs, time_, tris),
+         lambda: _plain_chunks(ref.tri_nearest_ref, org, dirs, time_, tris),
+         n * 28 + t_n * 64 + n * 9, n * t_n * TRI_PAIR_OPS, H100_F32_FLOPS),
+        ("tri_any", lambda: ops.tri_any(org, dirs, dist, tris),
+         lambda: _plain_chunks(ref.tri_any_ref, org, dirs, dist, tris),
+         n * 28 + t_n * 64 + n,
+         _tri_first_blockers(org, dirs, dist, tris) * TRI_PAIR_OPS,
+         H100_F32_FLOPS),
+        ("threefry_uniform", lambda: ops.random_uniform(keys, per_pass),
+         lambda: ref.threefry_uniform_ref(keys, per_pass),
+         keys.numel() * 4 + keys.shape[0] * per_pass * 4,
+         keys.shape[0] * per_pass * THREEFRY_OPS, H100_INT32_OPS))
+    for name, kernel, plain, nbytes, nops, rate in runs:
+        ms = _time_ms(kernel, 3, 20)
+        device_ms = _graph_ms(kernel)
+        plain_ms = _time_ms(plain, 1, 2)
+        by_bytes, by_ops = nbytes / H100_BYTES_PER_S, nops / rate
+        bound_ms = max(by_bytes, by_ops) * 1e3
+        by = "bytes" if by_bytes >= by_ops else "operations"
+        tag = (what if name != "threefry_uniform"
+               else "%d keys x %d values" % (keys.shape[0], per_pass))
+        print("%s at (%s): %.4f ms, %s, %.4f ms on the device, %s; plain "
+              "version %.4f ms; bound %.4f ms (%s)"
+              % (name, tag, ms, _share(ms, bound_ms), device_ms,
+                 _share(device_ms, bound_ms), plain_ms, bound_ms, by))
+        numbers[name] = dict(shape=tag, ms=ms, device_ms=device_ms,
+                             plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=by, max_abs_err=_MAX_ERR[name],
+                             other_shapes=[])
+    return numbers
+
+
+def _tile_share(got, want, axis):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float((np.abs(got - want) > 1e-3 + 1e-3 * np.abs(want)).any(
+        axis).mean())
+
+
+def _render_tile_phase(ops):
+    """11b: one 32x32 tile of a random scene with meshes, textures and an
+    envmap, rendered on the card and with the port on the CPU (the plain
+    versions of R1-R3)."""
+    from sbmc_tpu_torch.render import assets as rassets
+    from sbmc_tpu_torch.render import pathtracer, prng
+    a = os.path.join(ROOT, "assets")
+    pools = dict(obj_pool=rassets.ObjPool(os.path.join(a, "objs")),
+                 tex_pool=rassets.TexturePool(os.path.join(a, "textures")),
+                 env_pool=rassets.EnvmapPool(os.path.join(a, "envmaps")))
+    sc = _render_scene(1, pools=pools)
+    kw = dict(ts=32, spp=2, gt_spp=4, block_x=32, block_y=0,
+              image_width=64, image_height=32)
+
+    def render(device):
+        return pathtracer.render_tile_wavefront(sc, prng.PRNGKey(3),
+                                                device=device, **kw)
+
+    cpu = render("cpu")
+    card = render("cuda")
+    shares = _render_shares(card, cpu)
+    bad = {k: v for k, v in shares.items()
+           if v > (0.0 if k == "camera" else RENDER_SHARE)}
+    if bad or not all(np.isfinite(x).all() for x in (
+            card.features, card.pixel_data, card.p, card.ld)):
+        raise AssertionError("card render vs CPU render: shares %s over "
+                             "their bounds" % bad)
+    # The limits against faults planted in the card's shading.
+    planted = {}
+    for name, fn, fault in _render_faults(pathtracer):
+        plain = getattr(pathtracer, fn)
+        setattr(pathtracer, fn, fault(plain))
+        try:
+            planted[name] = _render_shares(render("cuda"), cpu)
+        finally:
+            setattr(pathtracer, fn, plain)
+        if max(planted[name].values()) <= RENDER_SHARE:
+            raise AssertionError("card render vs CPU render: a planted "
+                                 "fault (%s) stays within the limits: %s"
+                                 % (name, planted[name]))
+    print("render tile: 32x32, 2 spp, gt 4, %d triangles, image textures "
+          "and an envmap: share of samples beyond 1e-3 + 1e-3|CPU| on the "
+          "card vs the port on the CPU %s (limits 0 camera, %g the rest); "
+          "with a fault planted on the card %s" % (
+              len(sc.tri_v0), json.dumps(_rounded(shares)), RENDER_SHARE,
+              json.dumps({k: _rounded(v) for k, v in planted.items()})))
+
+
+def _rounded(shares):
+    return {k: round(v, 5) for k, v in shares.items() if v}
+
+
+def _render_shares(card, cpu):
+    """Share of samples (pixels for the pixel records) of each record
+    group that differ beyond 1e-3 + 1e-3 |CPU|."""
+    f, g = card.features, cpu.features
+    return {"camera": _tile_share(f[:, :5], g[:, :5], 1),
+            "radiance": _tile_share(f[:, 5:11], g[:, 5:11], 1),
+            "geometry": _tile_share(f[:, 11:21], g[:, 11:21], 1),
+            "albedo": _tile_share(f[:, 21:], g[:, 21:], 1),
+            "pixels": _tile_share(card.pixel_data, cpu.pixel_data, 0),
+            "p": _tile_share(card.p, cpu.p, 1),
+            "ld": _tile_share(card.ld, cpu.ld, 1),
+            "bt": _tile_share(card.bt, cpu.bt, 1)}
+
+
+def _render_faults(pathtracer):
+    """(name, function of ``pathtracer``, wrapper planting a fault): image
+    textures and the envmap read one texel off, the glossy pdf 1% off, the
+    checker texture's albedo 1% off."""
+    from sbmc_tpu_torch.render.scene import TEX_CHECKER3D
+
+    def texel(f):
+        return lambda images, ids, u, v: f(images, ids, u,
+                                           v - 1.0 / images.shape[1])
+
+    def env_texel(f):
+        return lambda flat, row, col, h, w, base, wrap_rows: f(
+            flat, row, col if wrap_rows else col - 1.0, h, w, base,
+            wrap_rows)
+
+    def pdf(f):
+        return lambda *args: f(*args) / 1.01
+
+    def checker(f):
+        def faulty(kind, q, phase):
+            out = f(kind, q, phase)
+            return out + 0.01 * torch.as_tensor(
+                kind == TEX_CHECKER3D, device=out.device).to(out.dtype)
+        return faulty
+
+    return (("texture texel", "_sample_image_stack", texel),
+            ("envmap texel", "_bilinear_gather", env_texel),
+            ("glossy pdf", "_phong_pdf", pdf),
+            ("checker", "_tex_mod", checker))
+
+
+class _record_tri_inputs:
+    """While active, keeps copies of the inputs the path gives R1 and R2 on
+    the card at each (rays, triangles) case: the case's first call (camera
+    rays, or their shadow rays) and its fourth (bounce rays). The calls
+    themselves go through unchanged."""
+
+    KEEP = (0, 3)
+
+    def __init__(self, ops):
+        self.ops = ops
+        self.kept = {"tri_nearest": {}, "tri_any": {}}
+
+    def __enter__(self):
+        ops, kept = self.ops, self.kept
+        self.plain = (ops.tri_nearest, ops.tri_any)
+        calls = {}
+
+        def wrap(name, fn):
+            def rec(*args):
+                if args[0].is_cuda:
+                    case = (args[0].shape[0], args[-1].shape[0])
+                    i = calls.get((name, case), 0)
+                    calls[name, case] = i + 1
+                    if i in self.KEEP:
+                        kept[name].setdefault(case, []).append(
+                            tuple(a.clone() for a in args))
+                return fn(*args)
+            return rec
+
+        ops.tri_nearest = wrap("tri_nearest", self.plain[0])
+        ops.tri_any = wrap("tri_any", self.plain[1])
+        return kept
+
+    def __exit__(self, *exc):
+        self.ops.tri_nearest, self.ops.tri_any = self.plain
+
+
+def _check_path_tri(ops, kept, numbers):
+    """R1 and R2 held against their plain versions on the inputs the path
+    gave them (_record_tri_inputs), at every (rays, triangles) case it
+    met; the cases go into ``numbers`` as ``path_cases``. A ray that has
+    missed everything carries on from its miss point, 1e10 away
+    (pathtracer._INF), and the tracer discards its hits and shadows
+    (masked by ``hit``): such rays, whose float32 tests at that distance
+    are noise, are left out and counted."""
+    counts = {"tri_nearest": 0, "tri_any": 0}
+    dead = {"tri_nearest": 0, "tri_any": 0}
+    err = 0.0
+    with torch.inference_mode():
+        for name, check in (("tri_nearest", _check_nearest),
+                            ("tri_any", _check_any)):
+            for case, calls in kept[name].items():
+                for org, dirs, x, tris in calls:
+                    live = org.abs().amax(1) < PATH_DEAD_ORG
+                    dead[name] += int((~live).sum())
+                    what = "the CLI's %d rays x %d triangles" % case
+                    args = (ops, org[live], dirs[live], x[live], tris, what)
+                    if name == "tri_nearest":
+                        e, n = check(*args, nan_ray=False)
+                        err = max(err, e)
+                    else:
+                        n = check(*args)
+                    counts[name] += n
+    _note_err("tri_nearest", err)
+    _note_err("tri_any", float(counts["tri_any"] > 0))
+    for name in counts:
+        numbers[name]["path_cases"] = sorted(kept[name])
+        numbers[name]["max_abs_err"] = _MAX_ERR[name]
+    print("render path kernels: on the CLI's own inputs (first and fourth "
+          "call of each case), tri_nearest at (rays, triangles) %s: max |t "
+          "err| %.3g, %d borderline rays; tri_any at %s: %d borderline "
+          "rays; rays left out from a miss point: %s"
+          % (sorted(kept["tri_nearest"]), err, counts["tri_nearest"],
+             sorted(kept["tri_any"]), counts["tri_any"], json.dumps(dead)))
+
+
+def _render_path_phase(ops, tmp, numbers):
+    """11c: ``python -m sbmc_tpu_torch.generate_training_data`` at the
+    corpus configuration (DATAGEN, the repo's meshes, textures and
+    envmaps): the files, read back, R1-R3's launches, and R1 and R2 held
+    against their plain versions on the inputs the CLI gave them. Returns
+    the corpus folder and the launch counts."""
+    from sbmc_tpu_torch import generate_training_data as gtd
+    from sbmc_tpu_torch.data import bin_format
+    from sbmc_tpu_torch.data.datasets import TilesDataset
+    from sbmc_tpu_torch.render import pathtracer
+    a = os.path.join(ROOT, "assets")
+    out = os.path.join(tmp, "rendered")
+    args = gtd.parse_args(["-", "-", a, out] + DATAGEN + [
+        "--obj_dir", os.path.join(a, "objs"), "--tex_dir",
+        os.path.join(a, "textures"), "--env_dir",
+        os.path.join(a, "envmaps"), "--device", "cuda"])
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with _record_tri_inputs(ops) as kept:
+        stats, scenes = gtd.main(args)
+    torch.cuda.synchronize()
+    launches = dict(ops.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    _check_path_tri(ops, kept, numbers)
+    tiles_side = args.width // args.tile_size
+    n = args.tile_size * args.tile_size
+    batch = max(1, pathtracer._WAVEFRONT_RAYS // n)
+    batches = (-(-args.gt_spp // batch) - (-args.spp // batch))
+    per_scene = tiles_side * tiles_side * batches
+    want = {"tri_nearest": scenes * per_scene * pathtracer.MAX_DEPTH,
+            "tri_any": scenes * per_scene * 2 * pathtracer.MAX_DEPTH,
+            "threefry_uniform": scenes * per_scene * 2}
+    if _nonzero(launches) != want:
+        raise AssertionError("datagen launched %s, expected %s"
+                             % (_nonzero(launches), want))
+    files = sorted(os.path.relpath(os.path.join(d, f), out)
+                   for d, _, names in os.walk(out) for f in names)
+    if len(files) != scenes * tiles_side ** 2 or scenes != 2:
+        raise AssertionError("datagen wrote %s" % files)
+    for f in files:
+        tile = bin_format.read_tile(os.path.join(out, f))
+        if tile.features.shape != (8, 27, 128, 128) or not all(
+                np.isfinite(x).all() for x in (tile.features, tile.pixel_data,
+                                               tile.p, tile.ld)):
+            raise AssertionError("%s: %s, not finite" % (f,
+                                                         tile.features.shape))
+    ds = TilesDataset(out, spp=8)
+    item = ds[0]
+    if len(ds) != len(files) or not all(
+            np.isfinite(v).all() for v in item.values()
+            if isinstance(v, np.ndarray)):
+        raise AssertionError("the rendered tiles do not load through "
+                             "TilesDataset")
+    busy = _render_busy(args)
+    print("render path: %d scenes of 256x256 (%d tiles of 128, %d spp, gt "
+          "%d, meshes, textures, envmaps): %.2f s/scene; split (s, both "
+          "scenes): device %.3f, compile %.3f, host %.3f, write %.3f, sample "
+          "%.3f; device busy %s of one tile's render wall clock; peak device "
+          "memory %.2f GB; %d pass batches a tile; launches %s; the files "
+          "read back through bin_format.read_tile and TilesDataset finite"
+          % (scenes, len(files), args.spp, args.gt_spp,
+             stats["total"] / scenes, stats["device"], stats["compile"],
+             stats["host"], stats["write"], stats["sample"], busy,
+             peak / 1e9, batches,
+             json.dumps(_nonzero(launches))))
+    return out, launches
+
+
+def _render_busy(args):
+    """Device busy share over one more tile of the CLI's configuration: the
+    profiler's CUDA kernel time over the tile's wall clock."""
+    from torch.profiler import ProfilerActivity, profile
+    from sbmc_tpu_torch.render import pathtracer, prng
+    from sbmc_tpu_torch.render import assets as rassets
+    sc = _render_scene(0, pools={"obj_pool": rassets.ObjPool(os.path.join(
+        ROOT, "assets", "objs"))})
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pathtracer.render_tile_wavefront(sc, prng.PRNGKey(0),
+                                         ts=args.tile_size, spp=args.spp,
+                                         gt_spp=args.gt_spp, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = sum(e.self_device_time_total for e in prof.key_averages())
+    if dev_us <= 0:
+        return "not measured (the profiler saw no device time)"
+    return "%.1f%% (%.3f s of %.3f s)" % (100 * dev_us / 1e6 / wall,
+                                          dev_us / 1e6, wall)
+
+
+class _plain_render_ops:
+    """While active, the renderer's three ops run their plain PyTorch
+    versions on the card (what R1-R3 replace)."""
+
+    def __init__(self, ops):
+        self.ops = ops
+
+    def __enter__(self):
+        ops = self.ops
+        self.kept = (ops.tri_nearest, ops.tri_any, ops.random_uniform)
+        ops.tri_nearest = ops.reference.tri_nearest_ref
+        ops.tri_any = ops.reference.tri_any_ref
+        ops.random_uniform = ops.reference.threefry_uniform_ref
+
+    def __exit__(self, *exc):
+        (self.ops.tri_nearest, self.ops.tri_any,
+         self.ops.random_uniform) = self.kept
+
+
+def _render_plain_phase(ops, spp=8, gt_spp=16):
+    """One 128x128 tile of the CLI's first scene on the card three ways: the
+    kernels at the default wavefront (64 passes), the kernels one pass a
+    wavefront, and the plain versions of R1-R3 one pass a wavefront (their
+    [rays, triangles] temporaries do not fit at 64 passes); then the
+    kernels at 8 to 128 passes a wavefront."""
+    from sbmc_tpu_torch.render import assets as rassets
+    from sbmc_tpu_torch.render import pathtracer, prng, scene as rscene
+    a = os.path.join(ROOT, "assets")
+    sc = rscene.random_tracer_scene(
+        np.random.RandomState(0),
+        obj_pool=rassets.ObjPool(os.path.join(a, "objs")),
+        tex_pool=rassets.TexturePool(os.path.join(a, "textures")),
+        env_pool=rassets.EnvmapPool(os.path.join(a, "envmaps")))
+    kw = dict(ts=128, spp=spp, gt_spp=gt_spp, device="cuda")
+    full = pathtracer._WAVEFRONT_RAYS
+
+    def tile_s(rays):
+        pathtracer._WAVEFRONT_RAYS = rays
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tile = pathtracer.render_tile_wavefront(sc, prng.PRNGKey(0), **kw)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, tile
+        finally:
+            pathtracer._WAVEFRONT_RAYS = full
+
+    tile_s(full)  # warm-up
+    batched, ref_tile = tile_s(full)
+    serial, _ = tile_s(128 * 128)
+    with _plain_render_ops(ops):
+        plain, plain_tile = tile_s(128 * 128)
+    share = _tile_share(plain_tile.features[:, 11:21],
+                        ref_tile.features[:, 11:21], 1)
+    # The wavefront's width: the same tile at 128 ground-truth passes, 8,
+    # 16, 32, 64 and 128 passes a wavefront.
+    kw["gt_spp"] = 128
+    sweep = {}
+    for passes in (8, 16, 32, 64, 128):
+        sweep[passes] = round(tile_s(passes * 128 * 128)[0], 4)
+    print("plain eager renderer: one 128x128 tile (%d spp, gt %d, %d "
+          "triangles) takes %.3f s with R1-R3's plain versions one pass a "
+          "wavefront, %.3f s with the kernels one pass a wavefront, %.3f s "
+          "with the kernels at %d passes a wavefront (g-buffer samples "
+          "beyond 1e-3 between plain and kernels: %.4f)"
+          % (spp, gt_spp, len(sc.tri_v0), plain, serial, batched,
+             full // (128 * 128), share))
+    print("wavefront width: one 128x128 tile (%d spp, gt 128) in s, by "
+          "passes a wavefront: %s" % (spp, json.dumps(sweep)))
+
+
+def _render_train_phase(ops, tmp, corpus, steps=4, spp=8, bs=4):
+    """11d: train the flagship architecture on the rendered corpus (bf16
+    convs), then denoise its frames with the checkpoint."""
+    from sbmc_tpu_torch import denoise
+    from sbmc_tpu_torch.utils import exr
+    ckpt = os.path.join(tmp, "ckpt_render")
+    launches = {}
+    _, launches["render_train"] = _run_training(
+        ops, "render_train", "the flagship architecture on the rendered "
+        "corpus, batch %d x %d spp x 128x128" % (bs, spp),
+        [corpus, ckpt, "--spp", str(spp), "--bs", str(bs), "--ksize", "21",
+         "--bf16"], steps, ["progressive_splat", "progressive_splat_dlogits"],
+        {"progressive_splat": steps * spp,
+         "progressive_splat_dlogits": steps * spp},
+        {"progressive_splat": spp}, "sbmc")
+    out = os.path.join(tmp, "rendered_out", "frame.exr")
+    ops.reset_launch_counts()
+    with _record_shapes(ops) as seen:
+        res = denoise.main(denoise.parse_args(
+            ["--input", corpus, "--checkpoint", ckpt, "--output", out,
+             "--uniform_tiles", "--tile_size", "160", "--tile_pad", "32",
+             "--spp", str(spp), "--device", "cuda"]))
+    launches["render_denoise"] = dict(ops.launch_counts)
+    _check_shapes("render_denoise", seen, ["progressive_splat"])
+    tiles = sum(r["tiles"] for r in res)
+    if _nonzero(ops.launch_counts) != {"progressive_splat": tiles * spp}:
+        raise AssertionError("denoising the rendered corpus launched %s"
+                             % ops.launch_counts)
+    for r in res:
+        img = exr.read(r["output"])
+        if img.shape != (256, 256, 3) or not np.isfinite(img).all():
+            raise AssertionError("rendered-corpus denoise wrote %s"
+                                 % (img.shape,))
+    print("rendered corpus: trained %d steps, then denoised %d frames of "
+          "256x256 (%d tiles) with the checkpoint: finite EXRs, %d forward "
+          "launches" % (steps, len(res), tiles, tiles * spp))
+    return launches
+
+
 #: The bench's runs: its defaults (SBMC, 1080x1920 at 4 spp, bf16, the
 #: uniform first-rung tile), the denoise CLI's ragged tiles, and KPCN.
 BENCH_RUNS = (("bench", []), ("bench_ragged", ["--tiling", "ragged"]),
@@ -2505,6 +3332,12 @@ def main():
         _decode_phase(tmp)
         by_path["checkpoint_tools"] = _checkpoint_tools_phase(ops, tmp)
         by_path["trace"] = _trace_phase(ops, tmp, checkpoint)
+        with torch.inference_mode():
+            numbers.update(_render_kernel_phase(ops))
+            _render_tile_phase(ops)
+        corpus, by_path["render"] = _render_path_phase(ops, tmp, numbers)
+        _render_plain_phase(ops)
+        by_path.update(_render_train_phase(ops, tmp, corpus))
     _scale_phase(checkpoint)
     _baseline_scale_phase(labels)
     by_path.update(_bench_phase(ops))

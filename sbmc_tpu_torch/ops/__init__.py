@@ -42,6 +42,15 @@ where TMA or 16-byte vectors cannot address the logits. For CPU tensors it
 runs the plain versions (:mod:`sbmc_tpu_torch.ops.reference`). There is no
 fallback: a CUDA tensor either launches a kernel or raises.
 
+The wavefront renderer (:mod:`sbmc_tpu_torch.render`) has three kernels of
+its own, with no Pallas counterpart (XLA fused their work into the JAX
+renderer): ``tri_nearest`` and ``tri_any`` launch ``csrc/trace_hits.cu``
+(every ray against every triangle of a scene, reduced to the nearest hit or
+to whether anything blocks a shadow ray) and ``random_uniform`` /
+``random_bits`` launch ``csrc/threefry.cu`` (``jax.random``'s threefry2x32
+draws, bit for bit). Their plain versions are ``reference.tri_nearest_ref``,
+``reference.tri_any_ref`` and ``reference.threefry_uniform_ref``.
+
 The backward mirrors ``sbmc_tpu.ops._psu_bwd``: the running max is a
 constant (its contributions cancel in ``sum_r / sum_w``), so ``max_w`` gets
 a zero gradient and the new max is not differentiable.
@@ -50,6 +59,7 @@ a zero gradient and the new max is not differentiable.
 import functools
 import math
 
+import numpy as np
 import torch
 
 from sbmc_tpu_torch.ops import reference
@@ -59,7 +69,9 @@ from sbmc_tpu_torch.ops.reference import (kernel_weighting_dw_ref,
                                           progressive_splat_bwd_ref,
                                           progressive_splat_update_ref,
                                           scatter2gather_max_ref,
-                                          scatter2gather_ref)
+                                          scatter2gather_ref,
+                                          threefry_uniform_ref, tri_any_ref,
+                                          tri_nearest_ref)
 
 __all__ = [
     "kernel_weighting",
@@ -85,6 +97,13 @@ __all__ = [
     "ddata_groups",
     "s2g_route",
     "s2g_pixels",
+    "random_uniform",
+    "random_bits",
+    "tri_nearest",
+    "tri_any",
+    "threefry_uniform_ref",
+    "tri_nearest_ref",
+    "tri_any_ref",
     "launch_counts",
     "reset_launch_counts",
     "reference",
@@ -100,7 +119,8 @@ launch_counts = {"progressive_splat": 0, "progressive_splat_generic": 0,
                  "kernel_weighting_generic": 0, "kernel_weighting_dw": 0,
                  "kernel_weighting_dw_generic": 0, "scatter2gather": 0,
                  "scatter2gather_generic": 0, "scatter2gather_max": 0,
-                 "kernel_weighting_exp": 0, "kernel_weighting_exp_generic": 0}
+                 "kernel_weighting_exp": 0, "kernel_weighting_exp_generic": 0,
+                 "tri_nearest": 0, "tri_any": 0, "threefry_uniform": 0}
 
 _CHANNELS = (2, 3)  # the kernels' template set
 #: Kernel sizes the tiled splat and kernel-weighting kernels are built for:
@@ -200,6 +220,65 @@ def progressive_splat_update(data, klogits, sum_r, sum_w, max_w):
       no gradient.
     """
     return _ProgressiveSplat.apply(data, klogits, sum_r, sum_w, max_w)
+
+
+def random_uniform(keys, n, minval=0.0, maxval=1.0):
+    """``jax.random.uniform(key, (n,), minval=minval, maxval=maxval)`` for
+    each key, bit for bit (partitionable threefry2x32).
+
+    Args:
+      keys: ``[b, 2]`` int32 tensor holding the uint32 words of ``b`` keys
+        (``sbmc_tpu_torch.render.prng``), on the device to draw on.
+      n: values per key.
+
+    Returns:
+      ``[b, n]`` float32 in ``[minval, maxval)``.
+    """
+    with torch.no_grad():
+        if _on_cpu(keys):
+            return threefry_uniform_ref(keys, n, minval, maxval)
+        return _threefry_cuda(keys, n, minval, maxval, False)
+
+
+def random_bits(keys, n):
+    """The 32 random bits behind :func:`random_uniform`: ``[b, n]`` int32
+    holding uint32 words."""
+    with torch.no_grad():
+        if _on_cpu(keys):
+            return threefry_uniform_ref(keys, n, raw=True)
+        return _threefry_cuda(keys, n, 0.0, 1.0, True)
+
+
+def tri_nearest(org, dirs, time, tris):
+    """Nearest triangle hit of each ray (the triangle half of the JAX
+    renderer's ``_intersect``).
+
+    Args:
+      org, dirs: ``[n, 3]`` float32 ray origins and directions.
+      time: ``[n]`` float32 shutter time of each ray (moves the triangles
+        by their motion).
+      tris: ``[t, 16]`` float32 packed triangle constants
+        (``csrc/trace_hits.cuh``).
+
+    Returns:
+      ``(t [n] float32, idx [n] int32, back [n] bool)``: the distance
+      (``reference.TRI_MISS`` when no triangle is hit), the first triangle
+      at that distance, and whether the hit is on its back face.
+    """
+    with torch.no_grad():
+        if _on_cpu(org, dirs, time, tris):
+            return tri_nearest_ref(org, dirs, time, tris)
+        return _tri_nearest_cuda(org, dirs, time, tris)
+
+
+def tri_any(org, dirs, dist, tris):
+    """Whether a triangle lies closer than ``dist - 1e-3`` along each ray,
+    the triangles at time 0 (the triangle half of the JAX renderer's
+    ``_occluded``): ``[n]`` bool."""
+    with torch.no_grad():
+        if _on_cpu(org, dirs, dist, tris):
+            return tri_any_ref(org, dirs, dist, tris)
+        return _tri_any_cuda(org, dirs, dist, tris)
 
 
 def _device_of(*tensors):
@@ -784,3 +863,78 @@ def _kernel_weighting_exp_cuda(data, logits, maxes, route=None, groups=None):
         _launch("kernel_weighting_exp_generic",
                 lib.sbmc_kernel_weighting_exp_generic, data.device, *args)
     return out, sum_w
+
+
+def _check_f32(**tensors):
+    for name, t in tensors.items():
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 tensor, "
+                             f"got {t.dtype}, contiguous {t.is_contiguous()}")
+
+
+def _check_rays(org, dirs, per_ray, tris):
+    """Checks the triangle kernels' inputs; returns ``(n, t)``."""
+    _device_of(org, dirs, per_ray, tris)
+    _check_f32(org=org, dirs=dirs, per_ray=per_ray, tris=tris)
+    n = org.shape[0]
+    if (org.shape != (n, 3) or dirs.shape != (n, 3)
+            or per_ray.shape != (n,) or tris.dim() != 2
+            or tris.shape[1] != 16):
+        raise ValueError(f"rays {tuple(org.shape)}, {tuple(dirs.shape)}, "
+                         f"{tuple(per_ray.shape)} and triangles "
+                         f"{tuple(tris.shape)}: expected [n, 3], [n, 3], [n]"
+                         " and [t, 16]")
+    if tris.data_ptr() % 16:
+        raise ValueError("the packed triangles must be 16-byte aligned")
+    if n >= 2 ** 31 // 3:
+        raise ValueError(f"{n} rays exceed the kernels' int32 indexing")
+    return n, tris.shape[0]
+
+
+def _tri_nearest_cuda(org, dirs, time, tris):
+    """R1 on the card (``sbmc_tri_nearest`` of ``csrc/trace_hits.cu``)."""
+    from sbmc_tpu_torch.ops import _build
+    n, t = _check_rays(org, dirs, time, tris)
+    out_t = torch.full((n,), reference.TRI_MISS, device=org.device)
+    out_idx = torch.zeros(n, dtype=torch.int32, device=org.device)
+    out_back = torch.zeros(n, dtype=torch.bool, device=org.device)
+    if n and t:
+        _launch("tri_nearest", _build.load_cuda().sbmc_tri_nearest,
+                org.device, org.data_ptr(), dirs.data_ptr(), time.data_ptr(),
+                tris.data_ptr(), n, t, out_t.data_ptr(), out_idx.data_ptr(),
+                out_back.data_ptr())
+    return out_t, out_idx, out_back
+
+
+def _tri_any_cuda(org, dirs, dist, tris):
+    """R2 on the card (``sbmc_tri_any`` of ``csrc/trace_hits.cu``)."""
+    from sbmc_tpu_torch.ops import _build
+    n, t = _check_rays(org, dirs, dist, tris)
+    out = torch.zeros(n, dtype=torch.bool, device=org.device)
+    if n and t:
+        _launch("tri_any", _build.load_cuda().sbmc_tri_any, org.device,
+                org.data_ptr(), dirs.data_ptr(), dist.data_ptr(),
+                tris.data_ptr(), n, t, out.data_ptr())
+    return out
+
+
+def _threefry_cuda(keys, n, minval, maxval, raw):
+    """R3 on the card (``sbmc_threefry_uniform`` of ``csrc/threefry.cu``):
+    float32 uniforms, or the int32 bits with ``raw``."""
+    from sbmc_tpu_torch.ops import _build
+    _device_of(keys)
+    if (keys.dtype != torch.int32 or keys.dim() != 2 or keys.shape[1] != 2
+            or not keys.is_contiguous()):
+        raise ValueError(f"keys must be a contiguous [b, 2] int32 tensor, got "
+                         f"{keys.dtype} {tuple(keys.shape)}")
+    b = keys.shape[0]
+    if not (0 < b <= 65535 and 0 < n < 2 ** 31):
+        raise ValueError(f"{b} keys of {n} values: the kernel takes 1-65535 "
+                         "keys of 1 to 2**31 - 1 values")
+    out = torch.empty((b, n), dtype=torch.int32 if raw else torch.float32,
+                      device=keys.device)
+    lo, hi = np.float32(minval), np.float32(maxval)
+    _launch("threefry_uniform", _build.load_cuda().sbmc_threefry_uniform,
+            keys.device, keys.data_ptr(), b, n, float(lo), float(hi - lo),
+            int(raw), out.data_ptr())
+    return out

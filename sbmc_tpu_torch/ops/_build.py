@@ -28,6 +28,7 @@ HOST_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 #: sbmc_progressive_splat_generic(data, logits, logits_bf16, sum_r, sum_w,
 #:                                max_w, out_r, out_w, out_m, bs, c, h, w,
 #:                                k[, stream]); the tiled sbmc_progressive_splat
@@ -70,6 +71,13 @@ _S2G_MAX_ARGS = [_P, _I, _P, _P, _I, _I, _I, _I]
 #:                                   tiled sbmc_kernel_weighting_exp takes v
 #:                                   and groups before the stream
 _KW_EXP_ARGS = [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I]
+#: sbmc_threefry_uniform(keys, n_keys, n, lo, span, raw, out[, stream])
+_THREEFRY_ARGS = [_P, _I, _I, _F, _F, _I, _P]
+#: sbmc_tri_nearest(org, dirs, time, tris, n, t, out_t, out_idx,
+#:                  out_back[, stream])
+_TRI_NEAREST_ARGS = [_P, _P, _P, _P, _I, _I, _P, _P, _P]
+#: sbmc_tri_any(org, dirs, dist, tris, n, t, out[, stream])
+_TRI_ANY_ARGS = [_P, _P, _P, _P, _I, _I, _P]
 
 #: source -> {exported function: argument types}; the CUDA entry points take
 #: the stream as one more pointer.
@@ -93,6 +101,11 @@ _CUDA = {
         "sbmc_scatter2gather": _S2G_ARGS + [_I, _P],
         "sbmc_scatter2gather_generic": _S2G_ARGS + [_P],
         "sbmc_scatter2gather_max": _S2G_MAX_ARGS + [_P]},
+    "threefry.cu": {
+        "sbmc_threefry_uniform": _THREEFRY_ARGS + [_P]},
+    "trace_hits.cu": {
+        "sbmc_tri_nearest": _TRI_NEAREST_ARGS + [_P],
+        "sbmc_tri_any": _TRI_ANY_ARGS + [_P]},
 }
 _HOST = {
     "progressive_splat_host.cpp": {
@@ -114,6 +127,11 @@ _HOST = {
         "sbmc_scatter2gather_host": _S2G_ARGS,
         "sbmc_scatter2gather_vec_host": _S2G_ARGS + [_I],
         "sbmc_scatter2gather_max_host": _S2G_MAX_ARGS},
+    "threefry_host.cpp": {
+        "sbmc_threefry_uniform_host": _THREEFRY_ARGS},
+    "trace_hits_host.cpp": {
+        "sbmc_tri_nearest_host": _TRI_NEAREST_ARGS,
+        "sbmc_tri_any_host": _TRI_ANY_ARGS},
 }
 
 _lock = threading.Lock()

@@ -22,6 +22,7 @@ inputs stay float64, which is what lets ``torch.autograd.gradcheck`` run on
 these versions).
 """
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -38,6 +39,11 @@ __all__ = [
     "progressive_splat_dlogits_ref",
     "progressive_splat_bwd_ref",
     "ksize_of",
+    "threefry_uniform_ref",
+    "tri_hits_ref",
+    "tri_nearest_ref",
+    "tri_any_ref",
+    "TRI_MISS",
 ]
 
 
@@ -205,3 +211,108 @@ def progressive_splat_bwd_ref(data, klogits, new_max, d_r, d_w):
     """
     return (progressive_splat_ddata_ref(klogits, new_max, d_r),
             progressive_splat_dlogits_ref(data, klogits, new_max, d_r, d_w))
+
+
+# ---------------------------------------------------------------------------
+# The wavefront renderer's kernels (sbmc_tpu_torch/render/pathtracer.py).
+
+#: Distance of a miss (the JAX renderer's ``_INF``).
+TRI_MISS = 1e10
+
+_TF_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_U32 = 0xFFFFFFFF
+
+
+def _threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 (20 rounds) on int64 tensors holding uint32 values."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _U32
+    x1 = (x1 + ks[1]) & _U32
+    for i in range(5):
+        for r in _TF_ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _U32
+            x1 = (((x1 << r) & _U32) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _U32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _U32
+    return x0, x1
+
+
+def threefry_uniform_ref(keys, n, minval=0.0, maxval=1.0, raw=False):
+    """``jax.random.uniform(key, (n,), minval=minval, maxval=maxval)`` for
+    each key, under partitionable threefry2x32 (see ``csrc/threefry.cuh``).
+
+    Args:
+      keys: ``[b, 2]`` int32 tensor of uint32 key words.
+      n: values per key (< 2**31).
+      raw: return the 32 random bits (as int32) instead of the floats.
+
+    Returns:
+      ``[b, n]`` float32 in ``[minval, maxval)``, or int32 bits.
+    """
+    k = keys.to(torch.int64) & _U32
+    i = torch.arange(n, dtype=torch.int64, device=keys.device)
+    y0, y1 = _threefry2x32(k[:, 0:1], k[:, 1:2], torch.zeros_like(i), i)
+    bits = y0 ^ y1
+    if raw:
+        return ((bits ^ 0x80000000) - 0x80000000).to(torch.int32)
+    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    f = fbits.view(torch.float32) - 1.0
+    lo, hi = np.float32(minval), np.float32(maxval)
+    # f * (hi - lo) + lo rounded once, as XLA's fused multiply-add: the
+    # product is exact in float64 and so is the sum for bounds within ~2**29
+    # of each other in magnitude.
+    r = (f.double() * float(hi - lo) + float(lo)).float()
+    return torch.clamp_min(r, float(lo))
+
+
+def tri_hits_ref(org, dirs, time, tris):
+    """Every ray against every triangle: ``sbmc_tpu/render/pathtracer.py``
+    ``_tri_ts`` on packed constants (``csrc/trace_hits.cuh``), the dot
+    products summed x, y, z.
+
+    Args:
+      org, dirs: ``[n, 3]`` float32 rays; time: ``[n]`` shutter times.
+      tris: ``[t, 16]`` packed triangle constants.
+
+    Returns:
+      ``(ts [n, t], back [n, t])``: hit distances (``TRI_MISS`` on a miss)
+      and back-face flags.
+    """
+    c = tris.t()
+
+    def dot(v, a):
+        return v[:, 0:1] * c[a] + v[:, 1:2] * c[a + 1] + v[:, 2:3] * c[a + 2]
+
+    o_n, o_g1, o_g2 = dot(org, 0), dot(org, 3), dot(org, 6)
+    den, d_g1, d_g2 = dot(dirs, 0), dot(dirs, 3), dot(dirs, 6)
+    tt = time[:, None]
+    valid = den.abs() > 1e-9
+    ts = (c[9] + tt * c[12] - o_n) / torch.where(valid, den, 1.0)
+    u = o_g1 - c[10] - tt * c[13] + ts * d_g1
+    v = o_g2 - c[11] - tt * c[14] + ts * d_g2
+    ok = valid & (u >= 0) & (v >= 0) & (u + v <= 1) & (ts > 1e-3)
+    return torch.where(ok, ts, TRI_MISS), ok & (den > 0)
+
+
+def tri_nearest_ref(org, dirs, time, tris):
+    """Nearest triangle per ray: ``(t [n], idx [n] int32, back [n] bool)``,
+    the first triangle winning ties (``jnp.argmin``); a ray that hits none
+    gets ``(TRI_MISS, 0, False)``."""
+    n = org.shape[0]
+    if tris.shape[0] == 0:
+        return (torch.full((n,), TRI_MISS, device=org.device),
+                torch.zeros(n, dtype=torch.int32, device=org.device),
+                torch.zeros(n, dtype=torch.bool, device=org.device))
+    ts, back = tri_hits_ref(org, dirs, time, tris)
+    idx = torch.argmin(ts, 1, keepdim=True)
+    return (ts.gather(1, idx)[:, 0], idx[:, 0].to(torch.int32),
+            back.gather(1, idx)[:, 0])
+
+
+def tri_any_ref(org, dirs, dist, tris):
+    """Whether any triangle lies closer than ``dist - 1e-3`` along each ray,
+    the geometry at time 0 (the JAX renderer's shadow rays): ``[n]`` bool."""
+    if tris.shape[0] == 0:
+        return torch.zeros(org.shape[0], dtype=torch.bool, device=org.device)
+    ts, _ = tri_hits_ref(org, dirs, torch.zeros_like(dist), tris)
+    return (ts < (dist - 1e-3)[:, None]).any(1)
