@@ -59,11 +59,15 @@ Phases, each printing one line (or a few) before the last:
 
 11. render: the wavefront renderer's kernels (R1 ``tri_nearest``, R2
    ``tri_any``, R3 ``threefry_uniform``) and its path, in four parts:
-   (a) R1 and R2 against their plain versions at 0, 64, 512 (a moving mesh)
-   and 1024 triangles (the largest bucket the repo's meshes give) on rays
-   that hit, miss, graze edges, run parallel to a face or are NaN; R3 bit
-   for bit against its plain version and the host's numpy draws; each timed
-   at the path's shape (a 64-pass wavefront of 1048576 rays);
+   (a) R1 and R2, the tiled kernels and their generic variants, against
+   their plain versions at 0, 64, 512 (a moving
+   mesh), 1024 (the largest bucket the repo's meshes give) and 2048
+   triangles (the tiled kernels' capacity) on rays that hit, miss, graze
+   edges, run parallel to a face or are NaN, and the tiled kernels against
+   the generic ones ray for ray; R3 bit for bit against its plain version
+   and the host's numpy draws; each timed at the path's shape (a 64-pass
+   wavefront of 1048576 rays), the tiled and generic R1 and R2 in turns in
+   one call, and at 2048 triangles;
    (b) a 32x32 tile with meshes, image textures and an envmap rendered on
    the card and by the port on the CPU, the share of samples that differ;
    (c) ``python -m sbmc_tpu_torch.generate_training_data --renderer
@@ -71,14 +75,15 @@ Phases, each printing one line (or a few) before the last:
    128, 8 spp, 512 ground-truth spp, the repo's 10 meshes, 14 textures and
    6 envmaps): s/scene and its split, the device's busy share over one more
    tile, the files read back, R1-R3's launches (per tile, 6, 12 and 2 per
-   pass batch); then one tile with R1-R3's plain versions on the card, and
-   one at 8 to 128 passes a wavefront;
+   pass batch), R1 and R2 (tiled and generic) held against their plain
+   versions on the inputs the CLI gave them; then one tile with R1-R3's
+   plain versions on the card, and one at 8 to 128 passes a wavefront;
    (d) the flagship architecture trained on that corpus for 4 steps (bf16
    convs; the forward and logits-gradient kernels steps x spp times) and
    its frames denoised with the checkpoint.
 
 The composed kernels' phases and the other entry points run between these
-(4b to 4d after 4, 6b after 6, 8b to 8i after 8):
+(4b to 4e after 4, 6b after 6, 8b to 8i after 8):
 
 4b. composed kernels: holds kernel weighting and its gradient to the
     weights (each as the tiled kernel and the generic one) and
@@ -116,6 +121,12 @@ The composed kernels' phases and the other entry points run between these
     every group count and its generic variant too, beside two yardsticks:
     kw_fwd on weights of the logits' shape and type, and a torch.sum of the
     logits over their taps;
+4e. channels: the splat step, its two gradients, kernel weighting, its
+    weight gradient and kernel weighting of exp(logits - max) at 1, 4 and 5
+    channels, which the ops run in channel groups of the kernels' 2 and 3
+    (``ops.channel_groups``), against their plain versions, the launches
+    counted per group; the autograd gradients of kernel weighting (c = 4)
+    and of the splat step (c = 1) card against CPU;
 4d. composed splat step: the step built from ``ops.scatter2gather_max`` and
     ``ops.kernel_weighting_exp`` as the JAX package's unfused branch builds
     it, held against the fused kernel (``ops.progressive_splat_update``) from
@@ -223,7 +234,11 @@ KERNELS = (
     # and by _occluded's any) and its jax.random draws.
     ("tri_nearest", _CSRC + "trace_hits.cu",
      "sbmc_tpu/render/pathtracer.py:679"),
+    ("tri_nearest_generic", _CSRC + "trace_hits.cu",
+     "sbmc_tpu/render/pathtracer.py:679"),
     ("tri_any", _CSRC + "trace_hits.cu",
+     "sbmc_tpu/render/pathtracer.py:886"),
+    ("tri_any_generic", _CSRC + "trace_hits.cu",
      "sbmc_tpu/render/pathtracer.py:886"),
     ("threefry_uniform", _CSRC + "threefry.cu",
      "sbmc_tpu/render/pathtracer.py:1104"),
@@ -260,19 +275,22 @@ MUST_LAUNCH = {
     "scatter2gather_generic": (),
     "kernel_weighting_exp_generic": (),
     "tri_nearest": ("render",),
+    "tri_nearest_generic": (),
     "tri_any": ("render",),
+    "tri_any_generic": (),
     "threefry_uniform": ("render",),
 }
-#: The generic variants of the splat, kernel-weighting (plain and exp) and
-#: scatter2gather kernels (the first port's per-pixel or per-element
-#: kernels) take only shapes the tiled kernels cannot address, which no path
-#: gives them: the kernel phases check them there and at the paths' shapes,
-#: and the run fails if any path launched one.
+#: The generic variants of the splat, kernel-weighting (plain and exp),
+#: scatter2gather and triangle kernels (the first port's per-pixel,
+#: per-element or per-ray kernels) take only shapes the tiled kernels cannot
+#: address, which no path gives them: the kernel phases check them there and
+#: at the paths' shapes, and the run fails if any path launched one.
 NEVER_ON_A_PATH = ("progressive_splat_generic",
                    "progressive_splat_ddata_generic",
                    "progressive_splat_dlogits_generic",
                    "kernel_weighting_generic", "kernel_weighting_dw_generic",
-                   "scatter2gather_generic", "kernel_weighting_exp_generic")
+                   "scatter2gather_generic", "kernel_weighting_exp_generic",
+                   "tri_nearest_generic", "tri_any_generic")
 #: The wrapped op whose recorded cases speak for each kernel.
 _OP_OF = {"progressive_splat": "splat", "progressive_splat_ddata": "splat",
           "progressive_splat_ddata_generic": "splat",
@@ -1703,6 +1721,136 @@ def _exp_kernel_phase(ops):
     return numbers
 
 
+#: Channel counts outside the kernels' template set (ops.KERNEL_CHANNELS),
+#: which the ops run in channel groups (ops.channel_groups): one channel
+#: (padded with a zero one), 2 + 2 and 3 + 2.
+CHANNEL_CASES = (1, 4, 5)
+
+
+def _check_within(name, case, got, want, atol, rtol):
+    """Raises unless ``got`` lies within ``atol + rtol * |want|``; notes
+    and returns the max abs error."""
+    diff = (got.float() - want.float()).abs()
+    if got.shape != want.shape or not bool(
+            torch.all(diff <= atol + rtol * want.float().abs())):
+        raise AssertionError("%s disagrees with its plain version at %s: "
+                             "max abs err %.3g" % (name, case,
+                                                   float(diff.max())))
+    _note_err(name, float(diff.max()))
+    return float(diff.max())
+
+
+def _channel_phase(ops, numbers):
+    """4e: any channel count. At each count of CHANNEL_CASES the splat
+    step, its two gradients, kernel weighting, its weight gradient and
+    kernel weighting of exp(logits - max), each through the op's channel
+    groups (every group a counted launch of the kernel its route takes),
+    against their plain versions with the tolerances of phases 3 to 4c;
+    then the autograd gradients of kernel weighting (c = 4) and of the
+    splat step (c = 1) on the card against the CPU's."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rng = np.random.RandomState(5)
+    cases = 0
+    for c in CHANNEL_CASES:
+        groups = len(ops.channel_groups(c))
+        for k, hw in ((5, (37, 64)), (21, (21, 40)), (3, (13, 8)),
+                      (5, (9, 7))):
+            for dtype in (torch.float32, torch.bfloat16):
+                args = _splat_inputs(gen, 2, c, *hw, k, dtype, False)
+                ops.reset_launch_counts()
+                _compare(ops, args)
+                fwd = _variant(ops, "progressive_splat", args[1])
+                if _nonzero(ops.launch_counts) != {fwd: groups}:
+                    raise AssertionError("the splat step at %d channels "
+                                         "launched %s" % (
+                                             c, _nonzero(ops.launch_counts)))
+                data, logits, new_max, d_r, d_w = _bwd_inputs(
+                    ops, gen, 2, c, *hw, k, dtype)
+                case = _case(data, logits)
+                want = ops.progressive_splat_bwd_ref(data, logits, new_max,
+                                                     d_r, d_w)
+                for i, (name, got) in enumerate((
+                        ("progressive_splat_ddata", ops.ddata_by_channels(
+                            ops._ddata_cuda, logits, new_max, d_r)),
+                        ("progressive_splat_dlogits",
+                         ops.dlogits_by_channels(ops._dlogits_cuda, data,
+                                                 logits, new_max, d_r,
+                                                 d_w)))):
+                    name = _variant(ops, name, logits)
+                    _COMPARED[name].add(case)
+                    rtol = (BF16_RTOL if i and dtype == torch.bfloat16
+                            else BWD_RTOL)
+                    if got.dtype != want[i].dtype:
+                        raise AssertionError("%s returned %s at %s" % (
+                            name, got.dtype, case))
+                    _check_within(name, case, got, want[i], BWD_ATOL, rtol)
+                data, weights, d_out, d_sw = _kw_inputs(rng, 2, c, *hw, k,
+                                                        dtype)
+                case = _case(data, weights)
+                suffix = "" if ops.kw_route(k) == "tiled" else "_generic"
+                for name in ("kernel_weighting", "kernel_weighting_dw"):
+                    _COMPARED[name + suffix].add(case)
+                out, sum_w = ops.kernel_weighting(data, weights)
+                d_wts = ops.kw_dw_by_channels(ops._kernel_weighting_dw_cuda,
+                                              data, d_out, d_sw, k, dtype)
+                want_out, want_sw = ops.kernel_weighting_ref(data, weights)
+                want_dw = ops.kernel_weighting_dw_ref(data, d_out, d_sw,
+                                                      k).to(dtype)
+                torch.cuda.synchronize()
+                _kw_check("kernel_weighting" + suffix, case, out, want_out,
+                          torch.float32)
+                _kw_check("kernel_weighting" + suffix, case, sum_w, want_sw,
+                          torch.float32)
+                _kw_check("kernel_weighting_dw" + suffix, case, d_wts,
+                          want_dw, dtype, BF16_RTOL
+                          if dtype == torch.bfloat16 else RTOL)
+                _check_exp(ops, *_exp_inputs(gen, 2, c, *hw, k, dtype))
+                cases += 6
+    # The autograd Functions on the card against the CPU (float32 on both):
+    # kernel weighting's d_data (scatter2gather, then the forward kernel on
+    # the cotangent) and d_weights at 4 channels, the splat step's d_data
+    # and d_klogits at 1.
+    for c, fn in ((4, "kernel_weighting"), (1, "progressive_splat_update")):
+        k, (h, w) = 5, (21, 40)
+        if fn == "kernel_weighting":
+            x = [torch.tensor(rng.randn(2, c, h, w), dtype=torch.float32),
+                 torch.tensor(rng.randn(2, k * k, h, w),
+                              dtype=torch.float32)]
+            rest = []
+        else:
+            x = [torch.tensor(rng.randn(2, c, h, w), dtype=torch.float32),
+                 torch.tensor(3 * rng.randn(2, k * k, h, w),
+                              dtype=torch.float32)]
+            rest = [torch.tensor(rng.randn(2, c, h, w), dtype=torch.float32),
+                    torch.tensor(np.abs(rng.randn(2, 1, h, w)),
+                                 dtype=torch.float32),
+                    torch.tensor(rng.randn(2, 1, h, w), dtype=torch.float32)]
+        cts = [torch.tensor(rng.randn(2, c, h, w), dtype=torch.float32),
+               torch.tensor(rng.randn(2, 1, h, w) if rest else
+                            rng.randn(2, h, w), dtype=torch.float32)]
+        grads = []
+        for dev in ("cpu", "cuda"):
+            leaves = [t.to(dev).requires_grad_() for t in x]
+            outs = getattr(ops, fn)(*leaves, *(t.to(dev) for t in rest))
+            loss = sum((o * ct.to(dev)).sum() for o, ct in zip(outs, cts))
+            grads.append([g.cpu() for g in torch.autograd.grad(loss,
+                                                               leaves)])
+        for g, r in zip(grads[1], grads[0]):
+            _check_within("%s gradient at %d channels" % (fn, c), (c, k),
+                          g, r, BWD_ATOL, BWD_RTOL)
+        cases += 1
+    for name in numbers:
+        if name in _MAX_ERR:
+            numbers[name]["max_abs_err"] = _MAX_ERR[name]
+    print("channels: the splat step, its gradients, kernel weighting, its "
+          "weight gradient and the exp weighting at %s channels (k 3/5/21, "
+          "tiled and generic widths, float32 and bfloat16), in channel "
+          "groups of %s, and the autograd gradients card against CPU: %d "
+          "cases within the kernel phases' tolerances"
+          % (list(CHANNEL_CASES), [[b - a for a, b in ops.channel_groups(c)]
+                                   for c in CHANNEL_CASES], cases))
+
+
 def _composed_step(ops, data, klogits, sum_r, sum_w, max_w):
     """One splat step composed from the two exp kernels, as the unfused
     branch of ``sbmc_tpu.ops._psu_fwd`` composes it: transpose with the tap
@@ -2613,23 +2761,32 @@ def _tri_fault(name, what, ok, details):
                              bad[:8]))
 
 
+def _tri_variants(ops, name):
+    """(counter, label, call) of each kernel of R1 (``name``
+    "tri_nearest") or R2 ("tri_any"): the tiled kernel through the op and
+    the generic kernel."""
+    cuda = getattr(ops, "_%s_cuda" % name)
+
+    def generic(*args):
+        return cuda(*args, route="generic")
+
+    return ((name, "tiled", getattr(ops, name)),
+            (name + "_generic", "generic", generic))
+
+
 def _check_nearest(ops, org, dirs, time_, tris, what, nan_ray=True):
-    """R1 against its plain version on the card. t must agree within
-    _tri_rtol; a ray whose hit or index differs must be borderline
-    (_tri_borderline) on the kernel's or the plain version's triangle, and
-    such rays may number at most 1 in 10^4. ``nan_ray``: the inputs are
-    _tri_rays', whose fifth-last ray is NaN and must miss. Returns the max
-    abs t error where t agrees and the number of borderline rays."""
+    """R1's kernels (_tri_variants) against its plain version on the card.
+    t must agree within _tri_rtol; a ray whose hit or index differs must be
+    borderline (_tri_borderline) on the kernel's or the plain version's
+    triangle, and such rays may number at most 1 in 10^4. ``nan_ray``: the
+    inputs are _tri_rays', whose fifth-last ray is NaN and must miss.
+    Returns {label: (max abs t error where t agrees, borderline rays)} and
+    the number of rays on which the tiled kernel's t (bits), index or flag
+    differ from the generic kernel's."""
     from sbmc_tpu_torch.ops import reference as ref
-    t, idx, back = ops.tri_nearest(org, dirs, time_, tris)
     pt, pidx, pback = _plain_chunks(ref.tri_nearest_ref, org, dirs, time_,
                                     tris)
-    torch.cuda.synchronize()
-    close = (t - pt).abs() <= TRI_T_RTOL * pt.abs()
-    if not bool(close.all()) and tris.shape[0]:
-        cond = _tri_f64(tris, org, dirs, time_, pidx)[3]
-        close |= (t - pt).abs() <= _tri_rtol(cond).float() * pt.abs()
-    differ = ~close
+    two = None
     if tris.shape[0] > 1:
         # The index and flag must agree unless the two best t are close.
         two = []
@@ -2639,69 +2796,106 @@ def _check_nearest(ops, org, dirs, time_, tris, what, nan_ray=True):
                                      time_[i:i + PLAIN_CHUNK], tris)
             two.append(torch.topk(ts, 2, dim=1, largest=False).values)
         two = torch.cat(two)
-        clear = close & ((two[:, 1] - two[:, 0]) > TRI_T_RTOL * two[:, 0])
-        differ |= clear & ((idx != pidx) | (back != pback))
-    rows = torch.nonzero(differ)[:, 0]
-    if len(rows):
-        sub = (org[rows], dirs[rows], time_[rows])
-        ok = ((_tri_borderline(tris, *sub, idx[rows])
-               & (t[rows] < ref.TRI_MISS))
-              | (_tri_borderline(tris, *sub, pidx[rows])
-                 & (pt[rows] < ref.TRI_MISS)))
-        if not bool(ok.all()) or len(rows) > max(1, org.shape[0] // 10000):
-            fk = _tri_f64(tris, *sub, idx[rows])
-            fp = _tri_f64(tris, *sub, pidx[rows])
-            _tri_fault("tri_nearest", what, ok, [dict(
-                ray=int(r), t=(float(t[r]), float(pt[r])),
-                idx=(int(idx[r]), int(pidx[r])),
-                margin=(float(fk[1][j]), float(fp[1][j])),
-                edge=(float(fk[4][j]), float(fp[4][j])))
-                for j, r in enumerate(rows.tolist()[:64])])
-    if nan_ray and org.shape[0] > 5 and bool(t[-5] != ref.TRI_MISS):
-        raise AssertionError("tri_nearest (%s): the NaN ray hit" % what)
-    err = float((t - pt)[close].abs().max()) if bool(close.any()) else 0.0
-    return err, len(rows)
+    results, outs = {}, {}
+    for name, label, kernel in _tri_variants(ops, "tri_nearest"):
+        t, idx, back = kernel(org, dirs, time_, tris)
+        torch.cuda.synchronize()
+        outs[label] = (t.view(torch.int32), idx, back)
+        close = (t - pt).abs() <= TRI_T_RTOL * pt.abs()
+        if not bool(close.all()) and tris.shape[0]:
+            cond = _tri_f64(tris, org, dirs, time_, pidx)[3]
+            close |= (t - pt).abs() <= _tri_rtol(cond).float() * pt.abs()
+        differ = ~close
+        if two is not None:
+            clear = close & ((two[:, 1] - two[:, 0]) > TRI_T_RTOL * two[:, 0])
+            differ |= clear & ((idx != pidx) | (back != pback))
+        rows = torch.nonzero(differ)[:, 0]
+        if len(rows):
+            sub = (org[rows], dirs[rows], time_[rows])
+            ok = ((_tri_borderline(tris, *sub, idx[rows])
+                   & (t[rows] < ref.TRI_MISS))
+                  | (_tri_borderline(tris, *sub, pidx[rows])
+                     & (pt[rows] < ref.TRI_MISS)))
+            if not bool(ok.all()) or \
+                    len(rows) > max(1, org.shape[0] // 10000):
+                fk = _tri_f64(tris, *sub, idx[rows])
+                fp = _tri_f64(tris, *sub, pidx[rows])
+                _tri_fault("%s (%s)" % (name, label), what, ok, [dict(
+                    ray=int(r), t=(float(t[r]), float(pt[r])),
+                    idx=(int(idx[r]), int(pidx[r])),
+                    margin=(float(fk[1][j]), float(fp[1][j])),
+                    edge=(float(fk[4][j]), float(fp[4][j])))
+                    for j, r in enumerate(rows.tolist()[:64])])
+        if nan_ray and org.shape[0] > 5 and bool(t[-5] != ref.TRI_MISS):
+            raise AssertionError("%s (%s, %s): the NaN ray hit"
+                                 % (name, label, what))
+        err = float((t - pt)[close].abs().max()) if bool(close.any()) \
+            else 0.0
+        _note_err(name, err)
+        results[label] = (err, len(rows))
+        del t, idx, back
+    a, b = outs["tiled"], outs["generic"]
+    same = (a[0] == b[0]) & (a[1] == b[1]) & (a[2] == b[2])
+    return results, int((~same).sum())
 
 
 def _check_any(ops, org, dirs, dist, tris, what):
-    """R2 against its plain version on the card. Where the two differ, no
-    triangle may block the ray clearly (t inside (1e-3, dist - 1e-3) and
-    the crossing inside the triangle, each beyond its rounding margin) and
-    one must be borderline (_tri_borderline); such rays may number at most
-    1 in 10^4. Returns their number."""
+    """R2's kernels (_tri_variants) against its plain version on the card.
+    Where one differs from it, no triangle may block the ray clearly (t
+    inside (1e-3, dist - 1e-3) and the crossing inside the triangle, each
+    beyond its rounding margin) and one must be borderline
+    (_tri_borderline); such rays may number at most 1 in 10^4. Returns
+    {label: their number} and the number of rays on which the tiled and
+    generic kernels differ."""
     from sbmc_tpu_torch.ops import reference as ref
-    blocked = ops.tri_any(org, dirs, dist, tris)
     pblocked = _plain_chunks(ref.tri_any_ref, org, dirs, dist, tris)
-    torch.cuda.synchronize()
-    rows = torch.nonzero(blocked != pblocked)[:, 0]
-    if len(rows):
-        t_max = (dist[rows] - 1e-3).double()[:, None]
-        zero = torch.zeros_like(dist[rows])
-        t, margin, den, cond, edge = _tri_f64(tris, org[rows], dirs[rows],
-                                              zero)
-        tol = _tri_rtol(cond)
-        clear = ((den.abs() > 1e-9 * (1 + TRI_T_RTOL))
-                 & (margin >= edge) & (t > 1e-3 * (1 + tol))
-                 & (t < t_max - tol * t_max.abs()))
-        maybe = ((den.abs() > 1e-9 * (1 - TRI_T_RTOL))
-                 & (margin > -edge) & (t > 1e-3 * (1 - tol))
-                 & (t < t_max + tol * t_max.abs()))
-        ok = ~clear.any(1) & maybe.any(1)
-        if not bool(ok.all()) or len(rows) > max(1, org.shape[0] // 10000):
-            _tri_fault("tri_any", what, ok, [dict(
-                ray=int(r), blocked=(bool(blocked[r]), bool(pblocked[r])),
-                dist=float(dist[r]), clear=int(clear[j].sum()),
-                borderline=int((maybe[j] & ~clear[j]).sum()))
-                for j, r in enumerate(rows.tolist()[:64])])
-    return len(rows)
+    results, outs = {}, {}
+    for name, label, kernel in _tri_variants(ops, "tri_any"):
+        blocked = kernel(org, dirs, dist, tris)
+        torch.cuda.synchronize()
+        outs[label] = blocked
+        rows = torch.nonzero(blocked != pblocked)[:, 0]
+        if len(rows):
+            t_max = (dist[rows] - 1e-3).double()[:, None]
+            zero = torch.zeros_like(dist[rows])
+            t, margin, den, cond, edge = _tri_f64(tris, org[rows],
+                                                  dirs[rows], zero)
+            tol = _tri_rtol(cond)
+            clear = ((den.abs() > 1e-9 * (1 + TRI_T_RTOL))
+                     & (margin >= edge) & (t > 1e-3 * (1 + tol))
+                     & (t < t_max - tol * t_max.abs()))
+            maybe = ((den.abs() > 1e-9 * (1 - TRI_T_RTOL))
+                     & (margin > -edge) & (t > 1e-3 * (1 - tol))
+                     & (t < t_max + tol * t_max.abs()))
+            ok = ~clear.any(1) & maybe.any(1)
+            if not bool(ok.all()) or \
+                    len(rows) > max(1, org.shape[0] // 10000):
+                _tri_fault("%s (%s)" % (name, label), what, ok, [dict(
+                    ray=int(r), blocked=(bool(blocked[r]),
+                                         bool(pblocked[r])),
+                    dist=float(dist[r]), clear=int(clear[j].sum()),
+                    borderline=int((maybe[j] & ~clear[j]).sum()))
+                    for j, r in enumerate(rows.tolist()[:64])])
+        # R2's outputs are booleans: its error is 1 where a ray flipped.
+        _note_err(name, float(len(rows) > 0))
+        results[label] = len(rows)
+    return results, int((outs["tiled"] != outs["generic"]).sum())
 
 
-def _tri_first_blockers(org, dirs, dist, tris):
+def _real_tris(tris):
+    """One past the last triangle that is not degenerate (n != 0): the
+    scene's power-of-two padding after it is never hit."""
+    real = torch.nonzero((tris[:, :3] != 0).any(1))[:, 0]
+    return int(real.max()) + 1 if len(real) else 0
+
+
+def _tri_first_blockers(org, dirs, dist, tris, t_n=None):
     """Ray x triangle pairs R2 must test on these inputs: up to and with
-    each ray's first blocker, all T where none blocks."""
+    each ray's first blocker, all ``t_n`` (by default T) where none
+    blocks."""
     from sbmc_tpu_torch.ops import reference as ref
     pairs = 0
-    t_n = tris.shape[0]
+    t_n = tris.shape[0] if t_n is None else t_n
     for i in range(0, org.shape[0], PLAIN_CHUNK):
         ts, _ = ref.tri_hits_ref(org[i:i + PLAIN_CHUNK],
                                  dirs[i:i + PLAIN_CHUNK],
@@ -2748,55 +2942,60 @@ def _r3_check(ops):
 
 
 def _render_kernel_phase(ops):
-    """11a: R1-R3 against their plain versions on the card, then timed at
-    the renderer's path shape (a 64-pass wavefront of a 128x128 tile:
-    1048576 rays) against the largest triangle bucket."""
+    """11a: R1-R3 against their plain versions on the card (R1 and R2: the
+    tiled kernels and the generic ones), then
+    timed at the renderer's path shape (a 64-pass wavefront of a 128x128
+    tile: 1048576 rays) against the largest triangle bucket."""
     from sbmc_tpu_torch.ops import reference as ref
     from sbmc_tpu_torch.render import assets as rassets
     from sbmc_tpu_torch.render import pathtracer
     gen = torch.Generator(device="cuda").manual_seed(0)
     pools = {"obj_pool": rassets.ObjPool(os.path.join(ROOT, "assets",
                                                       "objs"))}
-    errs, flips = [], [0, 0]
+    errs, flips, apart = {}, {}, [0, 0]
     buckets = {}
     for what, sc in (("T=0", _render_scene(2, n_meshes=0)),
                      ("T=64", _render_scene(4, n_meshes=2)),
                      ("moving mesh", _render_scene(5, moving=True,
                                                    pools=pools)),
-                     ("largest bucket", _largest_bucket_scene(pools))):
+                     ("largest bucket", _largest_bucket_scene(pools)),
+                     ("capacity", _largest_bucket_scene(pools, 4))):
         scn = pathtracer.prepare_scene(sc, "cuda")
         tris = scn["tris"]
         buckets[what] = tris.shape[0]
         org, dirs, time_ = _tri_rays(gen, sc, 1 << 17)
         dist = 15 * torch.rand(org.shape[0], device="cuda", generator=gen)
         dist[:2] = torch.tensor([ref.TRI_MISS, float("nan")])
-        err, f1 = _check_nearest(ops, org, dirs, time_, tris, what)
-        errs.append(err)
-        flips[0] += f1
-        flips[1] += _check_any(ops, org, dirs, dist, tris, what)
-    if buckets["largest bucket"] != 1024 or buckets["T=0"] != 0 or \
-            buckets["T=64"] != 64:
+        near, d_near = _check_nearest(ops, org, dirs, time_, tris, what)
+        anyr, d_any = _check_any(ops, org, dirs, dist, tris, what)
+        for label, (err, f) in near.items():
+            errs[label] = max(errs.get(label, 0.0), err)
+            flips[label] = [flips.get(label, [0, 0])[0] + f,
+                            flips.get(label, [0, 0])[1] + anyr[label]]
+        apart[0] += d_near
+        apart[1] += d_any
+    if buckets != {"T=0": 0, "T=64": 64, "moving mesh": 512,
+                   "largest bucket": 1024, "capacity": ops.TRI_TILED_MAX}:
         raise AssertionError("triangle buckets %s" % buckets)
-    # R2's outputs are booleans: its error is 1 where a ray flipped.
-    _note_err("tri_nearest", max(errs))
-    _note_err("tri_any", float(flips[1] > 0))
     r3_cases = _r3_check(ops)
     _note_err("threefry_uniform", 0.0)
     print("render kernels: tri_nearest and tri_any agree with their plain "
           "versions at T %s (131072 rays each: hits, misses, a NaN ray, "
           "rays parallel to a face and through a vertex and edges; a moving "
-          "mesh): max |t err| %.3g (rel bound %g), %d borderline "
-          "tri_nearest rays, %d borderline tri_any rays; threefry_uniform "
-          "bit-exact against its plain version and the host numpy draws in "
-          "%d cases"
-          % (sorted(buckets.values()), max(errs), TRI_T_RTOL, flips[0],
-             flips[1], r3_cases))
-    return _render_kernel_times(ops, gen, _largest_bucket_scene(pools))
+          "mesh): max |t err| %s (rel bound %g); borderline rays "
+          "[tri_nearest, tri_any] %s; the tiled kernels differ from the "
+          "generic ones on %d tri_nearest and %d tri_any rays; "
+          "threefry_uniform bit-exact against its plain version and the "
+          "host numpy draws in %d cases"
+          % (sorted(buckets.values()), json.dumps(errs), TRI_T_RTOL,
+             json.dumps(flips), apart[0], apart[1], r3_cases))
+    return _render_kernel_times(ops, gen, pools)
 
 
-def _largest_bucket_scene(pools):
-    """A scene whose two meshes are the repo's largest (360 faces each):
-    1024 triangles, the largest bucket its meshes give."""
+def _largest_bucket_scene(pools, n_meshes=2):
+    """A scene of ``n_meshes`` of the repo's largest mesh (360 faces each):
+    two give 1024 triangles, the largest bucket the CLI's scenes give; four
+    give 2048, the tiled hit kernels' capacity."""
     from sbmc_tpu_torch.render import scene as rscene
     pool = pools["obj_pool"]
     big = max(pool.paths, key=lambda p: len(pool._load(p)[1]))
@@ -2805,63 +3004,117 @@ def _largest_bucket_scene(pools):
         def sample(self, rng):
             return pool._load(big)
 
-    return rscene.random_tracer_scene(np.random.RandomState(6), n_meshes=2,
-                                      obj_pool=_One(), obj_prob=1.0)
+    return rscene.random_tracer_scene(np.random.RandomState(6),
+                                      n_meshes=n_meshes, obj_pool=_One(),
+                                      obj_prob=1.0)
 
 
-def _render_kernel_times(ops, gen, sc):
+def _render_kernel_times(ops, gen, pools):
     """R1-R3 timed at the renderer's path shape: ``ms`` on the host clock
     through the op, ``device_ms`` by CUDA-graph replay, the plain versions
-    (R1, R2 in chunks of PLAIN_CHUNK rays) on the same inputs."""
+    (R1, R2 in chunks of PLAIN_CHUNK rays) on the same inputs; the tiled R1
+    and R2 and the generic ones in turns, twice; then R1 and R2 at the
+    tiled kernels' capacity, 2048 triangles.
+    The tiled kernels skip the degenerate padding after the last real
+    triangle, so R1's bound counts n x T_real pairs and R2's the pairs up
+    to each ray's first blocker, T_real where none blocks; the line gives
+    the bound over all T (padding included) beside it."""
     from sbmc_tpu_torch.ops import reference as ref
     from sbmc_tpu_torch.render import pathtracer, prng
     numbers = {}
-    tris = pathtracer.prepare_scene(sc, "cuda")["tris"]
-    n, t_n = pathtracer._WAVEFRONT_RAYS, tris.shape[0]
-    org, dirs, time_ = _tri_rays(gen, sc, n)
-    dist = 15 * torch.rand(n, device="cuda", generator=gen)
-    what = "%d rays x %d triangles" % (n, t_n)
-    err, borderline = _check_nearest(ops, org, dirs, time_, tris, what)
-    borderline_any = _check_any(ops, org, dirs, dist, tris, what)
-    _note_err("tri_nearest", err)
-    _note_err("tri_any", float(borderline_any > 0))
-    print("render kernels at (%s), the ground-truth passes' wavefront: "
-          "tri_nearest max |t err| %.3g, %d borderline rays; tri_any %d "
-          "borderline rays" % (what, err, borderline, borderline_any))
+    for n_meshes in (2, 4):
+        sc = _largest_bucket_scene(pools, n_meshes)
+        tris = pathtracer.prepare_scene(sc, "cuda")["tris"]
+        n, t_n = pathtracer._WAVEFRONT_RAYS, tris.shape[0]
+        t_real = _real_tris(tris)
+        org, dirs, time_ = _tri_rays(gen, sc, n)
+        dist = 15 * torch.rand(n, device="cuda", generator=gen)
+        what = "%d rays x %d triangles" % (n, t_n)
+        near, d_near = _check_nearest(ops, org, dirs, time_, tris, what)
+        anyr, d_any = _check_any(ops, org, dirs, dist, tris, what)
+        print("render kernels at (%s, %d real), the ground-truth passes' "
+              "wavefront: tri_nearest max |t err| and borderline rays %s; "
+              "tri_any borderline rays %s; the tiled kernels differ from "
+              "the generic ones on %d tri_nearest and %d tri_any rays"
+              % (what, t_real, json.dumps(near), json.dumps(anyr), d_near,
+                 d_any))
+        blockers = {t: _tri_first_blockers(org, dirs, dist, tris, t)
+                    for t in (t_n, t_real)}
+        timed = {}
+        for name, args in (("tri_nearest", (org, dirs, time_, tris)),
+                           ("tri_any", (org, dirs, dist, tris))):
+            cuda = getattr(ops, "_%s_cuda" % name)
+            calls = {
+                "tiled": lambda: getattr(ops, name)(*args),
+                "generic": lambda: cuda(*args, route="generic")}
+            # In turns: tiled, generic, generic, tiled.
+            order = list(calls) + list(calls)[::-1]
+            dev = {k: [] for k in calls}
+            for k in order:
+                dev[k].append(_graph_ms(calls[k]))
+            host = {k: _time_ms(calls[k], 3, 20) for k in calls}
+            pairs = (n * np.array([t_n, t_real]) if name == "tri_nearest"
+                     else np.array([blockers[t_n], blockers[t_real]]))
+            bounds = pairs * TRI_PAIR_OPS / H100_F32_FLOPS * 1e3
+            nbytes = n * 28 + t_n * 64 + n * (9 if name == "tri_nearest"
+                                              else 1)
+            bound_ms = max(float(bounds[1]), nbytes / H100_BYTES_PER_S * 1e3)
+            timed[name] = dict(dev=dev, host=host, bound_ms=bound_ms,
+                               bound_all_ms=float(bounds[0]))
+            print("%s at (%s, %d real): device ms by kernel, in turns %s; "
+                  "host clock %s; bound %.4f ms over the real triangles "
+                  "(%.4f ms over all %d, padding included); shares %s"
+                  % (name, what, t_real, json.dumps(dev), json.dumps(host),
+                     bound_ms, bounds[0], t_n, json.dumps({
+                         k: "%.0f%% / %.0f%%" % (
+                             100 * bound_ms / min(v),
+                             100 * bounds[0] / min(v))
+                         for k, v in dev.items()})))
+        for name, plain, args in (
+                ("tri_nearest", ref.tri_nearest_ref, (org, dirs, time_, tris)),
+                ("tri_any", ref.tri_any_ref, (org, dirs, dist, tris))):
+            tm = timed[name]
+            for key, kernel in (("tiled", name),
+                                ("generic", name + "_generic")):
+                row = dict(shape=what, ms=tm["host"][key],
+                           device_ms=min(tm["dev"][key]),
+                           bound_ms=tm["bound_ms"], bound_by="operations",
+                           bound_all_triangles_ms=tm["bound_all_ms"],
+                           real_triangles=t_real)
+                if n_meshes == 4:
+                    numbers[kernel]["other_shapes"].append(row)
+                    continue
+                if key == "tiled":
+                    plain_ms = _time_ms(lambda: _plain_chunks(plain, *args),
+                                        1, 2)
+                numbers[kernel] = dict(row, plain_ms=plain_ms,
+                                       max_abs_err=_MAX_ERR[kernel],
+                                       other_shapes=[])
+        del org, dirs, time_, dist
+        torch.cuda.empty_cache()
     keys = torch.from_numpy(np.concatenate([
         pathtracer.pass_keys(prng.fold_in(prng.PRNGKey(1), i))[0]
         for i in range(64)]).view(np.int32)).cuda()
     per_pass = 128 * 128
-    runs = (
-        ("tri_nearest", lambda: ops.tri_nearest(org, dirs, time_, tris),
-         lambda: _plain_chunks(ref.tri_nearest_ref, org, dirs, time_, tris),
-         n * 28 + t_n * 64 + n * 9, n * t_n * TRI_PAIR_OPS, H100_F32_FLOPS),
-        ("tri_any", lambda: ops.tri_any(org, dirs, dist, tris),
-         lambda: _plain_chunks(ref.tri_any_ref, org, dirs, dist, tris),
-         n * 28 + t_n * 64 + n,
-         _tri_first_blockers(org, dirs, dist, tris) * TRI_PAIR_OPS,
-         H100_F32_FLOPS),
-        ("threefry_uniform", lambda: ops.random_uniform(keys, per_pass),
-         lambda: ref.threefry_uniform_ref(keys, per_pass),
-         keys.numel() * 4 + keys.shape[0] * per_pass * 4,
-         keys.shape[0] * per_pass * THREEFRY_OPS, H100_INT32_OPS))
-    for name, kernel, plain, nbytes, nops, rate in runs:
-        ms = _time_ms(kernel, 3, 20)
-        device_ms = _graph_ms(kernel)
-        plain_ms = _time_ms(plain, 1, 2)
-        by_bytes, by_ops = nbytes / H100_BYTES_PER_S, nops / rate
-        bound_ms = max(by_bytes, by_ops) * 1e3
-        by = "bytes" if by_bytes >= by_ops else "operations"
-        tag = (what if name != "threefry_uniform"
-               else "%d keys x %d values" % (keys.shape[0], per_pass))
-        print("%s at (%s): %.4f ms, %s, %.4f ms on the device, %s; plain "
-              "version %.4f ms; bound %.4f ms (%s)"
-              % (name, tag, ms, _share(ms, bound_ms), device_ms,
-                 _share(device_ms, bound_ms), plain_ms, bound_ms, by))
-        numbers[name] = dict(shape=tag, ms=ms, device_ms=device_ms,
-                             plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=by, max_abs_err=_MAX_ERR[name],
-                             other_shapes=[])
+    kernel = lambda: ops.random_uniform(keys, per_pass)  # noqa: E731
+    ms = _time_ms(kernel, 3, 20)
+    device_ms = _graph_ms(kernel)
+    plain_ms = _time_ms(lambda: ref.threefry_uniform_ref(keys, per_pass), 1,
+                        2)
+    nbytes = keys.numel() * 4 + keys.shape[0] * per_pass * 4
+    by_bytes = nbytes / H100_BYTES_PER_S
+    by_ops = keys.shape[0] * per_pass * THREEFRY_OPS / H100_INT32_OPS
+    bound_ms = max(by_bytes, by_ops) * 1e3
+    by = "bytes" if by_bytes >= by_ops else "operations"
+    tag = "%d keys x %d values" % (keys.shape[0], per_pass)
+    print("threefry_uniform at (%s): %.4f ms, %s, %.4f ms on the device, %s; "
+          "plain version %.4f ms; bound %.4f ms (%s)"
+          % (tag, ms, _share(ms, bound_ms), device_ms,
+             _share(device_ms, bound_ms), plain_ms, bound_ms, by))
+    numbers["threefry_uniform"] = dict(
+        shape=tag, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=by,
+        max_abs_err=_MAX_ERR["threefry_uniform"], other_shapes=[])
     return numbers
 
 
@@ -3006,16 +3259,18 @@ class _record_tri_inputs:
 
 
 def _check_path_tri(ops, kept, numbers):
-    """R1 and R2 held against their plain versions on the inputs the path
+    """R1 and R2 (the tiled kernels and the generic ones) held against
+    their plain versions on the inputs the path
     gave them (_record_tri_inputs), at every (rays, triangles) case it
     met; the cases go into ``numbers`` as ``path_cases``. A ray that has
     missed everything carries on from its miss point, 1e10 away
     (pathtracer._INF), and the tracer discards its hits and shadows
     (masked by ``hit``): such rays, whose float32 tests at that distance
     are noise, are left out and counted."""
-    counts = {"tri_nearest": 0, "tri_any": 0}
+    counts = {"tri_nearest": {}, "tri_any": {}}
     dead = {"tri_nearest": 0, "tri_any": 0}
-    err = 0.0
+    apart = {"tri_nearest": 0, "tri_any": 0}
+    err = {}
     with torch.inference_mode():
         for name, check in (("tri_nearest", _check_nearest),
                             ("tri_any", _check_any)):
@@ -3026,22 +3281,30 @@ def _check_path_tri(ops, kept, numbers):
                     what = "the CLI's %d rays x %d triangles" % case
                     args = (ops, org[live], dirs[live], x[live], tris, what)
                     if name == "tri_nearest":
-                        e, n = check(*args, nan_ray=False)
-                        err = max(err, e)
+                        res, d = check(*args, nan_ray=False)
+                        for label, (e, n) in res.items():
+                            err[label] = max(err.get(label, 0.0), e)
+                            counts[name][label] = \
+                                counts[name].get(label, 0) + n
                     else:
-                        n = check(*args)
-                    counts[name] += n
-    _note_err("tri_nearest", err)
-    _note_err("tri_any", float(counts["tri_any"] > 0))
+                        res, d = check(*args)
+                        for label, n in res.items():
+                            counts[name][label] = \
+                                counts[name].get(label, 0) + n
+                    apart[name] += d
     for name in counts:
-        numbers[name]["path_cases"] = sorted(kept[name])
-        numbers[name]["max_abs_err"] = _MAX_ERR[name]
+        for kernel in (name, name + "_generic"):
+            numbers[kernel]["path_cases"] = sorted(kept[name])
+            numbers[kernel]["max_abs_err"] = _MAX_ERR[kernel]
     print("render path kernels: on the CLI's own inputs (first and fourth "
           "call of each case), tri_nearest at (rays, triangles) %s: max |t "
-          "err| %.3g, %d borderline rays; tri_any at %s: %d borderline "
-          "rays; rays left out from a miss point: %s"
-          % (sorted(kept["tri_nearest"]), err, counts["tri_nearest"],
-             sorted(kept["tri_any"]), counts["tri_any"], json.dumps(dead)))
+          "err| %s, borderline rays %s; tri_any at %s: borderline rays %s; "
+          "the tiled kernels differ from the generic ones on %s rays; rays "
+          "left out from a miss point: %s"
+          % (sorted(kept["tri_nearest"]), json.dumps(err),
+             json.dumps(counts["tri_nearest"]), sorted(kept["tri_any"]),
+             json.dumps(counts["tri_any"]), json.dumps(apart),
+             json.dumps(dead)))
 
 
 def _render_path_phase(ops, tmp, numbers):
@@ -3315,6 +3578,7 @@ def main():
         numbers.update(_composed_kernel_phase(ops))
         numbers.update(_exp_kernel_phase(ops))
         by_path = {"composed_step": _composed_step_phase(ops)}
+    _channel_phase(ops, numbers)
     checkpoint = os.path.join(ROOT, "weights", "flagship_f16")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -6,8 +6,12 @@
         --tex_dir assets/textures --env_dir assets/envmaps
 
 The port of ``scripts/generate_training_data.py``'s wavefront branch, with
-that script's arguments. Scene ``i`` (``--start_index + --worker_id + i``)
-is drawn from ``RandomState(i)`` and traced from ``PRNGKey(i)`` into
+that script's arguments. Worker ``--worker_id`` of ``--num_workers``
+renders scenes ``i = --start_index + s * --num_workers + --worker_id`` for
+``s < --count``, so that the workers' scenes are disjoint (the JAX script
+renders ``--start_index + --worker_id + s``, which overlaps between workers:
+the same scenes at one worker). Scene ``i`` is drawn from
+``RandomState(i)`` and traced from ``PRNGKey(i)`` into
 ``OUT/scene_%05d/tile_%04d_%04d.bin``, as the JAX package writes it. Runs
 on ``--device cuda`` unless told otherwise, and raises when that device is
 missing. ``--renderer pbrt`` (the default, as in the script) raises
@@ -54,8 +58,8 @@ def main(args):
         tiles_per_side=args.width // args.tile_size,
         tiles_y=args.height // args.tile_size, spp=args.spp,
         gt_spp=args.gt_spp, start_index=args.start_index + args.worker_id,
-        seed=0, kpcn_mode=args.kpcn_data, device=device, stats=stats,
-        **pools)
+        stride=max(args.num_workers, 1), seed=0, kpcn_mode=args.kpcn_data,
+        device=device, stats=stats, **pools)
     print("wavefront datagen: %d scenes in %.2f s (%.2f s/scene): device "
           "%.2f s, compile %.2f s, host %.2f s, write %.2f s, sample %.2f s"
           % (count, stats["total"], stats["total"] / count, stats["device"],

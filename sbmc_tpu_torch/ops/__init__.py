@@ -46,10 +46,24 @@ The wavefront renderer (:mod:`sbmc_tpu_torch.render`) has three kernels of
 its own, with no Pallas counterpart (XLA fused their work into the JAX
 renderer): ``tri_nearest`` and ``tri_any`` launch ``csrc/trace_hits.cu``
 (every ray against every triangle of a scene, reduced to the nearest hit or
-to whether anything blocks a shadow ray) and ``random_uniform`` /
+to whether anything blocks a shadow ray; by :func:`tri_route`, the tiled
+kernels, which hold a scene's triangles in shared memory and test each pair
+without a division before the exact test, or the first port's kernels
+``tri_nearest_generic`` / ``tri_any_generic`` beyond their capacity) and
+``random_uniform`` /
 ``random_bits`` launch ``csrc/threefry.cu`` (``jax.random``'s threefry2x32
 draws, bit for bit). Their plain versions are ``reference.tri_nearest_ref``,
 ``reference.tri_any_ref`` and ``reference.threefry_uniform_ref``.
+
+Each kernel of the splat step and of kernel weighting is built for 2 and 3
+channels (:data:`KERNEL_CHANNELS`); the ops take any channel count, as the
+JAX ops do, by running the kernel once a channel group
+(:func:`channel_groups`: one zero channel appended to a single one, larger
+counts cut into groups of 3 and 2). The terms the channels share (the
+splat's ``sum_w`` and ``max_w``, kernel weighting's ``sum_w``) come from the
+first group, and the gradients that sum over channels (``d_klogits``,
+``d_weights``) add the groups' float32 parts and round once to the logits'
+or weights' dtype (:func:`splat_by_channels` and its siblings).
 
 The backward mirrors ``sbmc_tpu.ops._psu_bwd``: the running max is a
 constant (its contributions cancel in ``sum_r / sum_w``), so ``max_w`` gets
@@ -97,10 +111,19 @@ __all__ = [
     "ddata_groups",
     "s2g_route",
     "s2g_pixels",
+    "KERNEL_CHANNELS",
+    "channel_groups",
+    "splat_by_channels",
+    "ddata_by_channels",
+    "dlogits_by_channels",
+    "kw_by_channels",
+    "kw_dw_by_channels",
     "random_uniform",
     "random_bits",
     "tri_nearest",
     "tri_any",
+    "tri_route",
+    "TRI_TILED_MAX",
     "threefry_uniform_ref",
     "tri_nearest_ref",
     "tri_any_ref",
@@ -120,12 +143,19 @@ launch_counts = {"progressive_splat": 0, "progressive_splat_generic": 0,
                  "kernel_weighting_dw_generic": 0, "scatter2gather": 0,
                  "scatter2gather_generic": 0, "scatter2gather_max": 0,
                  "kernel_weighting_exp": 0, "kernel_weighting_exp_generic": 0,
-                 "tri_nearest": 0, "tri_any": 0, "threefry_uniform": 0}
+                 "tri_nearest": 0, "tri_nearest_generic": 0, "tri_any": 0,
+                 "tri_any_generic": 0, "threefry_uniform": 0}
 
-_CHANNELS = (2, 3)  # the kernels' template set
+#: Channel counts one launch of the splat and kernel-weighting kernels
+#: takes (their template set); the ops run other counts in groups of these
+#: (:func:`channel_groups`).
+KERNEL_CHANNELS = (2, 3)
 #: Kernel sizes the tiled splat and kernel-weighting kernels are built for:
 #: the models' 21, and 3 and 5 for the tests.
 TILED_KSIZES = (3, 5, 21)
+#: Triangles the tiled hit kernels hold in shared memory (64 bytes each):
+#: the scene's power-of-two buckets up to 2048.
+TRI_TILED_MAX = 2048
 
 
 def reset_launch_counts():
@@ -191,7 +221,7 @@ def kernel_weighting_exp(data, logits, maxes):
     inside the kernel (not differentiable: the outputs carry no gradient).
 
     Args:
-      data: ``[bs, c, h, w]`` float32 values, c in (2, 3) on the card.
+      data: ``[bs, c, h, w]`` float32 values.
       logits: ``[bs, k2, h, w]`` gather-kernel logits, float32 or bfloat16
         (widened to float32 before the subtraction).
       maxes: ``[bs, h, w]`` float32 per-pixel shift.
@@ -201,8 +231,10 @@ def kernel_weighting_exp(data, logits, maxes):
       sums every tap.
     """
     with torch.no_grad():
-        return (kernel_weighting_exp_ref if _on_cpu(data, logits, maxes)
-                else _kernel_weighting_exp_cuda)(data, logits, maxes)
+        if _on_cpu(data, logits, maxes):
+            return kernel_weighting_exp_ref(data, logits, maxes)
+        return kw_by_channels(_kernel_weighting_exp_cuda, data, logits,
+                              maxes)
 
 
 def progressive_splat_update(data, klogits, sum_r, sum_w, max_w):
@@ -297,8 +329,9 @@ def _on_cpu(*tensors):
 
 
 def _kw_fwd(data, weights):
-    return (kernel_weighting_ref if _on_cpu(data, weights)
-            else _kernel_weighting_cuda)(data, weights)
+    if _on_cpu(data, weights):
+        return kernel_weighting_ref(data, weights)
+    return kw_by_channels(_kernel_weighting_cuda, data, weights)
 
 
 def _s2g(weights):
@@ -332,8 +365,9 @@ class _KernelWeighting(torch.autograd.Function):
                 d_weights = kernel_weighting_dw_ref(
                     data, d_output, d_sum_w, k).to(weights.dtype)
             else:
-                d_weights = _kernel_weighting_dw_cuda(
-                    data, d_output, d_sum_w, k, weights.dtype)
+                d_weights = kw_dw_by_channels(
+                    _kernel_weighting_dw_cuda, data, d_output, d_sum_w, k,
+                    weights.dtype)
         return d_data, d_weights
 
 
@@ -357,7 +391,7 @@ class _ProgressiveSplat(torch.autograd.Function):
         if _device_of(*args).type == "cpu":
             out = progressive_splat_update_ref(*args)
         else:
-            out = _progressive_splat_cuda(*args)
+            out = splat_by_channels(_progressive_splat_cuda, *args)
         # max_w is the previous step's new max, which that step saved too.
         ctx.save_for_backward(data, klogits, max_w, out[2])
         ctx.mark_non_differentiable(out[2])
@@ -382,13 +416,156 @@ class _ProgressiveSplat(torch.autograd.Function):
             d_w = d_w.contiguous()
             cpu = _device_of(data, klogits, new_max, d_r, d_w).type == "cpu"
             if need_data:
-                d_data = (reference.progressive_splat_ddata_ref if cpu
-                          else _ddata_cuda)(klogits, new_max, d_r)
+                d_data = (reference.progressive_splat_ddata_ref(
+                    klogits, new_max, d_r) if cpu else ddata_by_channels(
+                        _ddata_cuda, klogits, new_max, d_r))
             if need_logits:
-                d_logits = (reference.progressive_splat_dlogits_ref if cpu
-                            else _dlogits_cuda)(data, klogits, new_max, d_r,
-                                                d_w)
+                d_logits = (reference.progressive_splat_dlogits_ref(
+                    data, klogits, new_max, d_r, d_w) if cpu
+                    else dlogits_by_channels(_dlogits_cuda, data, klogits,
+                                             new_max, d_r, d_w))
         return d_data, d_logits, d_sum_r, d_sum_w, d_max_w
+
+
+def channel_groups(c):
+    """The channel groups ``[(start, stop), ...]`` in which the ops run ``c``
+    channels through kernels built for :data:`KERNEL_CHANNELS`: one group
+    for 2 or 3; one group padded with zero channels to 2 for 0 or 1 (a zero
+    data channel adds nothing to any output or gradient); groups of 3 and a
+    last one or two of 2 for more (4 = 2 + 2, 5 = 3 + 2, 7 = 3 + 2 + 2),
+    never of 1."""
+    if c <= 3:
+        return [(0, c)]
+    threes = c // 3 - (1 if c % 3 == 1 else 0)
+    sizes = [3] * threes + [2] * ((c - 3 * threes) // 2)
+    stops = np.cumsum(sizes).tolist()
+    return list(zip([0] + stops[:-1], stops))
+
+
+def _planes(t, start, stop):
+    """Channels ``[start, stop)`` of ``t`` as a contiguous tensor of at least
+    2 channels (zero channels appended)."""
+    part = t[:, start:stop]
+    if stop - start < 2:
+        pad = part.new_zeros((t.shape[0], 2 - (stop - start)) + t.shape[2:])
+        part = torch.cat([part, pad], 1)
+    return part.contiguous()
+
+
+def _grouped(t):
+    """The channel groups of ``t``, or None when one kernel launch takes
+    it as it is."""
+    if t.dim() != 4 or t.shape[1] in KERNEL_CHANNELS:
+        return None
+    return channel_groups(t.shape[1])
+
+
+def splat_by_channels(step, data, klogits, sum_r, sum_w, max_w):
+    """One splat step over any channel count: ``step`` (the kernel's
+    wrapper, or anything with its arguments and results) once a channel
+    group of ``data`` and ``sum_r``; ``sum_w`` and ``max_w``, which the
+    channels share, from the first group."""
+    groups = _grouped(data)
+    if groups is None:
+        return step(data, klogits, sum_r, sum_w, max_w)
+    parts = []
+    for a, b in groups:
+        out_r, out_w, out_m = step(_planes(data, a, b), klogits,
+                                   _planes(sum_r, a, b), sum_w, max_w)
+        parts.append(out_r[:, :b - a])
+        if len(parts) == 1:
+            shared = out_w, out_m
+    return (torch.cat(parts, 1),) + shared
+
+
+def ddata_by_channels(fn, klogits, new_max, d_r):
+    """The splat step's ``d_data`` over any channel count: ``fn`` (the
+    kernel's wrapper) once a channel group of ``d_r``; each channel's
+    gradient is its own."""
+    groups = _grouped(d_r)
+    if groups is None:
+        return fn(klogits, new_max, d_r)
+    return torch.cat([fn(klogits, new_max, _planes(d_r, a, b))[:, :b - a]
+                      for a, b in groups], 1)
+
+
+def dlogits_by_channels(fn, data, klogits, new_max, d_r, d_w):
+    """The splat step's ``d_klogits`` over any channel count: ``fn`` (the
+    kernel's wrapper) once a channel group of ``data`` and ``d_r``, the
+    shared ``d_w`` given to the first group only (zero to the others). With
+    several groups, each runs on the logits widened to float32 (exact) and
+    returns float32; the parts are summed in float32 and rounded once to the
+    logits' dtype, as one launch over every channel rounds."""
+    groups = _grouped(data)
+    if groups is None:
+        return fn(data, klogits, new_max, d_r, d_w)
+    if len(groups) == 1:
+        (a, b), = groups
+        return fn(_planes(data, a, b), klogits, new_max, _planes(d_r, a, b),
+                  d_w)
+    wide, total = klogits.float(), None
+    for i, (a, b) in enumerate(groups):
+        part = fn(_planes(data, a, b), wide, new_max, _planes(d_r, a, b),
+                  d_w if i == 0 else torch.zeros_like(d_w))
+        total = part if total is None else total.add_(part)
+    return total.to(klogits.dtype)
+
+
+def kw_by_channels(fn, data, *rest):
+    """Kernel weighting (or of ``exp(logits - maxes)``) over any channel
+    count: ``fn`` (the kernel's wrapper: ``fn(data, *rest) -> (output,
+    sum_w)``) once a channel group of ``data``; ``sum_w``, which the channels
+    share, from the first group."""
+    groups = _grouped(data)
+    if groups is None:
+        return fn(data, *rest)
+    parts = []
+    for a, b in groups:
+        out, sw = fn(_planes(data, a, b), *rest)
+        parts.append(out[:, :b - a])
+        if len(parts) == 1:
+            sum_w = sw
+    return torch.cat(parts, 1), sum_w
+
+
+def kw_dw_by_channels(fn, data, d_output, d_sum_w, k, dtype):
+    """Kernel weighting's ``d_weights`` in ``dtype`` over any channel count:
+    ``fn`` (the kernel's wrapper, with ``_kernel_weighting_dw_cuda``'s
+    arguments) once a channel group of ``data`` and ``d_output``, the shared
+    ``d_sum_w`` given to the first group only (zero to the others). With
+    several groups each part comes back in float32; they are summed in
+    float32 and rounded once to ``dtype``."""
+    groups = _grouped(data)
+    if groups is None:
+        return fn(data, d_output, d_sum_w, k, dtype)
+    if len(groups) == 1:
+        (a, b), = groups
+        return fn(_planes(data, a, b), _planes(d_output, a, b), d_sum_w, k,
+                  dtype)
+    total = None
+    for i, (a, b) in enumerate(groups):
+        part = fn(_planes(data, a, b), _planes(d_output, a, b),
+                  d_sum_w if i == 0 else torch.zeros_like(d_sum_w), k,
+                  torch.float32)
+        total = part if total is None else total.add_(part)
+    return total.to(dtype)
+
+
+def tri_route(t):
+    """Which kernels ``tri_nearest`` and ``tri_any`` launch on the card for
+    ``t`` triangles.
+
+    ``"tiled"``: up to :data:`TRI_TILED_MAX`, the kernels that stage all of
+    a scene's triangles in shared memory once and run four rays a thread
+    (``tri_nearest``, ``tri_any``): every bucket the renderer's scenes give
+    them (1024 at most with the repo's meshes).
+
+    ``"generic"``: more triangles, the first port's kernels
+    (``tri_nearest_generic``, ``tri_any_generic``), which stage them in
+    chunks. This is a dispatch by shape, not a fallback: either launch
+    raises if it fails.
+    """
+    return "tiled" if t <= TRI_TILED_MAX else "generic"
 
 
 def splat_route(w, k, itemsize, aligned=True):
@@ -580,9 +757,11 @@ def _check(data, klogits, sum_r, sum_w, max_w):
                     ("sum_w", sum_w), ("max_w", max_w)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if c not in _CHANNELS:
-        raise ValueError(f"the splat kernel takes {_CHANNELS} channels, "
-                         f"got {c}")
+    if c not in KERNEL_CHANNELS:
+        raise ValueError(f"one launch of the splat kernels takes "
+                         f"{KERNEL_CHANNELS} channels, got {c}: "
+                         "ops.progressive_splat_update runs any count in "
+                         "groups (channel_groups)")
     if bs > 65535:
         raise ValueError(f"batch {bs} exceeds the kernel's grid limit 65535")
     return bs, c, h, w, k
@@ -697,8 +876,10 @@ def _check_weights(weights):
 
 
 def _check_data(name, t, like=None):
-    """Checks a float32 ``[bs, c, h, w]`` tensor of 2 or 3 channels; its
-    batch and image sizes (and channels, for a 4-tuple) against ``like``."""
+    """Checks a float32 ``[bs, c, h, w]`` tensor of
+    :data:`KERNEL_CHANNELS` channels, as one kernel launch takes it (the ops
+    group other counts: :func:`channel_groups`); its batch and image sizes
+    (and channels, for a 4-tuple) against ``like``."""
     if t.dim() != 4:
         raise ValueError(f"{name} must be [bs, c, h, w], got "
                          f"{tuple(t.shape)}")
@@ -709,9 +890,10 @@ def _check_data(name, t, like=None):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{want}")
     _check_planes(name, t, (torch.float32,))
-    if t.shape[1] not in _CHANNELS:
-        raise ValueError(f"the kernel-weighting kernels take {_CHANNELS} "
-                         f"channels, got {t.shape[1]}")
+    if t.shape[1] not in KERNEL_CHANNELS:
+        raise ValueError(f"one launch of the kernel-weighting kernels takes "
+                         f"{KERNEL_CHANNELS} channels, got {t.shape[1]}: "
+                         "the ops run any count in groups (channel_groups)")
 
 
 def _kernel_weighting_cuda(data, weights, route=None, groups=None):
@@ -891,30 +1073,47 @@ def _check_rays(org, dirs, per_ray, tris):
     return n, tris.shape[0]
 
 
-def _tri_nearest_cuda(org, dirs, time, tris):
-    """R1 on the card (``sbmc_tri_nearest`` of ``csrc/trace_hits.cu``)."""
+def _tri_nearest_cuda(org, dirs, time, tris, route=None):
+    """R1 on the card (``csrc/trace_hits.cu``): the kernel of ``route`` (by
+    default :func:`tri_route`'s), the tiled one (``sbmc_tri_nearest``) or
+    ``sbmc_tri_nearest_generic``."""
     from sbmc_tpu_torch.ops import _build
     n, t = _check_rays(org, dirs, time, tris)
     out_t = torch.full((n,), reference.TRI_MISS, device=org.device)
     out_idx = torch.zeros(n, dtype=torch.int32, device=org.device)
     out_back = torch.zeros(n, dtype=torch.bool, device=org.device)
     if n and t:
-        _launch("tri_nearest", _build.load_cuda().sbmc_tri_nearest,
-                org.device, org.data_ptr(), dirs.data_ptr(), time.data_ptr(),
+        lib = _build.load_cuda()
+        args = (org.data_ptr(), dirs.data_ptr(), time.data_ptr(),
                 tris.data_ptr(), n, t, out_t.data_ptr(), out_idx.data_ptr(),
                 out_back.data_ptr())
+        if (route or tri_route(t)) == "tiled":
+            _launch("tri_nearest", lib.sbmc_tri_nearest, org.device, *args)
+        else:
+            _launch("tri_nearest_generic", lib.sbmc_tri_nearest_generic,
+                    org.device, *args)
     return out_t, out_idx, out_back
 
 
-def _tri_any_cuda(org, dirs, dist, tris):
-    """R2 on the card (``sbmc_tri_any`` of ``csrc/trace_hits.cu``)."""
+def _tri_any_cuda(org, dirs, dist, tris, route=None):
+    """R2 on the card (``csrc/trace_hits.cu``): the kernel of ``route`` (by
+    default :func:`tri_route`'s), the tiled one (``sbmc_tri_any``, whose
+    warps take their tiles from a queue that starts at 0) or
+    ``sbmc_tri_any_generic``."""
     from sbmc_tpu_torch.ops import _build
     n, t = _check_rays(org, dirs, dist, tris)
     out = torch.zeros(n, dtype=torch.bool, device=org.device)
     if n and t:
-        _launch("tri_any", _build.load_cuda().sbmc_tri_any, org.device,
-                org.data_ptr(), dirs.data_ptr(), dist.data_ptr(),
+        lib = _build.load_cuda()
+        args = (org.data_ptr(), dirs.data_ptr(), dist.data_ptr(),
                 tris.data_ptr(), n, t, out.data_ptr())
+        if (route or tri_route(t)) == "tiled":
+            queue = torch.zeros(1, dtype=torch.int32, device=org.device)
+            _launch("tri_any", lib.sbmc_tri_any, org.device, *args,
+                    queue.data_ptr())
+        else:
+            _launch("tri_any_generic", lib.sbmc_tri_any_generic, org.device,
+                    *args)
     return out
 
 

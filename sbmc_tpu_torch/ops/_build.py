@@ -78,6 +78,10 @@ _THREEFRY_ARGS = [_P, _I, _I, _F, _F, _I, _P]
 _TRI_NEAREST_ARGS = [_P, _P, _P, _P, _I, _I, _P, _P, _P]
 #: sbmc_tri_any(org, dirs, dist, tris, n, t, out[, stream])
 _TRI_ANY_ARGS = [_P, _P, _P, _P, _I, _I, _P]
+#: the tiled sbmc_tri_any takes its queue (one int32, 0) before the
+#: stream; the host builds of the tiled loop take rays (the rays a thread)
+#: last; the generic kernels are sbmc_tri_nearest_generic and
+#: sbmc_tri_any_generic
 
 #: source -> {exported function: argument types}; the CUDA entry points take
 #: the stream as one more pointer.
@@ -105,7 +109,9 @@ _CUDA = {
         "sbmc_threefry_uniform": _THREEFRY_ARGS + [_P]},
     "trace_hits.cu": {
         "sbmc_tri_nearest": _TRI_NEAREST_ARGS + [_P],
-        "sbmc_tri_any": _TRI_ANY_ARGS + [_P]},
+        "sbmc_tri_nearest_generic": _TRI_NEAREST_ARGS + [_P],
+        "sbmc_tri_any": _TRI_ANY_ARGS + [_P, _P],
+        "sbmc_tri_any_generic": _TRI_ANY_ARGS + [_P]},
 }
 _HOST = {
     "progressive_splat_host.cpp": {
@@ -131,7 +137,9 @@ _HOST = {
         "sbmc_threefry_uniform_host": _THREEFRY_ARGS},
     "trace_hits_host.cpp": {
         "sbmc_tri_nearest_host": _TRI_NEAREST_ARGS,
-        "sbmc_tri_any_host": _TRI_ANY_ARGS},
+        "sbmc_tri_nearest_tiles_host": _TRI_NEAREST_ARGS + [_I],
+        "sbmc_tri_any_host": _TRI_ANY_ARGS,
+        "sbmc_tri_any_tiles_host": _TRI_ANY_ARGS + [_I]},
 }
 
 _lock = threading.Lock()

@@ -1116,11 +1116,14 @@ def generate_wavefront_dataset(outdir, n_scenes=2, ts=128, tiles_per_side=1,
                                spp=8, gt_spp=64, seed=0, start_index=0,
                                key=None, kpcn_mode=False, obj_pool=None,
                                tiles_y=None, tex_pool=None, env_pool=None,
-                               device="cuda", stats=None):
+                               device="cuda", stats=None, stride=1):
     """Write a folder-of-scenes dataset rendered by the wavefront tracer:
     ``scene_%05d/tile_%04d_%04d.bin``, scene ``i`` drawn from
     ``RandomState(seed + i)`` and traced from ``PRNGKey(seed + i)`` (or
-    ``key``), as the JAX package writes it.
+    ``key``), as the JAX package writes it. The scenes are ``i =
+    start_index + s * stride`` for ``s < n_scenes``: a worker of several
+    renders every ``stride``-th scene (the JAX package renders ``start_index
+    + s``, the same at ``stride`` 1).
 
     ``tiles_per_side`` sets the tile-grid width, ``tiles_y`` (default:
     square) its height. Prints a progress line every 10 scenes. ``stats``,
@@ -1142,7 +1145,7 @@ def generate_wavefront_dataset(outdir, n_scenes=2, ts=128, tiles_per_side=1,
         _build.load_cuda()
         acc["compile"] += time.time() - t0
     for s in range(n_scenes):
-        idx = start_index + s
+        idx = start_index + s * stride
         t0 = time.time()
         rng = np.random.RandomState(seed + idx)
         scene = random_tracer_scene(rng, obj_pool=obj_pool,

@@ -134,10 +134,14 @@ def test_splat_kernel_rejects_bad_inputs(device):
             ops.progressive_splat_update(
                 data, logits.transpose(2, 3).contiguous().transpose(2, 3),
                 sr, sw, mw)
-        with pytest.raises(ValueError):
-            d5, l5, r5, w5, m5 = _inputs(rng, 1, 5, 8, 9, 3, torch.float32,
-                                         True, device)
-            ops.progressive_splat_update(d5, l5, r5, w5, m5)
+        # Five channels are no longer refused: the op runs them in the
+        # channel groups 3 + 2, one launch each.
+        five = _inputs(rng, 1, 5, 8, 9, 3, torch.float32, True, device)
+        ops.reset_launch_counts()
+        got = ops.progressive_splat_update(*five)
+        assert _counts() == {_variant("progressive_splat", five[1]): 2}
+        for g, r in zip(got, ops.progressive_splat_update_ref(*five)):
+            assert torch.all((g - r).abs() <= ATOL + RTOL * r.abs())
     # Tensors that require grad are taken: the op is differentiable, and a
     # CUDA tensor launches the backward kernels.
     ops.reset_launch_counts()
@@ -321,9 +325,13 @@ def test_composed_kernels_reject_bad_inputs(device):
         with pytest.raises(ValueError, match="contiguous"):
             ops.scatter2gather(
                 weights.transpose(2, 3).contiguous().transpose(2, 3))
-        with pytest.raises(ValueError, match="channels"):
-            ops.kernel_weighting(torch.zeros(1, 5, 8, 9, device=device),
-                                 weights)
+        # Five channels run in the channel groups 3 + 2.
+        five = torch.randn(1, 5, 8, 9, device=device)
+        out, sum_w = ops.kernel_weighting(five, weights + 1)
+        want = ops.kernel_weighting_ref(five, weights + 1)
+        assert torch.all((out - want[0]).abs() <= ATOL + RTOL
+                         * want[0].abs())
+        assert torch.equal(sum_w, want[1])
         with pytest.raises(ValueError, match="expected"):
             ops.kernel_weighting(torch.zeros(1, 3, 8, 8, device=device),
                                  weights)
@@ -410,9 +418,12 @@ def test_exp_kernels_reject_bad_inputs(device):
             ops.kernel_weighting_exp(data, logits, maxes.double())
         with pytest.raises(ValueError, match="maxes has shape"):
             ops.kernel_weighting_exp(data, logits, maxes[:, :4])
-        with pytest.raises(ValueError, match="channels"):
-            ops.kernel_weighting_exp(torch.zeros(1, 4, 8, 9, device=device),
-                                     logits, maxes)
+        # Four channels run in the channel groups 2 + 2.
+        four = torch.randn(1, 4, 8, 9, device=device)
+        got = ops.kernel_weighting_exp(four, logits, maxes)
+        want = ops.kernel_weighting_exp_ref(four, logits, maxes)
+        for g, r in zip(got, want):
+            assert torch.all((g - r).abs() <= ATOL + RTOL * r.abs())
         with pytest.raises(ValueError, match="several devices"):
             ops.kernel_weighting_exp(data, logits, maxes.cpu())
 
@@ -693,3 +704,62 @@ def test_exp_kernels_at_extreme_logits(device):
                 fin = torch.isfinite(r)
                 _close(g[fin], r[fin])
     assert float(want[1][0, 2, 3]) == 0.0 and torch.isinf(want[1][0, 6, 8])
+
+
+#: Channel counts outside the kernels' template set (ops.KERNEL_CHANNELS),
+#: which the ops run in channel groups (ops.channel_groups).
+CHANNEL_CASES = [1, 4, 5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", CHANNEL_CASES)
+@pytest.mark.parametrize("hw,k", [((21, 40), 5), ((9, 7), 3)])
+def test_any_channel_count_matches_plain(device, c, hw, k, dtype):
+    """The splat step and its gradients, kernel weighting and its gradients,
+    and the exp weighting at 1, 4 and 5 channels on the card, one launch
+    of each kernel a channel group, against their plain versions with the
+    tolerances above (bfloat16 gradients to the logits or weights: the
+    plain float32 gradient rounded once, within 2**-7)."""
+    rng = np.random.RandomState(70 + c + k)
+    groups = len(ops.channel_groups(c))
+    data, logits, sr, sw, mw = _inputs(rng, 2, c, *hw, k, dtype, False,
+                                       device)
+    d_r = torch.tensor(rng.randn(2, c, *hw), dtype=torch.float32).to(device)
+    d_w = torch.tensor(rng.randn(2, 1, *hw), dtype=torch.float32).to(device)
+    x = [data.clone().requires_grad_(), logits.clone().requires_grad_()]
+    ops.reset_launch_counts()
+    out = ops.progressive_splat_update(*x, sr, sw, mw)
+    assert _counts() == {_variant("progressive_splat", logits): groups}
+    got = list(out) + list(torch.autograd.grad(
+        (out[0] * d_r).sum() + (out[1] * d_w).sum(), x))
+    want = ops.progressive_splat_update_ref(data, logits, sr, sw, mw)
+    want = list(want) + list(ops.progressive_splat_bwd_ref(
+        data, logits, want[2], d_r, d_w))
+    for i, (g, r) in enumerate(zip(got, want)):
+        rtol = 2.0 ** -7 if (i == 4 and dtype == torch.bfloat16) else RTOL
+        atol = ATOL if i < 3 else BWD_ATOL
+        assert g.dtype == r.dtype
+        assert torch.all((g.float() - r.float()).abs()
+                         <= atol + rtol * r.float().abs()), i
+
+    weights = torch.tensor(rng.randn(2, k * k, *hw),
+                           dtype=torch.float32).to(dtype).to(device)
+    d_out = torch.tensor(rng.randn(2, c, *hw), dtype=torch.float32).to(device)
+    d_sw = torch.tensor(rng.randn(2, *hw), dtype=torch.float32).to(device)
+    x = [data.clone().requires_grad_(), weights.clone().requires_grad_()]
+    out, sum_w = ops.kernel_weighting(*x)
+    d_data, d_wts = torch.autograd.grad((out * d_out).sum()
+                                        + (sum_w * d_sw).sum(), x)
+    want_out, want_sw = ops.kernel_weighting_ref(data, weights)
+    want_dw = ops.kernel_weighting_dw_ref(data, d_out, d_sw, k)
+    want_dd = ops.kernel_weighting_ref(d_out, ops.scatter2gather_ref(
+        weights))[0]
+    for g, r in ((out, want_out), (sum_w, want_sw), (d_data, want_dd)):
+        assert torch.all((g - r).abs() <= ATOL + RTOL * r.abs())
+    _close_dw(d_wts, want_dw, dtype)
+
+    exp_in = _exp_inputs(rng, 2, c, hw, k, dtype, device)
+    for g, r in zip(ops.kernel_weighting_exp(*exp_in),
+                    ops.kernel_weighting_exp_ref(*exp_in)):
+        assert torch.all((g - r).abs() <= ATOL + RTOL * r.abs())

@@ -105,3 +105,40 @@ def test_tile_renders_on_the_card(device):
     # and one normal draw.
     assert {k: v for k, v in ops.launch_counts.items() if v} == {
         "tri_nearest": 12, "tri_any": 24, "threefry_uniform": 4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_meshes", [0, 2, 4])
+def test_tiled_and_generic_triangle_kernels_agree(device, n_meshes):
+    """The tiled kernels against the generic ones, which they replace on
+    every path, and the routes: up to ops.TRI_TILED_MAX triangles tiled.
+    The tiled kernels decide every returned value with th_finish, the
+    generic ones' arithmetic, so they may differ only where nvcc contracts
+    the two differently: at most 1 ray in 10^4."""
+    sc = scene.random_tracer_scene(np.random.RandomState(3),
+                                   n_meshes=n_meshes, obj_prob=1.0)
+    tris = pathtracer.prepare_scene(sc, device)["tris"]
+    assert ops.tri_route(tris.shape[0]) == "tiled"
+    assert ops.tri_route(ops.TRI_TILED_MAX + 1) == "generic"
+    gen = torch.Generator(device=device).manual_seed(n_meshes)
+    n = (1 << 15) + 17
+    org = (torch.tensor(sc.cam_pos, dtype=torch.float32, device=device)
+           + 0.3 * torch.randn(n, 3, device=device, generator=gen))
+    dirs = torch.randn(n, 3, device=device, generator=gen)
+    dirs[:, 2] = dirs[:, 2].abs() + 1.0
+    dirs = dirs / dirs.norm(dim=1, keepdim=True)
+    time_ = torch.rand(n, device=device, generator=gen)
+    dist = 15 * torch.rand(n, device=device, generator=gen)
+    ops.reset_launch_counts()
+    want_t = ops._tri_nearest_cuda(org, dirs, time_, tris, route="generic")
+    want_any = ops._tri_any_cuda(org, dirs, dist, tris, route="generic")
+    t, idx, back = ops.tri_nearest(org, dirs, time_, tris)
+    same = ((t.view(torch.int32) == want_t[0].view(torch.int32))
+            & (idx == want_t[1]) & (back == want_t[2]))
+    assert (~same).sum() <= n // 10000
+    blocked = ops.tri_any(org, dirs, dist, tris)
+    assert (blocked != want_any).sum() <= n // 10000
+    if tris.shape[0]:
+        assert {k: v for k, v in ops.launch_counts.items() if v} == {
+            "tri_nearest": 1, "tri_nearest_generic": 1, "tri_any": 1,
+            "tri_any_generic": 1}

@@ -18,8 +18,11 @@ Tolerances:
   in float64) of the edge of the triangle either one hit.
 """
 
+import ctypes
 import importlib.util
 import os
+import shutil
+import subprocess
 
 import jax
 import jax.numpy as jnp
@@ -340,3 +343,147 @@ def test_float32_edge_rounding_within_the_smokes_margin():
     assert pairs > 1000
     assert float(torch.cat(errs).max()) > cs.TRI_EDGE
     assert float(torch.cat(ratios).max()) <= 0.5
+
+
+# ---------------------------------------------------------------------------
+# The tiled kernels' loop (trace_hits.cuh: th_may_hit's division-free
+# filter, then th_finish on the pairs it passes; R2 at time 0 without the
+# motion products; the degenerate padding skipped) against the generic
+# kernels' th_hit loop, bit for bit, through the host builds.
+
+def _host_tiles(lib, kind, org, dirs, x, tris, rays):
+    """``kind`` "nearest" or "any" through a host library's tiled loop
+    (``rays`` a thread; None: the generic loop)."""
+    n, t = len(org), len(tris)
+    tris = np.ascontiguousarray(tris, np.float32)
+    args = [org.ctypes.data, dirs.ctypes.data, x.ctypes.data,
+            tris.ctypes.data, n, t]
+    extra = [] if rays is None else [rays]
+    suffix = "_host" if rays is None else "_tiles_host"
+    if kind == "nearest":
+        out = (np.empty(n, np.float32), np.empty(n, np.int32),
+               np.empty(n, np.uint8))
+        fn = getattr(lib, "sbmc_tri_nearest" + suffix)
+        assert fn(*args, *(o.ctypes.data for o in out), *extra) == 0
+        return out
+    out = np.empty(n, np.uint8)
+    fn = getattr(lib, "sbmc_tri_any" + suffix)
+    assert fn(*args, out.ctypes.data, *extra) == 0
+    return (out,)
+
+
+def _planted(sc, n, seed):
+    """Rays planted on the tests' decision boundaries of the real
+    triangles (at time 0, where the triangles stand as packed): through a
+    vertex or a point of an edge (u = 0, v = 0, u + v = 1) from 0.5 or 1e-3
+    (the t floor) away, some grazing (along an edge, tilted out of the
+    plane by 1e-3 or 1e-6); and R2 distances that put each crossing at
+    dist - 1e-3 within ulps."""
+    rng = np.random.RandomState(seed)
+    real = np.nonzero(np.abs(np.cross(sc.tri_e1, sc.tri_e2)).sum(1) > 0)[0]
+    tri = rng.choice(real, n)
+    v0, e1, e2 = (np.asarray(a, np.float64)[tri]
+                  for a in (sc.tri_v0, sc.tri_e1, sc.tri_e2))
+    s = rng.rand(n, 1)
+    kind = rng.randint(0, 4, n)
+    s[kind == 3] = rng.randint(0, 2, ((kind == 3).sum(), 1))  # vertices
+    p = np.where((kind == 0)[:, None], v0 + s * e1,
+                 np.where((kind == 1)[:, None], v0 + s * e2,
+                          v0 + s * e1 + (1 - s) * e2))
+    nrm = np.cross(e1, e2)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    d = rng.normal(size=(n, 3))
+    graze = rng.rand(n) < 0.25
+    tilt = np.where(rng.rand(n) < 0.5, 1e-3, 1e-6)[:, None]
+    along = e1 / np.linalg.norm(e1, axis=1, keepdims=True)
+    d[graze] = (along + tilt * nrm)[graze]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    length = np.where(rng.rand(n) < 0.2, 1e-3, 0.5)[:, None]
+    org = (p - length * d).astype(np.float32)
+    dirs = d.astype(np.float32)
+    dist = (length[:, 0] + 1e-3).astype(np.float32)
+    return org, dirs, np.zeros(n, np.float32), dist
+
+
+def _hit_cases():
+    """(scene, org, dirs, time, dist): the CPU tests' random rays (hits,
+    misses, a NaN ray, a parallel one, rays through a vertex, an edge and
+    the hypotenuse) and planted ones, at the largest bucket (1024
+    triangles), on a moving mesh and on analytic-only and 1-mesh scenes."""
+    pools = {"obj_pool": assets.ObjPool("assets/objs")}
+    big = _chip_smoke()._largest_bucket_scene(pools)
+    # One of its two meshes moves, the other stands: the tiled R1 tests
+    # the standing one's triangles without the motion terms.
+    big.motion = np.zeros_like(big.motion)
+    big.motion[big.tri_prim[0]] = [0.3, -0.2, 0.1]
+    scenes = [(big, 2000), (_scene(assets, 5, True), 1500),
+              (_scene(assets, 9, False, 1), 1500)]
+    for i, (sc, n) in enumerate(scenes):
+        org, dirs, time = _rays(sc, n, seed=i)
+        dist = np.random.RandomState(i).uniform(0, 15, len(org)).astype(
+            np.float32)
+        dist[:3] = [reference.TRI_MISS, np.nan, 0.0]
+        po, pd, pt, pdist = _planted(sc, n, 100 + i)
+        # Times that are not finite miss everything, planted hits too.
+        pt[::20], pt[1::20], pt[2::20] = np.nan, np.inf, -np.inf
+        yield (sc, np.concatenate([org, po]), np.concatenate([dirs, pd]),
+               np.concatenate([time, pt]), np.concatenate([dist, pdist]))
+
+
+def _same(got, want):
+    return all(np.array_equal(g.view(np.uint8), w.view(np.uint8))
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("rays", [1, 2, 4])
+def test_tiled_loop_is_the_generic_loop_bit_for_bit(rays):
+    """Over more than 10^6 ray x triangle pairs, the filtered loop gives
+    the generic loop's distances, indices, back-face flags and shadow
+    results bit for bit: the filter drops no pair that th_hit accepts
+    (NaN, parallel, grazing rays, crossings on edges and vertices, at the
+    1e-3 floor and at the shadow ray's limit), R2's time-0 terms without
+    the motion products change nothing on moving meshes, R1's test of a
+    standing mesh without them changes nothing at any time (rays whose
+    time is not finite included), and skipping the degenerate padding
+    changes nothing."""
+    lib = _build.load_host()
+    pairs = 0
+    for sc, org, dirs, time, dist in _hit_cases():
+        tris = pathtracer.prepare_scene(sc, "cpu")["tris"].numpy()
+        pairs += len(org) * len(tris)
+        for kind, x in (("nearest", time), ("any", dist)):
+            want = _host_tiles(lib, kind, org, dirs, x, tris, None)
+            got = _host_tiles(lib, kind, org, dirs, x, tris, rays)
+            assert _same(got, want), (kind, len(tris))
+        if len(tris) == 1024:
+            # The padding really is skipped: the bucket's last triangles
+            # are degenerate.
+            assert not np.abs(tris[-1, :3]).any()
+    assert pairs > 10 ** 6
+
+
+def test_a_filter_without_its_margin_fails_on_the_planted_rays(tmp_path):
+    """The mutant: the host build with the filter's margin K set to 0 (so
+    it drops a pair as soon as the approximate u, v or t fall outside)
+    differs from the generic loop on the planted edge rays, which shows the
+    equality above can catch a filter that is not conservative."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    out = str(tmp_path / "libtrace_hits_k0.so")
+    subprocess.run([cxx] + _build.HOST_FLAGS + ["-DTH_FILTER_K=0.0f", "-o",
+                   out, os.path.join(_build.CSRC, "trace_hits_host.cpp")],
+                   check=True)
+    mutant = ctypes.CDLL(out)
+    lib = _build.load_host()
+    for name in ("sbmc_tri_nearest_tiles_host", "sbmc_tri_any_tiles_host"):
+        fn = getattr(mutant, name)
+        fn.argtypes = getattr(lib, name).argtypes
+    differ = {"nearest": 0, "any": 0}
+    for sc, org, dirs, time, dist in _hit_cases():
+        tris = pathtracer.prepare_scene(sc, "cpu")["tris"].numpy()
+        for kind, x in (("nearest", time), ("any", dist)):
+            want = _host_tiles(lib, kind, org, dirs, x, tris, None)
+            got = _host_tiles(mutant, kind, org, dirs, x, tris, 4)
+            assert _same(_host_tiles(lib, kind, org, dirs, x, tris, 4),
+                         want)
+            differ[kind] += int((got[0] != want[0]).sum())
+    assert differ["nearest"] > 0 and differ["any"] > 0, differ
