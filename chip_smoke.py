@@ -81,9 +81,33 @@ Phases, each printing one line (or a few) before the last:
    (d) the flagship architecture trained on that corpus for 4 steps (bf16
    convs; the forward and logits-gradient kernels steps x spp times) and
    its frames denoised with the checkpoint.
+12. scatter vs gather: ``python -m sbmc_tpu_torch.scatter_vs_gather`` at its
+   defaults (200 steps a variant, batch 4 x 4 spp of 64x64, one channel,
+   k = 3, width 32): kernel weighting, its weight gradient and
+   scatter2gather first held against their plain versions at the toy's
+   (16, 1, 64, 64), k = 3, float32; every splat step launches
+   scatter2gather twice (forward, and backward: it is self-adjoint) and
+   kernel weighting and its weight gradient once each, every gather step no
+   scatter2gather; losses.csv, the strips and the ``final:`` line are
+   checked, and three steps of both variants on the card agree with the
+   CPU's;
+13. checkpoint probes: ``python -m sbmc_tpu_torch.probe_vs_input`` on the
+   corpus of 11c with the checkpoint of 11d and with
+   ``weights/flagship_f16`` (4 tiles of 128x128 at 8 spp: the splat kernel
+   tiles x spp times), the flagship's first tile scored on the CPU too; then
+   ``python -m sbmc_tpu_torch.kernel_grids`` on 11d's checkpoint (a 64x64
+   crop: 8 launches) and its PNGs;
+14. microbenchmarks: ``python -m sbmc_tpu_torch.profile_kernel_weighting``
+   and ``profile_scatter2gather`` at their defaults (4x3x128x128, k = 21,
+   float32), with the kernels and with ``--backend plain`` (no launch), and
+   ``profile_model_stages`` at its defaults (1216x768, 4 spp, width 128, k
+   = 21) in bfloat16 and with ``--f32``; their lines are printed, their
+   launches counted (the splat kernel at (1, 3, 1216, 768) in both logit
+   types).
 
 The composed kernels' phases and the other entry points run between these
-(4b to 4e after 4, 6b after 6, 8b to 8i after 8):
+(4b to 4e after 4, 6b after 6, 8b to 8i after 8; 12 after 8i, 13 after 11d,
+14 after 10):
 
 4b. composed kernels: holds kernel weighting and its gradient to the
     weights (each as the tiled kernel and the generic one) and
@@ -248,23 +272,31 @@ KERNELS = (
 #: which nothing asks for): the gradient phase runs it inside the model.
 #: Likewise scatter2gather: KPCN and the gather model predict gather kernels,
 #: so only the composed gradient phase (splat kernels through
-#: ``kernel_apply``, and every backward to the data) transposes any. The two
-#: exp kernels run where the op API composes them into the splat step.
+#: ``kernel_apply``, and every backward to the data), the scatter-vs-gather
+#: experiment's splat variant (the first training path that transposes) and
+#: the op profiles transpose any. The two exp kernels run where the op API
+#: composes them into the splat step.
 MUST_LAUNCH = {
     "progressive_splat": ("denoise", "train", "train_bf16", "gradient",
                           "eval", "reservoir", "reservoir_bf16",
                           "checkpoint_tools", "trace", "bench",
-                          "bench_ragged", "render_train", "render_denoise"),
+                          "bench_ragged", "render_train", "render_denoise",
+                          "probe_vs_input", "probe_vs_input_flagship",
+                          "kernel_grids", "profile_model_stages",
+                          "profile_model_stages_f32"),
     "progressive_splat_ddata": ("gradient",),
     "progressive_splat_dlogits": ("train", "train_bf16", "gradient",
                                   "reservoir", "reservoir_bf16",
                                   "render_train"),
     "kernel_weighting": ("kpcn_train", "kpcn_train_bf16", "kpcn_denoise",
                          "gather_train", "gradient_composed", "eval",
-                         "bench_kpcn"),
+                         "bench_kpcn", "scatter_vs_gather",
+                         "profile_kernel_weighting"),
     "kernel_weighting_dw": ("kpcn_train", "kpcn_train_bf16", "gather_train",
-                            "gradient_composed"),
-    "scatter2gather": ("gradient_composed",),
+                            "gradient_composed", "scatter_vs_gather",
+                            "profile_kernel_weighting"),
+    "scatter2gather": ("gradient_composed", "scatter_vs_gather",
+                       "profile_kernel_weighting", "profile_scatter2gather"),
     "scatter2gather_max": ("composed_step",),
     "kernel_weighting_exp": ("composed_step",),
     "progressive_splat_generic": (),
@@ -309,7 +341,9 @@ _OP_OF = {"progressive_splat": "splat", "progressive_splat_ddata": "splat",
 #: checkpoint, the gradient phase's input, the evaluation path's ragged
 #: tiles of a 256x256 frame (160 and 64 px sides), and the bench's 1080x1920
 #: frame: one uniform tile of 1080x2048, or the denoise CLI's ragged tiles
-#: (512 and 312 rows, 512 and 384 columns). The kernel phases compare at
+#: (512 and 312 rows, 512 and 384 columns); the stage profile's 1216x768
+#: strip in both logit types (phase 14). The probes' tiles and crop (phase
+#: 13) are the 128x128 and 64x64 bf16 entries. The kernel phases compare at
 #: each; _check_shapes holds the paths to it.
 PATH_SHAPES = (
     (1, 3, 160, 160, torch.bfloat16),
@@ -325,6 +359,8 @@ PATH_SHAPES = (
     (1, 3, 512, 384, torch.bfloat16),
     (1, 3, 312, 512, torch.bfloat16),
     (1, 3, 312, 384, torch.bfloat16),
+    (1, 3, 1216, 768, torch.bfloat16),
+    (1, 3, 1216, 768, torch.float32),
 )
 #: (bs, c, h, w, weight type) the paths give kernel weighting, k = 21: a
 #: KPCN training batch of 128x128 tiles less the 36 px the valid convs take
@@ -333,7 +369,9 @@ PATH_SHAPES = (
 #: (its weights are exp(logits - max), float32), and the composed gradient
 #: phase's KPCN tile (64 less 36) and kernel_apply input, the
 #: evaluation path's ragged KPCN tiles (bf16 checkpoint; 160 and 64 px
-#: sides less 36), and the KPCN bench's tile (1160x2000 less 36, bf16).
+#: sides less 36), and the KPCN bench's tile (1160x2000 less 36, bf16). The
+#: gather-model batch is also the op profiles' shape (phase 14: kernel
+#: weighting, its gradients and scatter2gather at 4x3x128x128, k = 21).
 KW_PATH_SHAPES = (
     (4, 3, 92, 92, torch.float32),
     (4, 3, 92, 92, torch.bfloat16),
@@ -3557,6 +3595,263 @@ def _bench_phase(ops):
     return launches
 
 
+#: Phase 12's kernel-weighting case: the toy's batch of 4 x 4 samples of one
+#: channel at 64x64, k = 3, float32 (its splat variant transposes weights of
+#: the same planes).
+SVG_SHAPE = (16, 1, 64, 64, 3, torch.float32)
+#: The card's toy losses against the CPU's over three steps: float32 convs
+#: (no TF32) and softmax sums in other orders, as tests/test_torch_figures.py
+#: holds the port to the JAX script.
+SVG_RTOL = 1e-4
+#: The flagship's probe score on the card against the CPU: bfloat16 convs
+#: round at other places in cuDNN and on the CPU (MODEL_TOL); the loss, a
+#: mean over the tile, moves far less than single pixels.
+PROBE_RTOL = 1e-2
+
+
+def _svg_kernel_check(ops):
+    """Kernel weighting, its weight gradient and scatter2gather against
+    their plain versions at SVG_SHAPE (one channel: a group padded to two,
+    as the op runs it)."""
+    bs, c, h, w, k, dtype = SVG_SHAPE
+    if ops.kw_route(k) != "tiled" or ops.s2g_route(k) != "tiled":
+        raise AssertionError("k = %d does not take the tiled kernels" % k)
+    data, weights, d_out, d_sw = _kw_inputs(np.random.RandomState(12), bs,
+                                            c, h, w, k, dtype)
+    case = _case(data, weights)
+    for name in ("kernel_weighting", "kernel_weighting_dw"):
+        _COMPARED[name].add(case)
+    out, sum_w = ops.kernel_weighting(data, weights)
+    d_wts = ops.kw_dw_by_channels(ops._kernel_weighting_dw_cuda, data, d_out,
+                                  d_sw, k, dtype)
+    want_out, want_sw = ops.kernel_weighting_ref(data, weights)
+    want_dw = ops.kernel_weighting_dw_ref(data, d_out, d_sw, k)
+    torch.cuda.synchronize()
+    _kw_check("kernel_weighting", case, out, want_out, torch.float32)
+    _kw_check("kernel_weighting", case, sum_w, want_sw, torch.float32)
+    _kw_check("kernel_weighting_dw", case, d_wts, want_dw, dtype)
+    _check_s2g(ops, weights)
+
+
+def _svg_card_against_cpu(tmp):
+    """Three steps of both variants of the experiment (width 8) on the card
+    and on the CPU from the same weights: every loss within SVG_RTOL."""
+    import contextlib
+    import io
+    from sbmc_tpu_torch import scatter_vs_gather as svg
+    from sbmc_tpu_torch.params import export_jax_params
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        params = export_jax_params(svg.Toy(True, 8))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            res[dev] = svg.run(os.path.join(tmp, "svg_" + dev), steps=3,
+                               width=8, device=dev, params=params)
+    for name in ("splat", "gather"):
+        got, want = np.array(res["cuda"][name]), np.array(res["cpu"][name])
+        if not np.allclose(got, want, rtol=SVG_RTOL, atol=0):
+            raise AssertionError("scatter_vs_gather %s losses on the card %s "
+                                 "against the CPU's %s" % (name, got, want))
+    return res
+
+
+def _scatter_vs_gather_phase(ops, tmp):
+    """12: ``python -m sbmc_tpu_torch.scatter_vs_gather`` at its defaults,
+    with the launches of every step counted; returns the path's launch
+    counts."""
+    import contextlib
+    import io
+    from sbmc_tpu_torch import scatter_vs_gather as svg
+    from sbmc_tpu_torch.utils.image import read_png
+
+    _svg_kernel_check(ops)
+    small = _svg_card_against_cpu(tmp)
+    out = os.path.join(tmp, "scatter_vs_gather")
+    per_step = {True: [], False: []}
+    plain_step = svg._step
+
+    def counted(model, *args):
+        before = dict(ops.launch_counts)
+        loss = plain_step(model, *args)
+        per_step[model.splat].append(_nonzero(
+            {n: ops.launch_counts[n] - before[n] for n in before}))
+        return loss
+
+    log = io.StringIO()
+    ops.reset_launch_counts()
+    svg._step = counted
+    t0 = time.perf_counter()
+    try:
+        with _record_shapes(ops) as seen, contextlib.redirect_stdout(log):
+            res = svg.main([out, "--device", "cuda"])
+    finally:
+        svg._step = plain_step
+    secs = time.perf_counter() - t0
+    launches = dict(ops.launch_counts)
+    _check_shapes("scatter_vs_gather", seen, [
+        "kernel_weighting", "kernel_weighting_dw", "scatter2gather"])
+    steps = len(res["splat"])
+    want = {True: {"scatter2gather": 2, "kernel_weighting": 1,
+                   "kernel_weighting_dw": 1},
+            False: {"kernel_weighting": 1, "kernel_weighting_dw": 1}}
+    for splat, counts in per_step.items():
+        bad = [i for i, c in enumerate(counts) if c != want[splat]]
+        if len(counts) != steps or bad:
+            raise AssertionError("scatter_vs_gather %s steps launched %s"
+                                 % ("splat" if splat else "gather",
+                                    [counts[i] for i in bad[:3]]))
+    # Beside the steps: each variant's forward on its first batch.
+    total = {"scatter2gather": 2 * steps + 1,
+             "kernel_weighting": 2 * steps + 2,
+             "kernel_weighting_dw": 2 * steps}
+    if _nonzero(launches) != total:
+        raise AssertionError("scatter_vs_gather launched %s, expected %s"
+                             % (_nonzero(launches), total))
+    with open(os.path.join(out, "losses.csv"), newline="") as f:
+        rows = list(csv.reader(f))
+    if rows[0] != ["step", "splat", "gather"] or len(rows) != steps + 1 \
+            or not all(np.isfinite(float(v)) for r in rows[1:] for v in r):
+        raise AssertionError("losses.csv: %d rows, header %s"
+                             % (len(rows), rows[0]))
+    for name in ("splat", "gather"):
+        strip = read_png(os.path.join(out, name + ".png"))
+        if strip.shape != (62, 124) or strip.dtype != np.uint8:
+            raise AssertionError("%s.png is %s %s" % (name, strip.shape,
+                                                      strip.dtype))
+    final = [ln for ln in log.getvalue().splitlines()
+             if ln.startswith("final: ")]
+    if len(final) != 1:
+        raise AssertionError("scatter_vs_gather printed no final line")
+    print("scatter vs gather: %d steps a variant in %.1f s (batch 4 x 4 spp "
+          "of 64x64, width 32); %s; per splat step %s, per gather step %s; "
+          "3 steps card against CPU within %.0e (splat %.6g vs %.6g); "
+          "losses.csv, splat.png, gather.png" % (
+              steps, secs, final[0], json.dumps(want[True]),
+              json.dumps(want[False]), SVG_RTOL, small["cuda"]["splat"][-1],
+              small["cpu"]["splat"][-1]))
+    return launches
+
+
+def _probe_phase(ops, tmp, corpus, flagship, spp=8):
+    """13: ``probe_vs_input`` on 11d's checkpoint and on the flagship (its
+    first tile scored on the CPU too), then ``kernel_grids`` on 11d's
+    checkpoint; returns each path's launch counts."""
+    import contextlib
+    import io
+    from sbmc_tpu_torch import kernel_grids, probe_vs_input
+    from sbmc_tpu_torch.data.datasets import TilesDataset
+    from sbmc_tpu_torch.models.build import build_model
+    from sbmc_tpu_torch.train.checkpointer import Checkpointer
+    from sbmc_tpu_torch.utils.image import read_png
+
+    ckpt = os.path.join(tmp, "ckpt_render")
+    launches = {}
+    for tag, src in (("probe_vs_input", ckpt),
+                     ("probe_vs_input_flagship", flagship)):
+        log = io.StringIO()
+        ops.reset_launch_counts()
+        with _record_shapes(ops) as seen, contextlib.redirect_stdout(log):
+            res = probe_vs_input.main([corpus, src, "--spp", str(spp),
+                                       "--device", "cuda"])
+        launches[tag] = dict(ops.launch_counts)
+        _check_shapes(tag, seen, ["progressive_splat"])
+        want = {"progressive_splat": len(res["tiles"]) * spp}
+        if _nonzero(launches[tag]) != want:
+            raise AssertionError("%s launched %s, expected %s" % (
+                tag, _nonzero(launches[tag]), want))
+        scores = res["model"] + res["input"]
+        if len(res["tiles"]) != 4 or not np.all(np.isfinite(scores)):
+            raise AssertionError("%s scored %s" % (tag, res))
+        print("%s (%s): %d tiles, %d splat launches; %s" % (
+            tag, os.path.basename(src), len(res["tiles"]),
+            want["progressive_splat"], log.getvalue().splitlines()[-1]))
+    # The flagship's first tile on the CPU: the same score within
+    # PROBE_RTOL (the input mean's to float32 rounding).
+    model = build_model(Checkpointer.load_meta(flagship))
+    probe_vs_input.load_params(flagship, model)
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, cpu_m, cpu_i = probe_vs_input.score_tiles(
+            model.eval(), TilesDataset(corpus, spp=spp), 1,
+            torch.device("cpu"))
+    if not (np.isclose(cpu_m[0], res["model"][0], rtol=PROBE_RTOL, atol=0)
+            and np.isclose(cpu_i[0], res["input"][0], rtol=1e-6, atol=0)):
+        raise AssertionError("flagship probe: card %s / %s, CPU %s / %s" % (
+            res["model"][0], res["input"][0], cpu_m[0], cpu_i[0]))
+    print("probe_vs_input_flagship tile 0 on the CPU: model %.6g (card "
+          "%.6g, within %.0e), input mean %.6g (card %.6g)" % (
+              cpu_m[0], res["model"][0], PROBE_RTOL, cpu_i[0],
+              res["input"][0]))
+
+    out = os.path.join(tmp, "kernel_grids")
+    log = io.StringIO()
+    ops.reset_launch_counts()
+    with _record_shapes(ops) as seen, contextlib.redirect_stdout(log):
+        n = kernel_grids.main(["--input", corpus, "--checkpoint", ckpt,
+                               "--output", out, "--device", "cuda"])
+    launches["kernel_grids"] = dict(ops.launch_counts)
+    _check_shapes("kernel_grids", seen, ["progressive_splat"])
+    if _nonzero(launches["kernel_grids"]) != {"progressive_splat": spp}:
+        raise AssertionError("kernel_grids launched %s"
+                             % _nonzero(launches["kernel_grids"]))
+    rad = read_png(os.path.join(out, "output.png"))
+    grids = [read_png(os.path.join(out, "kernels_sample%02d.png" % s))
+             for s in range(n)]
+    if n != 4 or rad.shape != (44, 44, 3) or any(
+            g.shape != (64 * 21, 64 * 21) or g.max() == 0 for g in grids):
+        raise AssertionError("kernel_grids wrote %d grids, output %s" % (
+            n, rad.shape))
+    print("kernel_grids: %s; output.png %s, %d grids of %s, each with its "
+          "peak at %d" % (log.getvalue().strip(), rad.shape, n,
+                          grids[0].shape, max(g.max() for g in grids)))
+    return launches
+
+
+def _profile_phase(ops):
+    """14: the op profiles (kernels, then their plain versions) and the
+    stage profile in bf16 and float32, at their defaults; returns each
+    kernel path's launch counts."""
+    from sbmc_tpu_torch import (profile_kernel_weighting,
+                                profile_model_stages, profile_scatter2gather)
+
+    calls = 1 + 5 + 20  # the profiles' first call, warm-ups and iterations
+    runs = (("profile_kernel_weighting", profile_kernel_weighting, [],
+             ["kernel_weighting"],
+             {"kernel_weighting": 3 * calls, "scatter2gather": calls,
+              "kernel_weighting_dw": calls}),
+            ("profile_scatter2gather", profile_scatter2gather, [],
+             ["scatter2gather"], {"scatter2gather": 3 * calls}),
+            ("profile_model_stages", profile_model_stages, [],
+             ["progressive_splat"], {"progressive_splat": 2 * 6 * 4}),
+            ("profile_model_stages_f32", profile_model_stages, ["--f32"],
+             ["progressive_splat"], {"progressive_splat": 2 * 6 * 4}))
+    launches = {}
+    for tag, mod, argv, kernels, want in runs:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        with _record_shapes(ops) as seen:
+            times = mod.main(argv + ["--device", "cuda"])
+        launches[tag] = dict(ops.launch_counts)
+        _check_shapes(tag, seen, kernels)
+        if _nonzero(launches[tag]) != want or not all(
+                np.isfinite(t) and t > 0 for t in times.values()):
+            raise AssertionError("%s launched %s (expected %s), times %s"
+                                 % (tag, _nonzero(launches[tag]), want,
+                                    times))
+        print("%s: launches %s, peak device memory %.2f GB" % (
+            tag, json.dumps(want), torch.cuda.max_memory_allocated() / 1e9))
+        if mod is not profile_model_stages:
+            ops.reset_launch_counts()
+            mod.main(["--backend", "plain", "--device", "cuda"])
+            if any(ops.launch_counts.values()):
+                raise AssertionError("%s --backend plain launched %s" % (
+                    tag, _nonzero(ops.launch_counts)))
+            print("%s --backend plain: no kernel launched" % tag)
+    return launches
+
+
 def main():
     _device_phase()
     if not os.path.isdir(os.path.join(ROOT, "sbmc_tpu_torch")):
@@ -3596,15 +3891,18 @@ def main():
         _decode_phase(tmp)
         by_path["checkpoint_tools"] = _checkpoint_tools_phase(ops, tmp)
         by_path["trace"] = _trace_phase(ops, tmp, checkpoint)
+        by_path["scatter_vs_gather"] = _scatter_vs_gather_phase(ops, tmp)
         with torch.inference_mode():
             numbers.update(_render_kernel_phase(ops))
             _render_tile_phase(ops)
         corpus, by_path["render"] = _render_path_phase(ops, tmp, numbers)
         _render_plain_phase(ops)
         by_path.update(_render_train_phase(ops, tmp, corpus))
+        by_path.update(_probe_phase(ops, tmp, corpus, checkpoint))
     _scale_phase(checkpoint)
     _baseline_scale_phase(labels)
     by_path.update(_bench_phase(ops))
+    by_path.update(_profile_phase(ops))
 
     kernels = []
     for name, source, replaces in KERNELS:

@@ -37,7 +37,6 @@ import argparse
 import json
 import os
 import subprocess
-import time
 
 import numpy as np
 import torch
@@ -47,6 +46,7 @@ from sbmc_tpu_torch.parallel.tiles import (_pair, merge_tiles,
                                            merge_tiles_uniform, pad_back,
                                            split_tiles, split_tiles_uniform)
 from sbmc_tpu_torch.utils.device import resolve_device
+from sbmc_tpu_torch.utils.timing import elapsed_ms
 
 __all__ = ["main", "parse_args", "geometry", "build_model", "tile_inputs",
            "run_frame", "merge_frame", "Geometry"]
@@ -190,20 +190,6 @@ def _device_name(device):
             device)
 
 
-def _frame_ms(fn, device):
-    if device.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end)
-    t0 = time.perf_counter()
-    fn()
-    return (time.perf_counter() - t0) * 1e3
-
-
 def main(args):
     """Run the benchmark; prints the JSON line and returns it as a dict."""
     device = resolve_device(args.device)
@@ -232,7 +218,7 @@ def main(args):
                 merged.shape, bool(np.isfinite(merged).all())))
         for _ in range(args.warmup - 1):
             frame()
-        ms = [_frame_ms(frame, device) for _ in range(args.iters)]
+        ms = [elapsed_ms(frame, device) for _ in range(args.iters)]
 
     dt = float(np.median(ms)) / 1e3
     fps = 1.0 / dt

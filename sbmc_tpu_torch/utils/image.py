@@ -33,22 +33,33 @@ def tonemap(im):
 
 
 def write_png(path, img):
-    """Write an ``[h, w, 3]`` uint8 image as an 8-bit RGB PNG."""
-    img = np.ascontiguousarray(img, np.uint8)
-    h, w, c = img.shape
-    if c != 3:
-        raise ValueError(f"write_png takes [h, w, 3] images, got {img.shape}")
+    """Write an ``[h, w, 3]`` uint8 image as an 8-bit RGB PNG, or an
+    ``[h, w]`` uint8 or uint16 image as an 8- or 16-bit grey PNG (the
+    layouts ``imageio`` writes for these arrays)."""
+    img = np.asarray(img)
+    if img.ndim == 3 and img.shape[-1] == 3 and img.dtype == np.uint8:
+        ctype, depth = 2, 8
+    elif img.ndim == 2 and img.dtype in (np.uint8, np.uint16):
+        ctype, depth = 0, 8 * img.dtype.itemsize
+    else:
+        raise ValueError("write_png takes [h, w, 3] uint8 or [h, w] uint8 "
+                         f"/ uint16 images, got {img.shape} {img.dtype}")
+    h, w = img.shape[:2]
+    # PNG stores 16-bit samples big-endian.
+    rows = np.ascontiguousarray(img, ">u2" if depth == 16 else np.uint8)
+    rows = rows.reshape(h, -1).view(np.uint8)
 
     def chunk(tag, data):
         return (struct.pack(">I", len(data)) + tag + data
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xffffffff))
 
     # Each scanline starts with filter type 0 (none).
-    raw = np.concatenate([np.zeros((h, 1), np.uint8),
-                          img.reshape(h, w * 3)], axis=1).tobytes()
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows],
+                         axis=1).tobytes()
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype,
+                                           0, 0, 0)))
         f.write(chunk(b"IDAT", zlib.compress(raw)))
         f.write(chunk(b"IEND", b""))
 
