@@ -104,6 +104,20 @@ Phases, each printing one line (or a few) before the last:
    = 21) in bfloat16 and with ``--f32``; their lines are printed, their
    launches counted (the splat kernel at (1, 3, 1216, 768) in both logit
    types).
+15. PBRT data path (after 14), with the ``pbrt`` and ``obj2pbrt``
+   stand-ins of ``sbmc_tpu_torch.pbrt_stand_ins`` (test doubles: the repo
+   does not hold the patched PBRTv2 or PBRT's converter): (a) scenes 0 and 1
+   of the procedural generator at the datagen CLI's defaults (512x512 crops
+   of a x1/2/4/8 film, 32 spp, 512 ground-truth spp, tiles of 128, the
+   repo's envmaps, textures and meshes) held to the digest of the JAX
+   package's (PBRT_SCENE_DIGEST); (b) ``python -m
+   sbmc_tpu_torch.generate_training_data`` at those defaults, 2 scenes on 2
+   threads: the seconds a scene of synthesis and of the stand-in's render,
+   the folders cleaned to 16 tiles each, read back; (c) ``python -m
+   sbmc_tpu_torch.render_exr`` and ``render_samples`` on scene 0; (d) the
+   flagship architecture trained on (b)'s tiles for 4 steps (11d's
+   settings; the forward and logits-gradient kernels steps x spp times),
+   then one scene denoised with that checkpoint.
 
 The composed kernels' phases and the other entry points run between these
 (4b to 4e after 4, 6b after 6, 8b to 8i after 8; 12 after 8i, 13 after 11d,
@@ -283,11 +297,12 @@ MUST_LAUNCH = {
                           "bench_ragged", "render_train", "render_denoise",
                           "probe_vs_input", "probe_vs_input_flagship",
                           "kernel_grids", "profile_model_stages",
-                          "profile_model_stages_f32"),
+                          "profile_model_stages_f32", "pbrt_train",
+                          "pbrt_denoise"),
     "progressive_splat_ddata": ("gradient",),
     "progressive_splat_dlogits": ("train", "train_bf16", "gradient",
                                   "reservoir", "reservoir_bf16",
-                                  "render_train"),
+                                  "render_train", "pbrt_train"),
     "kernel_weighting": ("kpcn_train", "kpcn_train_bf16", "kpcn_denoise",
                          "gather_train", "gradient_composed", "eval",
                          "bench_kpcn", "scatter_vs_gather",
@@ -3852,6 +3867,176 @@ def _profile_phase(ops):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the PBRT scene generator and drivers (host work), then the card
+
+#: pbrt_stand_ins.scene_digest of scenes 0 and 1 synthesized at the datagen
+#: CLI's defaults with the obj2pbrt stand-in, normalised (uuid4 ids in order
+#: of appearance, the repo's assets folder as <ASSETS>).
+#: tests/test_torch_generate_data.py holds the JAX package's scenes to it.
+PBRT_SCENE_DIGEST = ("6555041fa128a4461eedc5eaeacda803"
+                     "3e48a3547c9b5656df6c9eef52a1bfa5")
+#: Seconds a phase-15 subprocess may take.
+PBRT_TIMEOUT = 300
+
+
+def _check_bins(folder, n, spp, gt_spp, size):
+    """``folder`` holds exactly ``n`` stand-in tiles of 128 pixels at
+    ``spp`` samples, from a ``size``-pixel square crop; returns one."""
+    from sbmc_tpu_torch.data import bin_format
+    files = sorted(os.listdir(folder))
+    if len(files) != n or not all(f.endswith(".bin") for f in files):
+        raise AssertionError("%s holds %s" % (folder, files))
+    tile = bin_format.read_tile(os.path.join(folder, files[-1]))
+    side = size // 128 - 1
+    if (tile.features.shape != (spp, 27, 128, 128)
+            or (tile.gt_sample_count, tile.image_width, tile.block_x,
+                tile.block_y) != (gt_spp, size, 128 * side, 128 * side)
+            or not np.isfinite(tile.features).all()):
+        raise AssertionError("%s: %s, gt %d, %dx%d at (%d, %d)" % (
+            files[-1], tile.features.shape, tile.gt_sample_count,
+            tile.image_width, tile.image_height, tile.block_x, tile.block_y))
+    return tile
+
+
+def _pbrt_phase(ops, tmp, steps=4, spp=8, bs=4):
+    """15: the PBRT data path with the pbrt and obj2pbrt stand-ins (the
+    repo does not hold the binaries): (a) scenes 0 and 1 synthesized at the
+    datagen CLI's defaults, held to PBRT_SCENE_DIGEST; (b) ``python -m
+    sbmc_tpu_torch.generate_training_data`` at those defaults, 2 scenes on 2
+    threads, cleaned to the tiles; (c) ``render_exr`` and ``render_samples``
+    on scene 0; (d) the flagship architecture trained on (b)'s output (11d's
+    settings), then one scene denoised. Returns the launch counts."""
+    from sbmc_tpu_torch import denoise, pbrt_stand_ins, render_exr
+    from sbmc_tpu_torch import generate_training_data as gtd
+    from sbmc_tpu_torch import render_samples
+    from sbmc_tpu_torch.data.datasets import TilesDataset
+    from sbmc_tpu_torch.utils import exr
+    pbrt, obj2pbrt = pbrt_stand_ins.install(os.path.join(tmp, "bin"))
+    assets = os.path.join(ROOT, "assets")
+    lists = pbrt_stand_ins.write_asset_lists(os.path.join(tmp, "assets"),
+                                             assets)
+
+    # 15a: the scene generator, in this process.
+    args = gtd.parse_args([pbrt, obj2pbrt, lists,
+                           os.path.join(tmp, "scenes"), "--no-clean"])
+    params = gtd.GeneratorParams(args)
+    t0 = time.perf_counter()
+    dirs = [gtd.synthesize({"idx": i, "gen_params": params,
+                            "render_params": gtd.render_params(args)})
+            for i in (0, 1)]
+    synth_s = (time.perf_counter() - t0) / 2
+    texts = []
+    for d in dirs:
+        with open(os.path.join(d, "scene.pbrt")) as f:
+            texts.append(f.read())
+    digest = pbrt_stand_ins.scene_digest(
+        [pbrt_stand_ins.normalise_scene(s, [(assets, "<ASSETS>")])
+         for s in texts])
+    if digest != PBRT_SCENE_DIGEST:
+        raise AssertionError("scenes 0 and 1 digest to %s, not the JAX "
+                             "package's %s" % (digest, PBRT_SCENE_DIGEST))
+    shapes = [sum(ln.startswith("Include") for ln in s.splitlines())
+              for s in texts]
+    print("15a pbrt scenes: scenes 0 and 1 at the CLI defaults (512x512 "
+          "crops, %d/%d spp, tiles of %d) with %s objects: %.3f s/scene of "
+          "synthesis; digest %s matches the JAX package's"
+          % (args.spp, args.gt_spp, args.tile_size, shapes, synth_s,
+             digest[:16]))
+
+    # 15b: the datagen CLI, with cleaning.
+    out = os.path.join(tmp, "pbrt_out")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "sbmc_tpu_torch.generate_training_data", pbrt,
+         obj2pbrt, lists, out, "--count", "2", "--threads", "2",
+         "--batch_size", "2"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=PBRT_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError("pbrt datagen failed: %s" % proc.stderr[-3000:])
+    summary = [ln for ln in proc.stdout.splitlines()
+               if ln.startswith("pbrt datagen:")]
+    scenes = sorted(os.listdir(out))
+    if len(scenes) != 2 or not summary or "2 of 2 scenes" not in summary[0]:
+        raise AssertionError("pbrt datagen wrote %s: %s" % (scenes,
+                                                            proc.stdout))
+    for s in scenes:
+        _check_bins(os.path.join(out, s), 16, args.spp, args.gt_spp, 512)
+    ds = TilesDataset(out, spp=spp)
+    item = ds[0]
+    if len(ds) != 32 or not all(np.isfinite(v).all() for v in item.values()
+                                if isinstance(v, np.ndarray)):
+        raise AssertionError("the pbrt tiles do not load through "
+                             "TilesDataset")
+    print("15b %s (command %.2f s with the interpreter's start); the "
+          "stand-in pbrt writes 16 tiles of 128x128 at %d spp a scene; "
+          "cleaned to the tiles, which load through TilesDataset"
+          % (summary[0], wall, args.spp))
+
+    # 15c: the two rendering drivers on scene 0, without its render block.
+    body = os.path.join(dirs[0], "body.pbrt")
+    with open(body, "w") as f:
+        f.write(pbrt_stand_ins.scene_body(texts[0]))
+    t0 = time.perf_counter()
+    frame = os.path.join(tmp, "pbrt_exr", "frame.exr")
+    exr_args = render_exr.main([pbrt, body, frame, "--tmp_dir",
+                                os.path.join(tmp, "work_exr")])
+    img = exr.read(frame)
+    exr_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    samples = os.path.join(tmp, "pbrt_samples", "scene_0")
+    sample_args = render_samples.main([pbrt, body, samples, "--tmp_dir",
+                                       os.path.join(tmp, "work_samples")])
+    samples_s = time.perf_counter() - t0
+    _check_bins(samples, 16, sample_args.spp, sample_args.gt_spp, 512)
+    if (img.shape != (512, 512, 3) or not np.isfinite(img).all()
+            or any(os.path.exists(a.tmp_dir)
+                   for a in (exr_args, sample_args))):
+        raise AssertionError("render_exr wrote %s; temporary folders left"
+                             % (img.shape,))
+    print("15c drivers on scene 0: render_exr %.2f s (a 512x512 EXR), "
+          "render_samples %.2f s (16 tiles at %d spp, gt %d)"
+          % (exr_s, samples_s, sample_args.spp, sample_args.gt_spp))
+
+    # 15d: the card, on the pbrt branch's output.
+    ckpt = os.path.join(tmp, "ckpt_pbrt")
+    launches = {}
+    _, launches["pbrt_train"] = _run_training(
+        ops, "pbrt_train", "the flagship architecture on the pbrt branch's "
+        "tiles, batch %d x %d spp x 128x128" % (bs, spp),
+        [out, ckpt, "--spp", str(spp), "--bs", str(bs), "--ksize", "21",
+         "--bf16"], steps, ["progressive_splat", "progressive_splat_dlogits"],
+        {"progressive_splat": steps * spp,
+         "progressive_splat_dlogits": steps * spp},
+        {"progressive_splat": spp}, "sbmc")
+    one = os.path.join(tmp, "pbrt_one")
+    os.makedirs(one)
+    os.symlink(os.path.join(out, scenes[0]), os.path.join(one, scenes[0]))
+    ops.reset_launch_counts()
+    with _record_shapes(ops) as seen:
+        res = denoise.main(denoise.parse_args(
+            ["--input", one, "--checkpoint", ckpt, "--output",
+             os.path.join(tmp, "pbrt_den", "frame.exr"), "--uniform_tiles",
+             "--tile_size", "160", "--tile_pad", "32", "--spp", str(spp),
+             "--device", "cuda"]))
+    launches["pbrt_denoise"] = dict(ops.launch_counts)
+    _check_shapes("pbrt_denoise", seen, ["progressive_splat"])
+    tiles = sum(r["tiles"] for r in res)
+    if len(res) != 1 or _nonzero(ops.launch_counts) != {
+            "progressive_splat": tiles * spp}:
+        raise AssertionError("denoising a pbrt scene: %d scenes, launches "
+                             "%s" % (len(res), ops.launch_counts))
+    img = exr.read(res[0]["output"])
+    if img.shape != (512, 512, 3) or not np.isfinite(img).all():
+        raise AssertionError("pbrt-scene denoise wrote %s" % (img.shape,))
+    print("15d pbrt corpus: trained %d steps, then denoised one 512x512 "
+          "scene (%d tiles) with the checkpoint: a finite EXR, %d forward "
+          "launches" % (steps, tiles, tiles * spp))
+    return launches
+
+
 def main():
     _device_phase()
     if not os.path.isdir(os.path.join(ROOT, "sbmc_tpu_torch")):
@@ -3903,6 +4088,8 @@ def main():
     _baseline_scale_phase(labels)
     by_path.update(_bench_phase(ops))
     by_path.update(_profile_phase(ops))
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path.update(_pbrt_phase(ops, tmp))
 
     kernels = []
     for name, source, replaces in KERNELS:

@@ -21,6 +21,11 @@ find; it imports neither JAX nor anything of ``sbmc_tpu``.
 - ``denoise``: the inference entry point
   (``python -m sbmc_tpu_torch.denoise``); ``profile``: device time by
   kernel class.
+- ``render`` and ``generate_training_data``: training data, from the
+  wavefront path tracer on the card or, by default, from the procedural
+  PBRT scenes of ``scene_generator`` rendered by an external ``pbrt``
+  through ``rendering`` (``render_exr``, ``render_samples``); host work.
+  ``pbrt_stand_ins`` holds test doubles for the two PBRT binaries.
 """
 
 __version__ = "0.1.0"
