@@ -117,7 +117,28 @@ Phases, each printing one line (or a few) before the last:
    sbmc_tpu_torch.render_exr`` and ``render_samples`` on scene 0; (d) the
    flagship architecture trained on (b)'s tiles for 4 steps (11d's
    settings; the forward and logits-gradient kernels steps x spp times),
-   then one scene denoised with that checkpoint.
+   then one scene denoised with that checkpoint; each step's share of time
+   spent waiting on the host loader.
+16. several ranks (after 15; ``sbmc_tpu_torch/parallel/mesh.py``), each
+   rank a process of ``python -m torch.distributed.run --standalone
+   chip_smoke.py --rank SPEC`` that writes its launches, the shapes its
+   ops met, its step times, loader waits and writes to a file, which this
+   process merges into ``by_path`` and the shape checks: (a) NCCL at world
+   size 1 through the train CLI at phase 8's flagship configuration (f32,
+   constant sample counts, 4 steps) against one plain run (the first
+   loss equal to 1e-6), ms/step under DDP beside its; (b) two ranks on
+   cuda:0 over gloo, the flagship architecture, fixed global batches of 4
+   (2 a rank), 3 steps, f32 then --bf16, each step against one process's
+   step on the global batch from the same state (with bf16, also what a
+   skipped all-reduce would read); launches and shapes of the
+   data-parallel steps alone; (c) the 2-rank CLI in gloo on
+   the card (bf16, 8f's 12 tiles, 4 steps, SBMC then --kpcn_mode): only
+   rank 0 wrote, the loader waits, then the checkpoint resumes in one
+   process and denoises 7's frame; (d) the ragged and uniform denoise
+   runners on replicas [cuda:0, cuda:0], the frame equal to one device's
+   bit for bit; (e) with two cards or more only, (b) and (c) with NCCL on
+   cuda:0 and 1 and the replicas on both cards; otherwise it prints
+   ``multi-card: not run (1 device)``.
 
 The composed kernels' phases and the other entry points run between these
 (4b to 4e after 4, 6b after 6, 8b to 8i after 8; 12 after 8i, 13 after 11d,
@@ -281,6 +302,10 @@ KERNELS = (
     ("threefry_uniform", _CSRC + "threefry.cu",
      "sbmc_tpu/render/pathtracer.py:1104"),
 )
+#: Phase 16's SBMC training paths, each rank's apart.
+_DP_SBMC = ("dp_world1", "dp_steps_rank0", "dp_steps_rank1",
+            "dp_steps_bf16_rank0", "dp_steps_bf16_rank1", "dp_cli_rank0",
+            "dp_cli_rank1")
 #: The paths on which a kernel must have launched. The data-gradient kernel
 #: lies on neither main path by nature (its gradient goes to a batch input,
 #: which nothing asks for): the gradient phase runs it inside the model.
@@ -298,18 +323,22 @@ MUST_LAUNCH = {
                           "probe_vs_input", "probe_vs_input_flagship",
                           "kernel_grids", "profile_model_stages",
                           "profile_model_stages_f32", "pbrt_train",
-                          "pbrt_denoise"),
+                          "pbrt_denoise") + _DP_SBMC + (
+                              "dp_cli_denoise", "dp_replicas_ragged",
+                              "dp_replicas_uniform"),
     "progressive_splat_ddata": ("gradient",),
     "progressive_splat_dlogits": ("train", "train_bf16", "gradient",
                                   "reservoir", "reservoir_bf16",
-                                  "render_train", "pbrt_train"),
+                                  "render_train", "pbrt_train") + _DP_SBMC,
     "kernel_weighting": ("kpcn_train", "kpcn_train_bf16", "kpcn_denoise",
                          "gather_train", "gradient_composed", "eval",
                          "bench_kpcn", "scatter_vs_gather",
-                         "profile_kernel_weighting"),
+                         "profile_kernel_weighting", "dp_cli_kpcn_rank0",
+                         "dp_cli_kpcn_rank1"),
     "kernel_weighting_dw": ("kpcn_train", "kpcn_train_bf16", "gather_train",
                             "gradient_composed", "scatter_vs_gather",
-                            "profile_kernel_weighting"),
+                            "profile_kernel_weighting", "dp_cli_kpcn_rank0",
+                            "dp_cli_kpcn_rank1"),
     "scatter2gather": ("gradient_composed", "scatter_vs_gather",
                        "profile_kernel_weighting", "profile_scatter2gather"),
     "scatter2gather_max": ("composed_step",),
@@ -358,12 +387,15 @@ _OP_OF = {"progressive_splat": "splat", "progressive_splat_ddata": "splat",
 #: frame: one uniform tile of 1080x2048, or the denoise CLI's ragged tiles
 #: (512 and 312 rows, 512 and 384 columns); the stage profile's 1216x768
 #: strip in both logit types (phase 14). The probes' tiles and crop (phase
-#: 13) are the 128x128 and 64x64 bf16 entries. The kernel phases compare at
-#: each; _check_shapes holds the paths to it.
+#: 13) are the 128x128 and 64x64 bf16 entries; a rank's half of a training
+#: batch of 4, in either type, phase 16's. The kernel phases compare at
+#: each; _check_shapes holds the paths (every rank's) to it.
 PATH_SHAPES = (
     (1, 3, 160, 160, torch.bfloat16),
     (4, 3, 128, 128, torch.float32),
     (4, 3, 128, 128, torch.bfloat16),
+    (2, 3, 128, 128, torch.float32),
+    (2, 3, 128, 128, torch.bfloat16),
     (1, 3, 128, 128, torch.bfloat16),
     (1, 3, 48, 48, torch.float32),
     (1, 3, 160, 64, torch.bfloat16),
@@ -387,9 +419,11 @@ PATH_SHAPES = (
 #: sides less 36), and the KPCN bench's tile (1160x2000 less 36, bf16). The
 #: gather-model batch is also the op profiles' shape (phase 14: kernel
 #: weighting, its gradients and scatter2gather at 4x3x128x128, k = 21).
+#: Phase 16's KPCN ranks take half a bf16 batch.
 KW_PATH_SHAPES = (
     (4, 3, 92, 92, torch.float32),
     (4, 3, 92, 92, torch.bfloat16),
+    (2, 3, 92, 92, torch.bfloat16),
     (1, 3, 124, 124, torch.float32),
     (1, 3, 124, 124, torch.bfloat16),
     (4, 3, 128, 128, torch.float32),
@@ -1211,14 +1245,66 @@ class _timed_steps:
         self.cls.train_step = self.plain
 
 
+class _timed_loader:
+    """While active, every batch the host loader hands over is timed from
+    the request to the hand-over (``waits``, ms, in order): the time a
+    consumer waits on the loader's decode threads."""
+
+    def __init__(self):
+        from sbmc_tpu_torch.data.loader import Loader
+        self.cls, self.waits = Loader, []
+
+    def __enter__(self):
+        self.plain = plain = self.cls.__iter__
+        waits = self.waits
+
+        def timed_iter(loader):
+            it = plain(loader)
+            try:
+                while True:
+                    t = time.perf_counter()
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        return
+                    waits.append((time.perf_counter() - t) * 1e3)
+                    yield batch
+            finally:
+                it.close()
+
+        self.cls.__iter__ = timed_iter
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__iter__ = self.plain
+
+
+def _loader_shares(waits, ms):
+    """Each train step's share of time spent waiting on the host loader,
+    wait / (wait + step), from the waits of the batches the steps took (the
+    last ``len(ms)``: the CLI draws one batch for its display strip first)
+    and the steps' times."""
+    if len(waits) < len(ms):
+        raise AssertionError("%d loader batches for %d steps"
+                             % (len(waits), len(ms)))
+    waits = waits[len(waits) - len(ms):]
+    shares = [w / (w + m) for w, m in zip(waits, ms)]
+    return ("waits %s ms before steps of %s ms: shares %s, median %.1f%%"
+            % ([round(w, 2) for w in waits], [round(m, 2) for m in ms],
+               ["%.1f%%" % (100 * x) for x in shares],
+               100 * sorted(shares)[len(shares) // 2]))
+
+
 def _run_training(ops, tag, what, argv, steps, kernels, in_steps_want,
-                  display_want, arch, owner=None):
+                  display_want, arch, owner=None, loader_wait=False):
     """Run ``sbmc_tpu_torch.train`` with ``argv`` for ``steps`` steps and
     check it: the launches inside the steps (``in_steps_want``; the steps of
     ``owner``, see ``_timed_steps``) and in all (plus ``display_want`` per
     display strip), the shapes met by ``kernels``, finite losses in the CSV
     log, and the checkpoint. Prints one line and notes the median step in
-    ``_STEP_MS[tag]``; returns ``(interface, launch counts)``."""
+    ``_STEP_MS[tag]``; with ``loader_wait``, a second line with each step's
+    share of time spent waiting on the host loader (``_loader_shares``).
+    Returns ``(interface, launch counts)``."""
     from sbmc_tpu_torch import train_cli
     from sbmc_tpu_torch.train.checkpointer import Checkpointer
 
@@ -1226,7 +1312,8 @@ def _run_training(ops, tag, what, argv, steps, kernels, in_steps_want,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    with _timed_steps(ops, owner) as timed, _record_shapes(ops) as seen:
+    with _timed_steps(ops, owner) as timed, _record_shapes(ops) as seen, \
+            _timed_loader() as loader:
         iface = train_cli.main(train_cli.parse_args(
             argv + ["--max_steps", str(steps), "--log_interval", "1",
                     "--num_worker_threads", "2", "--device", "cuda"]))
@@ -1270,6 +1357,9 @@ def _run_training(ops, tag, what, argv, steps, kernels, in_steps_want,
              rest[-1], peak_gb, loss[0], loss[-1],
              "fell" if loss[-1] < loss[0] else "did not fall",
              float(rows[-1]["input_loss"]), json.dumps(_nonzero(counts))))
+    if loader_wait:
+        print("%s host loader: %s" % (tag, _loader_shares(loader.waits,
+                                                          timed.ms)))
     return iface, counts
 
 
@@ -3535,7 +3625,7 @@ def _render_train_phase(ops, tmp, corpus, steps=4, spp=8, bs=4):
          "--bf16"], steps, ["progressive_splat", "progressive_splat_dlogits"],
         {"progressive_splat": steps * spp,
          "progressive_splat_dlogits": steps * spp},
-        {"progressive_splat": spp}, "sbmc")
+        {"progressive_splat": spp}, "sbmc", loader_wait=True)
     out = os.path.join(tmp, "rendered_out", "frame.exr")
     ops.reset_launch_counts()
     with _record_shapes(ops) as seen:
@@ -4010,7 +4100,7 @@ def _pbrt_phase(ops, tmp, steps=4, spp=8, bs=4):
          "--bf16"], steps, ["progressive_splat", "progressive_splat_dlogits"],
         {"progressive_splat": steps * spp,
          "progressive_splat_dlogits": steps * spp},
-        {"progressive_splat": spp}, "sbmc")
+        {"progressive_splat": spp}, "sbmc", loader_wait=True)
     one = os.path.join(tmp, "pbrt_one")
     os.makedirs(one)
     os.symlink(os.path.join(out, scenes[0]), os.path.join(one, scenes[0]))
@@ -4035,6 +4125,601 @@ def _pbrt_phase(ops, tmp, steps=4, spp=8, bs=4):
           "scene (%d tiles) with the checkpoint: a finite EXR, %d forward "
           "launches" % (steps, tiles, tiles * spp))
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: several ranks (sbmc_tpu_torch/parallel/mesh.py)
+
+#: A rank's own deadline: a rank that hangs in a collective fails the run.
+DP_TIMEOUT = 600
+#: The train CLI's default learning rate, which 16b's steps use.
+DP_LR = 1e-4
+#: 16b, float32: tests/test_torch_train.py's tolerances for one step (loss
+#: relative; gradient ``atol + rtol * |one process|``; the update, where the
+#: one-process gradient exceeds UPDATE_G, within UPDATE of the learning
+#: rate).
+DP_LOSS, DP_G_ATOL, DP_G_RTOL, DP_UPDATE_G, DP_UPDATE = (1e-5, 1e-6, 1e-3,
+                                                         1e-5, 0.02)
+#: 16b with --bf16: metrics within DP_BF16_LOSS relative and each leaf's
+#: gradient within DP_BF16_LEAF of its L2 norm, as
+#: test_train_step_bf16_matches_jax_loosely holds them; the whole gradient
+#: no farther (relative L2) from the one process's than that process's
+#: bf16 gradient is from its own float32 gradient on the same state. cuDNN
+#: picks its bf16 algorithms by batch size, so a rank's half of the batch
+#: rounds otherwise than the whole: as tight as bf16 rounding lets two
+#: computations agree (0.078 measured on the first step on an H100,
+#: where the SMALL CPU model's 0.06 of that test did not hold). Each step
+#: also reads the fault the bound must catch: rank 0's gradient had the
+#: all-reduce been skipped (one process on rank 0's half of the batch),
+#: which must lie beyond it.
+DP_BF16_LOSS, DP_BF16_LEAF = 2e-2, 0.5
+#: 16a: the world-1 run's first loss (one forward of the same weights on
+#: the same batch) within DP_FIRST of the plain run's (relative). The later
+#: losses are printed, not bounded: cuDNN's float32 backward is not
+#: deterministic and Adam amplifies its noise step by step, while at world
+#: size 1 the all-reduce is an identity; 16b holds the data-parallel
+#: arithmetic.
+DP_FIRST = 1e-6
+
+
+class _counted_writes:
+    """While active, counts what this process writes of a training run:
+    checkpoint saves, CSV rows and display strips."""
+
+    def __init__(self):
+        from sbmc_tpu_torch.train import callbacks
+        from sbmc_tpu_torch.train.checkpointer import Checkpointer
+        self.targets = ((Checkpointer, "save", "checkpoints"),
+                        (callbacks.ScalarLogCallback, "batch_end",
+                         "csv_rows"),
+                        (callbacks.DenoisingDisplayCallback, "epoch_end",
+                         "strips"))
+        self.counts = {name: 0 for _, _, name in self.targets}
+
+    def __enter__(self):
+        self.plain = [getattr(cls, attr) for cls, attr, _ in self.targets]
+        for (cls, attr, name), plain in zip(self.targets, self.plain):
+            def counted(*args, _plain=plain, _name=name, **kw):
+                self.counts[_name] += 1
+                return _plain(*args, **kw)
+            setattr(cls, attr, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for (cls, attr, _), plain in zip(self.targets, self.plain):
+            setattr(cls, attr, plain)
+
+
+def _cli_job(ops, argv):
+    """``sbmc_tpu_torch.train`` with ``argv``, in this process (a rank or
+    the one process): launches in all and inside the steps, the shapes the
+    ops met, each step's ms and loader wait, what this process wrote."""
+    from sbmc_tpu_torch import train_cli
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with _timed_steps(ops) as timed, _record_shapes(ops) as seen, \
+            _timed_loader() as loader, _counted_writes() as writes:
+        iface = train_cli.main(train_cli.parse_args(argv))
+    torch.cuda.synchronize()
+    return {"launches": dict(ops.launch_counts), "in_steps": timed.launches,
+            "seen": {op: sorted(cases) for op, cases in seen.items()},
+            "ms": timed.ms, "waits": loader.waits, "writes": writes.counts,
+            "step": iface.step, "device": str(iface.device)}
+
+
+def _rel_l2(got, want):
+    """The largest leaf's and the whole gradient's relative L2 distance."""
+    diff = [float((g - w).norm()) for g, w in zip(got, want)]
+    norm = [float(w.norm()) for w in want]
+    return (max(d / n for d, n in zip(diff, norm) if n > 0),
+            float(np.sqrt(sum(d * d for d in diff))
+                  / np.sqrt(sum(n * n for n in norm))))
+
+
+def _grad_stats(model, before, lr, ref, ref32=None, half=None):
+    """One data-parallel step of ``model`` against ``ref``'s one-process
+    step from the same state: the gradients and (float32) the updates;
+    with bf16 convs, ``ref32``'s float32 step from that state gives the
+    bf16 rounding's own drift, and ``half``'s step on rank 0's half of the
+    batch what a skipped all-reduce would read."""
+    got = [p.grad.float() for p in model.parameters()]
+    want = [p.grad.float() for p in ref.parameters()]
+    if ref32 is not None:
+        leaf, whole = _rel_l2(got, want)
+        return {"leaf": leaf, "whole": whole, "drift": _rel_l2(
+            want, [p.grad for p in ref32.parameters()])[1],
+            "no_allreduce": _rel_l2(
+                [p.grad.float() for p in half.parameters()], want)[1]}
+    g_ratio = max(float(((g - w).abs() / (DP_G_ATOL + DP_G_RTOL * w.abs()))
+                        .max()) for g, w in zip(got, want))
+    upd, compared = 0.0, 0
+    for p, r, b, w in zip(model.parameters(), ref.parameters(), before,
+                          want):
+        big = w.abs() > DP_UPDATE_G
+        compared += int(big.sum())
+        if bool(big.any()):
+            upd = max(upd, float(((p - b) - (r - b))[big].abs().max()) / lr)
+    return {"g_ratio": g_ratio, "update": upd, "compared": compared}
+
+
+def _steps_job(ops, job, rank, world):
+    """16b on this rank: the flagship architecture from ``torch.manual_seed
+    (0)`` takes one step on its contiguous share of each global batch,
+    data-parallel; rank 0 first takes the one-process step on the whole
+    global batch from the same state (parameters and Adam's moments copied
+    in) and compares. Launches and shapes are those of the data-parallel
+    steps alone: the counts are zeroed just before each and read just
+    after."""
+    import copy
+    from sbmc_tpu_torch.models import Multisteps
+    from sbmc_tpu_torch.train.interface import DenoiserInterface
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.manual_seed(0)
+    model = Multisteps(n_features=93, n_global_features=3, ksize=21,
+                       conv_dtype="bfloat16" if job["bf16"] else None)
+    iface = DenoiserInterface(model, lr=DP_LR, device=dev, distributed=True)
+    refs = []
+    if rank == 0:
+        # The one process on the whole batch; with bf16, also its float32
+        # twin and the one process on rank 0's half.
+        refs = [DenoiserInterface(copy.deepcopy(model), lr=DP_LR, device=dev)]
+        if job["bf16"]:
+            refs += [DenoiserInterface(
+                Multisteps(n_features=93, n_global_features=3, ksize=21),
+                lr=DP_LR, device=dev),
+                DenoiserInterface(copy.deepcopy(model), lr=DP_LR,
+                                  device=dev)]
+    launches = {name: 0 for name in ops.launch_counts}
+    rec = _record_shapes(ops)
+    metrics, ref_metrics, stats, ms = [], [], [], []
+    for path in job["batches"]:
+        with np.load(path) as f:
+            batch = dict(f)
+        n = len(batch["target_image"]) // world
+        mine = {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+        if refs:
+            for other in refs:
+                other.model.load_state_dict(model.state_dict())
+                other.optimizer.load_state_dict(
+                    copy.deepcopy(iface.optimizer.state_dict()))
+            before = [p.detach().clone() for p in model.parameters()]
+            ref_metrics.append({k: float(v) for k, v in
+                                refs[0].train_step(batch).items()})
+            if job["bf16"]:
+                refs[1].train_step(batch)
+                ref_metrics[-1]["no_allreduce_loss"] = float(
+                    refs[2].train_step(mine)["loss"])
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        with rec:
+            got = iface.train_step(mine)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        for name, c in ops.launch_counts.items():
+            launches[name] += c
+        metrics.append({k: float(v) for k, v in got.items()})
+        if refs:
+            stats.append(_grad_stats(model, before, DP_LR,
+                                     *[r.model for r in refs]))
+    digest = [float(sum(p.grad.double().sum() for p in model.parameters())),
+              float(sum(p.double().sum() for p in model.parameters()))]
+    return {"launches": launches, "in_steps": launches,
+            "seen": {op: sorted(cases) for op, cases in rec.seen.items()},
+            "ms": ms, "metrics": metrics, "ref_metrics": ref_metrics,
+            "stats": stats, "digest": digest, "step": iface.step,
+            "device": str(dev)}
+
+
+def _rank_main(spec_path):
+    """A rank of phase 16, started by torchrun (``chip_smoke.py --rank
+    SPEC``): joins the group (gloo, every rank on cuda:0, or NCCL through
+    the port's own ``init_distributed``), runs SPEC's jobs and writes what
+    each measured to SPEC's ``out`` (``%d``: the rank)."""
+    sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+    from sbmc_tpu_torch import ops
+    from sbmc_tpu_torch.ops import _build
+    from sbmc_tpu_torch.parallel.mesh import init_distributed, shutdown
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    _build.load_cuda()  # the parent's build, from the cache
+    if spec["backend"] == "gloo":
+        # Two ranks on one card: NCCL refuses that, gloo reduces CUDA
+        # tensors through the host. init_distributed reuses this group.
+        dist.init_process_group("gloo")
+        os.environ["LOCAL_RANK"] = "0"
+    rank, world, dev = init_distributed("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = []
+    for job in spec["jobs"]:
+        if job["kind"] == "cli":
+            res = _cli_job(ops, job["argv"])
+        else:
+            res = _steps_job(ops, job, rank, world)
+        res.update(tag=job["tag"], rank=rank,
+                   current_device=torch.cuda.current_device(),
+                   backend=dist.get_backend())
+        results.append(res)
+    with open(spec["out"] % rank, "w") as f:
+        json.dump(results, f)
+    shutdown()
+
+
+def _torchrun(tmp, name, backend, jobs, nproc):
+    """``python -m torch.distributed.run --standalone --nproc_per_node
+    NPROC chip_smoke.py --rank SPEC``; raises unless every rank ends well
+    within DP_TIMEOUT. Returns ``(seconds, results[rank][job])``."""
+    import signal
+    spec = {"backend": backend, "jobs": jobs,
+            "out": os.path.join(tmp, name + "_rank%d.json")}
+    path = os.path.join(tmp, name + ".json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(nproc), os.path.join(ROOT, "chip_smoke.py"),
+         "--rank", path], cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        _, err = proc.communicate(timeout=DP_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError("%s: the ranks did not end within %d s"
+                             % (name, DP_TIMEOUT))
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError("%s failed (%d): %s" % (name, proc.returncode,
+                                                     err[-6000:]))
+    results = []
+    for r in range(nproc):
+        with open(spec["out"] % r) as f:
+            results.append(json.load(f))
+    return seconds, results
+
+
+def _merge_rank(by_path, path, res, kernels):
+    """A rank's launches into ``by_path`` and its shapes into the checks."""
+    seen = {op: {(tuple(c[0]), c[1], c[2]) for c in cases}
+            for op, cases in res["seen"].items()}
+    _check_shapes(path, seen, kernels)
+    by_path[path] = res["launches"]
+
+
+def _csv_losses(ckpt):
+    with open(os.path.join(ckpt, "train_log.csv")) as f:
+        return [float(r["loss"]) for r in csv.DictReader(f)]
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def _dp_world1(ops, tmp, by_path, steps=4, spp=8, bs=4):
+    """16a: NCCL at world size 1 through torchrun, at phase 8's flagship
+    configuration (f32) with constant sample counts, against one plain run
+    in this process."""
+    data_dir = os.path.join(tmp, "train_data")
+
+    def argv(ckpt):
+        # Constant sample counts: the random masks are drawn in the
+        # loader's threads, whose draws race with the display strip's
+        # batch, so two runs of the CLI draw different masks.
+        return [data_dir, os.path.join(tmp, ckpt), "--spp", str(spp), "--bs",
+                str(bs), "--ksize", "21", "--constant_spp", "--max_steps",
+                str(steps), "--log_interval", "1", "--num_worker_threads",
+                "2", "--device", "cuda"]
+
+    plain = _cli_job(ops, argv("ckpt_dp_plain"))
+    seconds, ranks = _torchrun(tmp, "dp_world1", "nccl", [
+        {"kind": "cli", "tag": "world1", "argv": argv("ckpt_dp_world1")}], 1)
+    res = ranks[0][0]
+    if res["backend"] != "nccl" or res["step"] != steps:
+        raise AssertionError("16a: backend %s, %d steps" % (res["backend"],
+                                                             res["step"]))
+    want = {"progressive_splat": steps * spp,
+            "progressive_splat_dlogits": steps * spp}
+    for r in (res, plain):
+        if _nonzero(r["in_steps"]) != want:
+            raise AssertionError("16a: launches inside the steps %s, "
+                                 "expected %s" % (_nonzero(r["in_steps"]),
+                                                  want))
+    _merge_rank(by_path, "dp_world1", res,
+                ["progressive_splat", "progressive_splat_dlogits"])
+    base = _csv_losses(os.path.join(tmp, "ckpt_dp_plain"))
+    got = _csv_losses(os.path.join(tmp, "ckpt_dp_world1"))
+    dev = [abs(g - x) / abs(x) for x, g in zip(base, got)]
+    print("16a NCCL at world size 1 (torchrun --standalone, %.1f s with the "
+          "process's start): %d flagship f32 steps of %d x %d spp; losses %s, "
+          "plain run %s; relative distance %s (step 1 bound %g; the later "
+          "steps carry cuDNN's nondeterministic backward); median ms/step "
+          "under DDP %.2f, plain %.2f; launches B1 %d, B3 %d"
+          % (seconds, steps, bs, spp, got, base, ["%.3g" % d for d in dev],
+             DP_FIRST, _median(res["ms"][1:]), _median(plain["ms"][1:]),
+             res["in_steps"]["progressive_splat"],
+             res["in_steps"]["progressive_splat_dlogits"]))
+    if len(got) != steps or dev[0] > DP_FIRST:
+        raise AssertionError("16a: the world-1 run's first loss is %.3g from "
+                             "the plain run's (bound %g)" % (dev[0],
+                                                             DP_FIRST))
+
+
+def _dp_batches(tmp, spp=8, n=3, bs=4):
+    """``n`` fixed global batches of ``bs`` of phase 8's tiles with fixed
+    sample masks (2 to ``spp`` valid), written to ``.npz`` files."""
+    from sbmc_tpu_torch.data import TilesDataset, collate
+    data = TilesDataset(os.path.join(tmp, "train_data"), spp=spp)
+    rng = np.random.RandomState(16)
+    paths = []
+    for i in range(n):
+        idx = [(i * 2 + j) % len(data) for j in range(bs)]
+        batch = {k: v for k, v in collate([data[j] for j in idx]).items()
+                 if isinstance(v, np.ndarray)}
+        ks = rng.randint(2, spp + 1, bs)
+        batch["sample_mask"] = np.arange(spp)[None] < ks[:, None]
+        paths.append(os.path.join(tmp, "dp_batch_%d.npz" % i))
+        np.savez(paths[-1], **batch)
+    return paths
+
+
+def _check_dp_steps(tag, ranks, steps, spp):
+    """16b's checks of one job on every rank: prints each step's numbers,
+    then raises on the first that fails."""
+    r0 = ranks[0]
+    bf16 = tag.endswith("bf16")
+    faults = []
+    for s, (got, want, st) in enumerate(zip(r0["metrics"], r0["ref_metrics"],
+                                            r0["stats"])):
+        rel = {k: abs(got[k] - want[k]) / abs(want[k])
+               for k in ("loss", "rmse", "input_loss")}
+        print("16b %s step %d against one process: metrics %s, gradient %s"
+              % (tag, s + 1, {k: "%.3g" % v for k, v in rel.items()},
+                 {k: "%.4g" % v for k, v in st.items()}))
+        if max(rel.values()) > (DP_BF16_LOSS if bf16 else DP_LOSS):
+            faults.append("step %d: metrics %s" % (s + 1, rel))
+        if bf16 and (st["leaf"] > DP_BF16_LEAF
+                     or st["whole"] > st["drift"]):
+            faults.append("step %d: gradient %s" % (s + 1, st))
+        if bf16:
+            # What the bounds read had rank 0 kept its own half's gradient
+            # (and loss): the fault they must tell from a sound step.
+            fault_loss = abs(want["no_allreduce_loss"] - want["loss"]) \
+                / abs(want["loss"])
+            print("16b %s step %d, a skipped all-reduce would read: whole "
+                  "gradient %.4g (bound %.4g), loss %.3g (bound %g)"
+                  % (tag, s + 1, st["no_allreduce"], st["drift"],
+                     fault_loss, DP_BF16_LOSS))
+            if st["no_allreduce"] <= st["drift"]:
+                faults.append("step %d: the gradient bound %.4g does not "
+                              "catch a skipped all-reduce (%.4g)"
+                              % (s + 1, st["drift"], st["no_allreduce"]))
+        if not bf16 and (st["g_ratio"] > 1 or st["update"] > DP_UPDATE
+                         or st["compared"] < 1000):
+            faults.append("step %d: gradient %s" % (s + 1, st))
+    want = {"progressive_splat": steps * spp,
+            "progressive_splat_dlogits": steps * spp}
+    for r in ranks:
+        if r["digest"] != r0["digest"] or r["metrics"] != r0["metrics"]:
+            faults.append("rank %d's gradients, parameters or metrics "
+                          "differ from rank 0's" % r["rank"])
+        if _nonzero(r["in_steps"]) != want:
+            faults.append("rank %d: launches in the steps %s, expected %s"
+                          % (r["rank"], _nonzero(r["in_steps"]), want))
+    if len(r0["stats"]) != steps or faults:
+        raise AssertionError("%s: %s" % (tag, "; ".join(faults)))
+
+
+def _dp_steps(ops, tmp, by_path, steps=3, spp=8):
+    """16b: two ranks on cuda:0 over gloo, the flagship architecture, fixed
+    global batches of 4 (2 a rank), f32 then --bf16, each step against one
+    process's step on the global batch from the same state."""
+    batches = _dp_batches(tmp, spp, steps)
+    jobs = [{"kind": "steps", "tag": tag, "bf16": bf16, "batches": batches}
+            for tag, bf16 in (("dp_steps", False), ("dp_steps_bf16", True))]
+    seconds, ranks = _torchrun(tmp, "dp_steps", "gloo", jobs, 2)
+    for j, job in enumerate(jobs):
+        tag = job["tag"]
+        per_rank = [r[j] for r in ranks]
+        if any(r["backend"] != "gloo" or r["device"] != "cuda:0"
+               for r in per_rank):
+            raise AssertionError("%s: not gloo on cuda:0: %s" % (
+                tag, [(r["backend"], r["device"]) for r in per_rank]))
+        _check_dp_steps(tag, per_rank, steps, spp)
+        for r in per_rank:
+            _merge_rank(by_path, "%s_rank%d" % (tag, r["rank"]), r,
+                        ["progressive_splat", "progressive_splat_dlogits"])
+        print("16b %s: two ranks on cuda:0 over gloo (%.1f s for both jobs "
+              "with the processes' start), %d flagship steps of a global "
+              "batch of 4 (2 a rank) x %d spp, each within its tolerance of "
+              "one process's step from the same state; ms/step, two ranks "
+              "sharing one card: rank 0 %s, rank 1 %s (rank 0 also runs the "
+              "one-process steps between them); launches a rank B1 %d, B3 %d"
+              % (tag, seconds, steps, spp,
+                 [round(x, 2) for x in per_rank[0]["ms"]],
+                 [round(x, 2) for x in per_rank[1]["ms"]],
+                 per_rank[0]["in_steps"]["progressive_splat"],
+                 per_rank[0]["in_steps"]["progressive_splat_dlogits"]))
+
+
+def _dp_cli(ops, tmp, by_path, steps=4, spp=8, bs=2):
+    """16c: the 2-rank CLI in gloo on the one card, bf16, on phase 8f's 12
+    tiles: SBMC then KPCN; only rank 0 writes; the SBMC checkpoint resumes
+    in one process and denoises phase 7's frame."""
+    from sbmc_tpu_torch import denoise, train_cli
+    from sbmc_tpu_torch.utils import exr
+    tiles = os.path.join(tmp, "reservoir_tiles.txt")
+    ckpts = {m: os.path.join(tmp, "ckpt_dp_cli_" + m) for m in ("sbmc",
+                                                               "kpcn")}
+    model = ["--spp", str(spp), "--bs", str(bs), "--ksize", "21", "--bf16"]
+
+    def run(n):
+        return ["--max_steps", str(n), "--log_interval", "1",
+                "--num_worker_threads", "2", "--device", "cuda"]
+
+    base = model + run(steps)
+    jobs = [{"kind": "cli", "tag": "dp_cli", "argv":
+             [tiles, ckpts["sbmc"]] + base},
+            {"kind": "cli", "tag": "dp_cli_kpcn", "argv":
+             [tiles, ckpts["kpcn"], "--kpcn_mode"] + base}]
+    seconds, ranks = _torchrun(tmp, "dp_cli", "gloo", jobs, 2)
+    wants = {"dp_cli": {"progressive_splat": steps * spp,
+                        "progressive_splat_dlogits": steps * spp},
+             "dp_cli_kpcn": {"kernel_weighting": 2 * steps,
+                             "kernel_weighting_dw": 2 * steps}}
+    for j, job in enumerate(jobs):
+        tag, want = job["tag"], wants[job["tag"]]
+        for r in (ranks[0][j], ranks[1][j]):
+            w = r["writes"]
+            wrote = (w["checkpoints"] > 0 and w["csv_rows"] == steps
+                     and (w["strips"] > 0) == (tag == "dp_cli"))
+            if r["rank"] == 0 and not wrote or r["rank"] == 1 and any(
+                    w.values()):
+                raise AssertionError("%s rank %d wrote %s" % (tag, r["rank"],
+                                                              w))
+            if _nonzero(r["in_steps"]) != want or r["step"] != steps:
+                raise AssertionError("%s rank %d: %d steps, launches in the "
+                                     "steps %s, expected %s" % (
+                                         tag, r["rank"], r["step"],
+                                         _nonzero(r["in_steps"]), want))
+            _merge_rank(by_path, "%s_rank%d" % (tag, r["rank"]), r,
+                        list(want))
+        ckpt = ckpts["kpcn" if tag.endswith("kpcn") else "sbmc"]
+        files = set(os.listdir(ckpt))
+        if not {"final.msgpack", "ckpt_%09d.msgpack" % steps, "meta.json",
+                "train_log.csv"} <= files or len(_csv_losses(ckpt)) != steps:
+            raise AssertionError("%s: the checkpoint directory holds %s"
+                                 % (tag, sorted(files)))
+        for r in (ranks[0][j], ranks[1][j]):
+            print("16c %s rank %d: %d steps of %d a rank x %d spp (bf16), "
+                  "median ms/step %.2f (two ranks sharing one card); wrote "
+                  "%s; host loader: %s"
+                  % (tag, r["rank"], steps, bs, spp, _median(r["ms"][1:]),
+                     r["writes"], _loader_shares(r["waits"], r["ms"])))
+    print("16c: both jobs on two ranks in %.1f s with the processes' start"
+          % seconds)
+    # The SBMC checkpoint resumes in one process, then denoises.
+    ops.reset_launch_counts()
+    iface = train_cli.main(train_cli.parse_args(
+        [tiles, ckpts["sbmc"]] + model + run(steps + 1)))
+    if iface.step != steps + 1 or len(_csv_losses(ckpts["sbmc"])) != steps + 1:
+        raise AssertionError("16c: the resumed run is at step %d"
+                             % iface.step)
+    del iface
+    out = os.path.join(tmp, "out_dp_cli", "frame.exr")
+    ops.reset_launch_counts()
+    with _record_shapes(ops) as seen:
+        res = denoise.main(denoise.parse_args(
+            ["--input", os.path.join(tmp, "data"), "--checkpoint",
+             ckpts["sbmc"], "--output", out, "--uniform_tiles", "--tile_size",
+             "160", "--tile_pad", "32", "--spp", "4", "--device", "cuda"]))
+    _check_shapes("dp_cli_denoise", seen, ["progressive_splat"])
+    img = exr.read(out)
+    if (img.shape != (256, 256, 3) or not np.isfinite(img).all()
+            or _nonzero(ops.launch_counts) != {
+                "progressive_splat": res[0]["tiles"] * 4}):
+        raise AssertionError("16c denoise: EXR %s, launches %s" % (
+            img.shape, _nonzero(ops.launch_counts)))
+    by_path["dp_cli_denoise"] = dict(ops.launch_counts)
+    print("16c: the 2-rank checkpoint resumed in one process (step %d) and "
+          "denoised the 256x256 frame: a finite EXR, %d B1 launches"
+          % (steps + 1, ops.launch_counts["progressive_splat"]))
+
+
+def _dp_replicas(ops, tmp, by_path, checkpoint, devices, spp=4):
+    """16d (``devices`` [cuda:0, cuda:0]) and 16e (cuda:0 and cuda:1): the
+    ragged and uniform runners on phase 7's frame with the flagship; the
+    frame equals one device's bit for bit."""
+    from sbmc_tpu_torch import denoise
+    from sbmc_tpu_torch.data.datasets import FullImagesDataset
+    from sbmc_tpu_torch.parallel.mesh import replicas
+    item = FullImagesDataset(os.path.join(tmp, "data"), spp=spp)[0]
+    batch = {k: v[None] if isinstance(v, np.ndarray) else v
+             for k, v in item.items()}
+    model, _, _ = denoise.load_model(checkpoint, devices[0])
+    one = [devices[0]]
+    tag = "dp_replicas" if len(set(devices)) == 1 else "dp_cards"
+    for run, extra in ((denoise.denoise_ragged, []),
+                       (denoise.denoise_uniform, ["--uniform_tiles"])):
+        args = denoise.parse_args(
+            ["--input", "-", "--checkpoint", checkpoint, "--output", "o.exr",
+             "--tile_size", "160", "--tile_pad", "32", "--device", "cuda"]
+            + extra)
+        name = "%s_%s" % (tag, "uniform" if extra else "ragged")
+        with torch.inference_mode():
+            want, ms_one, tiles = run([model], batch, args, one)
+            ops.reset_launch_counts()
+            with _record_shapes(ops) as seen:
+                got, ms, _ = run(replicas(model, devices), batch, args,
+                                 devices)
+        _check_shapes(name, seen, ["progressive_splat"])
+        by_path[name] = dict(ops.launch_counts)
+        if _nonzero(ops.launch_counts) != {"progressive_splat": tiles * spp}:
+            raise AssertionError("%s: launches %s for %d tiles" % (
+                name, _nonzero(ops.launch_counts), tiles))
+        diff = float(np.abs(got - want).max())
+        if diff != 0:
+            raise AssertionError("%s: the frame differs from one device's "
+                                 "by up to %.3g" % (name, diff))
+        print("16d %s on %s: %d tiles, the frame equals one device's bit for "
+              "bit; %.2f ms against %.2f on one; B1 launches %d"
+              % (name, [str(d) for d in devices], tiles, ms, ms_one,
+                 ops.launch_counts["progressive_splat"]))
+
+
+def _dp_cards(ops, tmp, by_path, checkpoint):
+    """16e, on two cards or more: 16b and 16c with NCCL on cuda:0 and 1,
+    and the replicas of 16d on the two cards."""
+    batches = _dp_batches(tmp)
+    tiles = os.path.join(tmp, "reservoir_tiles.txt")
+    jobs = [{"kind": "steps", "tag": "nccl_steps", "bf16": False,
+             "batches": batches},
+            {"kind": "cli", "tag": "nccl_cli", "argv": [
+                tiles, os.path.join(tmp, "ckpt_nccl_cli"), "--spp", "8",
+                "--bs", "2", "--ksize", "21", "--bf16", "--max_steps", "4",
+                "--log_interval", "1", "--num_worker_threads", "2",
+                "--device", "cuda"]}]
+    seconds, ranks = _torchrun(tmp, "dp_nccl", "nccl", jobs, 2)
+    _check_dp_steps("nccl_steps", [r[0] for r in ranks], 3, 8)
+    for j, job in enumerate(jobs):
+        for r in (ranks[0][j], ranks[1][j]):
+            if r["backend"] != "nccl" or r["current_device"] != r["rank"] \
+                    or r["in_steps"]["progressive_splat"] <= 0:
+                raise AssertionError("%s rank %d: %s on cuda:%d, launches %s"
+                                     % (job["tag"], r["rank"], r["backend"],
+                                        r["current_device"], r["in_steps"]))
+            _merge_rank(by_path, "%s_rank%d" % (job["tag"], r["rank"]), r,
+                        ["progressive_splat", "progressive_splat_dlogits"])
+    if ranks[1][1]["writes"]["checkpoints"] or not ranks[0][1]["writes"][
+            "checkpoints"]:
+        raise AssertionError("16e: writes %s" % [r[1]["writes"]
+                                                 for r in ranks])
+    print("16e NCCL on cuda:0 and cuda:1 (%.1f s): the steps agree with one "
+          "process; rank 1's kernels launched on cuda:1" % seconds)
+    _dp_replicas(ops, tmp, by_path, checkpoint,
+                 [torch.device("cuda", 0), torch.device("cuda", 1)])
+
+
+def _multi_rank_phase(ops, tmp, checkpoint):
+    """16: several ranks. Returns the launch counts by path, every rank's
+    apart."""
+    by_path = {}
+    t0 = time.perf_counter()
+    _dp_world1(ops, tmp, by_path)
+    _dp_steps(ops, tmp, by_path)
+    _dp_cli(ops, tmp, by_path)
+    _dp_replicas(ops, tmp, by_path, checkpoint,
+                 [torch.device("cuda", 0)] * 2)
+    if torch.cuda.device_count() >= 2:
+        _dp_cards(ops, tmp, by_path, checkpoint)
+    else:
+        print("multi-card: not run (%d device)" % torch.cuda.device_count())
+    print("phase 16: %.1f s" % (time.perf_counter() - t0))
+    return by_path
 
 
 def main():
@@ -4084,12 +4769,14 @@ def main():
         _render_plain_phase(ops)
         by_path.update(_render_train_phase(ops, tmp, corpus))
         by_path.update(_probe_phase(ops, tmp, corpus, checkpoint))
-    _scale_phase(checkpoint)
-    _baseline_scale_phase(labels)
-    by_path.update(_bench_phase(ops))
-    by_path.update(_profile_phase(ops))
-    with tempfile.TemporaryDirectory() as tmp:
-        by_path.update(_pbrt_phase(ops, tmp))
+        _scale_phase(checkpoint)
+        _baseline_scale_phase(labels)
+        by_path.update(_bench_phase(ops))
+        by_path.update(_profile_phase(ops))
+        with tempfile.TemporaryDirectory() as tmp15:
+            by_path.update(_pbrt_phase(ops, tmp15))
+        # 16 reuses the training tiles of 8 and 8f and the frame of 7.
+        by_path.update(_multi_rank_phase(ops, tmp, checkpoint))
 
     kernels = []
     for name, source, replaces in KERNELS:
@@ -4118,4 +4805,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank"]:
+        _rank_main(sys.argv[2])
+    else:
+        main()

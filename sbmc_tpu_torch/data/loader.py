@@ -74,7 +74,12 @@ class Loader:
       drop_last: drop the trailing partial batch.
       seed: shuffle seed.
       shard_id, num_shards: this process reads items
-        ``shard_id::num_shards``.
+        ``shard_id::num_shards``, the first ``len(dataset) // num_shards``
+        of them, so that every shard has as many items and every process
+        takes as many steps an epoch. (The JAX loader keeps the strided
+        shards whole, one item longer on some when ``num_shards`` does not
+        divide the count: a process whose epoch ends a batch early leaves
+        the others waiting in the gradient all-reduce.)
       random_mask_spp: ``(lo, hi)``; draw a valid sample count per item and
         mask the rest (the draw uses numpy's global generator, as the JAX
         package's loader does, so ``np.random.seed`` fixes it).
@@ -102,7 +107,9 @@ class Loader:
         self.num_shards = num_shards
 
     def _indices(self):
-        return np.arange(len(self.dataset))[self.shard_id::self.num_shards]
+        n = len(self.dataset)
+        return np.arange(n)[self.shard_id::self.num_shards][
+            :n // self.num_shards]
 
     def __len__(self):
         n = len(self._indices())

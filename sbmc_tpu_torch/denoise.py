@@ -6,10 +6,13 @@
 
 The model (SBMC, KPCN or LBF) and the dataset configuration come from the
 checkpoint's meta, so no model flags are needed. A frame is processed in
-overlapping tiles, one tile on the device at a time: ``--uniform_tiles``
+overlapping tiles, one tile on a device at a time: ``--uniform_tiles``
 stacks equal-size tiles (the frame zero-padded to the grid) and ships the
 feature stacks to the device as float16; the default path cuts ragged
-tiles. Runs on ``--device cuda`` unless told otherwise, and raises when that
+tiles. ``--num_devices N`` spreads the tiles over N cards (default: every
+visible one), with a copy of the model on each: ragged tiles round-robin,
+uniform tiles in contiguous shards of the stack; the frame is the same for
+every N. Runs on ``--device cuda`` unless told otherwise, and raises when that
 device is missing. Times are fenced with ``torch.cuda.synchronize()``.
 ``--trace DIR`` records the first scene's tiles with ``torch.profiler``
 (host and, on the card, device activity) and writes a Chrome trace,
@@ -27,15 +30,16 @@ import torch
 from sbmc_tpu_torch.data.datasets import FullImagesDataset
 from sbmc_tpu_torch.models.build import build_model
 from sbmc_tpu_torch.params import load_jax_params
+from sbmc_tpu_torch.parallel.mesh import local_devices, replicas
 from sbmc_tpu_torch.parallel.tiles import (merge_tiles, merge_tiles_uniform,
                                            pad_back, split_tiles,
                                            split_tiles_uniform)
 from sbmc_tpu_torch.train.checkpointer import Checkpointer
 from sbmc_tpu_torch.utils import exr
-from sbmc_tpu_torch.utils.device import resolve_device
 from sbmc_tpu_torch.utils.image import write_png
 
-__all__ = ["main", "load_model", "parse_args"]
+__all__ = ["main", "load_model", "denoise_uniform", "denoise_ragged",
+           "parse_args"]
 
 log = logging.getLogger("sbmc_tpu_torch.denoise")
 
@@ -53,9 +57,10 @@ def load_model(checkpoint, device):
     return model.to(device).eval(), meta, step
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(devices):
+    for device in set(devices):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 def _to_device(arrays, device):
@@ -63,7 +68,16 @@ def _to_device(arrays, device):
             for k, v in arrays.items()}
 
 
-def _denoise_uniform(model, batch, args, device):
+def denoise_uniform(models, batch, args, devices):
+    """Denoise ``batch`` in uniform tiles over ``devices`` (``models[d]``
+    on ``devices[d]``; a device may be named twice): ``min(len(devices),
+    tiles)`` of them, each given a contiguous shard of the tile stack, as
+    the JAX script's mesh shards the stack padded to a multiple of that
+    count. The padded copies are not run (their outputs would be dropped),
+    so the last shards may be short. Every device runs its shard one tile
+    at a time; the tiles are enqueued on all devices before any output is
+    read, so cards work at once. Returns ``(frame, ms, tiles)``; the frame
+    does not depend on the device count."""
     stacked, info = split_tiles_uniform(batch, tile=args.tile_size,
                                         pad=args.tile_pad)
     if not args.f32_transfer:
@@ -75,47 +89,63 @@ def _denoise_uniform(model, batch, args, device):
                 stacked[k] = stacked[k].astype(np.float16)
     n_tiles = stacked["features" if "features" in stacked
                       else "kpcn_diffuse_in"].shape[0]
-    dev = _to_device(stacked, device)
-    _sync(device)
+    per = -(-n_tiles // min(len(devices), n_tiles))
+    starts = range(0, n_tiles, per)
+    # Slices of the stack, not copies: one device ships it whole.
+    shards = [_to_device({k: v[lo:lo + per] for k, v in stacked.items()},
+                         devices[d]) for d, lo in enumerate(starts)]
+    _sync(devices)
     t0 = time.perf_counter()
-    outs = []
-    for i in range(n_tiles):
-        # Float16 stacks are upcast on the device, as the JAX script's
-        # _upcast does; the model then casts to its conv dtype.
-        tile = {k: (v[i:i + 1].float() if v.dtype == torch.float16
-                    else v[i:i + 1]) for k, v in dev.items()}
-        outs.append(model(tile)["radiance"])
-    out = torch.cat(outs).cpu().numpy()  # synchronises
+    outs = [[] for _ in shards]
+    for i in range(per):
+        for d, (shard, lo) in enumerate(zip(shards, starts)):
+            if lo + i >= n_tiles:
+                continue  # the last shard is short
+            # Float16 stacks are upcast on the device, as the JAX script's
+            # _upcast does; the model then casts to its conv dtype.
+            tile = {k: (v[i:i + 1].float() if v.dtype == torch.float16
+                        else v[i:i + 1]) for k, v in shard.items()}
+            outs[d].append(models[d](tile)["radiance"])
+    # One read-back a device (it synchronises); one device's is the stack.
+    outs = [torch.cat(o).cpu().numpy() for o in outs]
+    out = outs[0] if len(outs) == 1 else np.concatenate(outs)
     elapsed = (time.perf_counter() - t0) * 1000
-    log.info("    denoising time %.1f ms (%d uniform tiles, %s)", elapsed,
-             n_tiles, device)
+    log.info("    denoising time %.1f ms (%d uniform tiles over %d "
+             "device(s))", elapsed, n_tiles, len(shards))
     return merge_tiles_uniform(out, info), elapsed, n_tiles
 
 
-def _denoise_ragged(model, batch, args, device):
+def denoise_ragged(models, batch, args, devices):
+    """Denoise ``batch`` in ragged tiles, tile ``i`` on ``devices[i % N]``
+    (``models[d]`` on ``devices[d]``), as the JAX script deals them out:
+    every tile is enqueued before any output is read. Returns ``(frame,
+    ms, tiles)``; the frame does not depend on the device count."""
     tiles = split_tiles(batch, max_sz=args.tile_size, pad=args.tile_pad)
     canvas = np.zeros_like(np.asarray(batch["low_spp"]))
-    _sync(device)
+    n_dev = len(devices) if len(tiles) > 1 else 1
+    _sync(devices)
     t0 = time.perf_counter()
-    merged = []
-    for tb, y0, y1, x0, x1, tilepad in tiles:
+    outs = []
+    for i, (tb, *_) in enumerate(tiles):
+        d = i % n_dev
         inputs = {k: v for k, v in tb.items() if isinstance(v, np.ndarray)}
-        out = model(_to_device(inputs, device))["radiance"].cpu().numpy()
-        merged.append((pad_back(tb, out), y0, y1, x0, x1, tilepad))
+        outs.append(models[d](_to_device(inputs, devices[d]))["radiance"])
+    merged = [(pad_back(tb, out.cpu().numpy()), *where)
+              for out, (tb, *where) in zip(outs, tiles)]
     elapsed = (time.perf_counter() - t0) * 1000
-    log.info("    denoising time %.1f ms (%d tiles, %s)", elapsed,
-             len(tiles), device)
+    log.info("    denoising time %.1f ms (%d tiles over %d device(s))",
+             elapsed, len(tiles), n_dev)
     return merge_tiles(canvas, merged), elapsed, len(tiles)
 
 
-def _traced(run, model, batch, args, device):
-    """``run(model, batch, args, device)`` under ``torch.profiler``; writes
-    the Chrome trace into ``args.trace``."""
+def _traced(run, models, batch, args, devices):
+    """``run(models, batch, args, devices)`` under ``torch.profiler``
+    (every device's work); writes the Chrome trace into ``args.trace``."""
     acts = [torch.profiler.ProfilerActivity.CPU]
-    if device.type == "cuda":
+    if devices[0].type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
-        out = run(model, batch, args, device)
+        out = run(models, batch, args, devices)
     os.makedirs(args.trace, exist_ok=True)
     path = os.path.join(args.trace, TRACE_FILE)
     prof.export_chrome_trace(path)
@@ -135,20 +165,22 @@ def main(args):
         raise SystemExit("rectangular HxW tiles require --uniform_tiles")
     if not os.path.exists(args.input):
         raise ValueError("input {} does not exist".format(args.input))
-    device = resolve_device(args.device)
+    devices = local_devices(args.device, args.num_devices)
     # Float32 stays float32: no TF32 in matmuls or cuDNN convolutions.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     start = time.perf_counter()
 
-    model, meta, step = load_model(args.checkpoint, device)
+    model, meta, step = load_model(args.checkpoint, devices[0])
+    models = replicas(model, devices)
     log.info("Loaded checkpoint %s (step %s)", args.checkpoint, step)
     data_params = dict(meta["data_params"])
     if args.spp:
         data_params["spp"] = args.spp
     data = FullImagesDataset(args.input, **data_params)
     log.info("Denoising input with %d spp (%s) on %s", data.spp,
-             meta.get("arch", "sbmc").upper(), device)
+             meta.get("arch", "sbmc").upper(),
+             ", ".join(str(d) for d in devices))
     log.info("setup time %.1f ms", (time.perf_counter() - start) * 1000)
 
     results = []
@@ -161,13 +193,13 @@ def main(args):
         # With several scenes, suffix the output path per scene.
         out_path = args.output if len(data) == 1 else \
             args.output.replace(".exr", "_%s.exr" % scene)
-        run = _denoise_uniform if args.uniform_tiles else _denoise_ragged
+        run = denoise_uniform if args.uniform_tiles else denoise_ragged
         with torch.inference_mode():
             if args.trace and scene_id == 0:
-                canvas, elapsed, n_tiles = _traced(run, model, batch, args,
-                                                   device)
+                canvas, elapsed, n_tiles = _traced(run, models, batch, args,
+                                                   devices)
             else:
-                canvas, elapsed, n_tiles = run(model, batch, args, device)
+                canvas, elapsed, n_tiles = run(models, batch, args, devices)
         out_radiance = np.asarray(canvas)[0].transpose(1, 2, 0)
         outdir = os.path.dirname(out_path)
         if outdir:
@@ -204,6 +236,10 @@ def parse_args(argv=None):
                         "(e.g. 640x2048) for rectangular uniform tiles.")
     parser.add_argument("--tile_pad", type=_tile, default=128,
                         help="overlap padding around tiles (HxW allowed).")
+    parser.add_argument("--num_devices", type=int, default=None,
+                        help="devices to spread tiles over (default: every "
+                        "visible card on cuda, 1 on cpu; more than exist "
+                        "raises; on cpu, that many replicas on the CPU).")
     parser.add_argument("--uniform_tiles", action="store_true",
                         help="uniform-size tiles, stacked and shipped to the "
                         "device once (feature stacks as float16).")

@@ -1,7 +1,7 @@
 """``python -m sbmc_tpu_torch.train DATA CKPT_DIR ...``: the training entry
 point (:mod:`sbmc_tpu_torch.train_cli`)."""
 
-from sbmc_tpu_torch.train_cli import main, parse_args
+from sbmc_tpu_torch.train_cli import cli
 
 if __name__ == "__main__":
-    main(parse_args())
+    cli()

@@ -8,6 +8,7 @@ import time
 import numpy as np
 import torch
 
+from sbmc_tpu_torch.parallel.mesh import barrier, is_main
 from sbmc_tpu_torch.utils.image import write_png
 from sbmc_tpu_torch.utils.logging import get_logger
 
@@ -82,6 +83,10 @@ class CheckpointingCallback(Callback):
     Refuses to persist non-finite parameters: a diverging step can poison
     the params one step before the (lagged) NaN-loss guard fires, and a
     poisoned checkpoint would shadow the last good one.
+
+    Data-parallel, every rank holds one: rank 0 writes, and every rank
+    waits for it at a barrier, so no rank runs ahead of a checkpoint that
+    a restart would resume from.
     """
 
     def __init__(self, checkpointer, interface, interval_steps=1000):
@@ -97,7 +102,9 @@ class CheckpointingCallback(Callback):
             LOG.warning("refusing to checkpoint non-finite parameters at "
                         "step %s", iface.step)
             return
-        self.checkpointer.save(iface.state_tree(), iface.step, tag=tag)
+        if is_main():
+            self.checkpointer.save(iface.state_tree(), iface.step, tag=tag)
+        barrier()
 
     def batch_end(self, step, metrics):
         if step > 0 and step % self.interval_steps == 0:

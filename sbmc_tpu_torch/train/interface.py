@@ -8,12 +8,20 @@ goes in and comes out), this one is PyTorch's idiom: it owns the model, the
 ``torch.optim.Adam`` optimizer and the step count, and ``state_tree`` /
 ``load_state_tree`` carry them to and from the JAX package's checkpoint
 layout.
+
+With ``distributed=True`` the train step is data-parallel over the process
+group (:mod:`sbmc_tpu_torch.parallel.mesh`), as JAX's step is over a mesh:
+DDP averages the gradients in the backward, the clip then sees the global
+gradient (as ``optax.clip_by_global_norm`` does on the mesh), and the
+step's metrics are the global batch's means on every rank.
 """
 
 import numpy as np
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
 from sbmc_tpu_torch import losses as losses_mod
+from sbmc_tpu_torch.parallel.mesh import all_mean
 from sbmc_tpu_torch.params import (export_adam_state, export_jax_params,
                                    load_adam_state, load_jax_params)
 from sbmc_tpu_torch.utils.device import resolve_device
@@ -39,12 +47,26 @@ class DenoiserInterface:
       loss: one of ``LOSS_FNS`` keys (default: the training loss).
       grad_clip: global-norm clip.
       device: torch device; a CUDA device that is missing raises.
+      distributed: train data-parallel over the initialized process group
+        (raises without one). ``model`` stays the bare module: checkpoints,
+        exports, the display strip and ``eval_step`` use it and never enter
+        a collective; only ``train_step``'s forward goes through the DDP
+        wrapper.
     """
 
     def __init__(self, model, lr=1e-4, loss="tonemapped_relative_mse",
-                 grad_clip=1000.0, device="cuda"):
+                 grad_clip=1000.0, device="cuda", distributed=False):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
+        self._ddp = None
+        if distributed:
+            # The models hold no buffers to broadcast, and every mode
+            # (SBMC, --gather, --pixel, KPCN, LBF) gives every parameter a
+            # gradient, so DDP need not search the graph for unused ones.
+            self._ddp = DistributedDataParallel(
+                self.model, broadcast_buffers=False,
+                device_ids=[self.device] if self.device.type == "cuda"
+                else None)
         self.loss_name = loss
         self.loss_fn = LOSS_FNS[loss]
         self.rmse_fn = losses_mod.relative_mse
@@ -53,8 +75,9 @@ class DenoiserInterface:
                                           betas=(0.9, 0.999), eps=1e-8)
         self.step = 0
 
-    def _losses(self, batch):
-        radiance = self.model(batch)["radiance"].float()
+    def _losses(self, batch, net=None):
+        net = self.model if net is None else net
+        radiance = net(batch)["radiance"].float()
         tgt = crop_like(batch["target_image"], radiance)
         loss = self.loss_fn(radiance, tgt)
         with torch.no_grad():
@@ -109,16 +132,21 @@ class DenoiserInterface:
     def train_step(self, batch):
         """One optimization step on ``batch`` (a dict of numpy arrays or
         tensors). Returns a dict of 0-dim tensors on the device: read them a
-        step late so the host does not wait on every step."""
+        step late so the host does not wait on every step. Data-parallel,
+        they are the global means, the same on every rank, so a non-finite
+        loss stops every rank at the same step."""
         batch = self._to_device(batch)
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        loss, rmse, base = self._losses(batch)
+        loss, rmse, base = self._losses(batch, self._ddp)
         loss.backward()
         self._clip_gradients()
         self.optimizer.step()
         self.step += 1
-        return {"loss": loss.detach(), "rmse": rmse, "input_loss": base}
+        metrics = (loss.detach(), rmse, base)
+        if self._ddp is not None:
+            metrics = all_mean(metrics)
+        return dict(zip(("loss", "rmse", "input_loss"), metrics))
 
     def eval_step(self, batch):
         batch = self._to_device(batch)

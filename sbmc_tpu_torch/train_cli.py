@@ -23,8 +23,18 @@ tiles than that, a background thread decodes the rest and one slot is
 refreshed every ``--refresh_every`` steps. ``--kpcn_mode`` keeps the host
 loader, as in the JAX script.
 
-Not ported yet, and refused rather than replaced by something else:
-training on several GPUs.
+On several GPUs, one process each, started by torchrun::
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m sbmc_tpu_torch.train DATA CKPT_DIR --bs 4 --spp 8
+
+Training is data-parallel (:mod:`sbmc_tpu_torch.parallel.mesh`): ``--bs``
+is the batch of each process, as in the JAX script's multi-process branch,
+so the global batch is ``bs x N``; each process reads its own equal shard
+of the tiles; the logged metrics are the global batch's; only rank 0
+writes the checkpoint, ``train_log.csv``, ``viz/`` and the progress lines;
+validation runs whole on every rank; ``--device_reservoir`` is ignored
+(the host loader feeds every rank).
 """
 
 import argparse
@@ -32,23 +42,18 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sbmc_tpu_torch.data import Loader, MultiSampleCountDataset, TilesDataset
 from sbmc_tpu_torch.models import KPCN, LBF, Multisteps
 from sbmc_tpu_torch.models.build import model_meta
+from sbmc_tpu_torch.parallel.mesh import init_distributed, is_main, shutdown
 from sbmc_tpu_torch.train import (Checkpointer, DenoiserInterface, Trainer,
                                   callbacks)
 from sbmc_tpu_torch.train.reservoir import DeviceReservoir, ReservoirFeeder
 from sbmc_tpu_torch.utils.logging import get_logger, set_logger
 
-__all__ = ["main", "parse_args"]
-
-
-def _refuse_unported(args):
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "training on several GPUs is not ported yet (slice 2, "
-            "data-parallel training)")
+__all__ = ["main", "parse_args", "cli"]
 
 
 def main(args):
@@ -56,9 +61,9 @@ def main(args):
     step count) when training ends."""
     set_logger(args.verbose)
     log = get_logger("sbmc_tpu_torch.train")
-    _refuse_unported(args)
     if args.kpcn_mode and args.lbf_mode:
         raise SystemExit("--kpcn_mode and --lbf_mode are mutually exclusive")
+    rank, world, device = init_distributed(args.device)
     np.random.seed(0)
     torch.manual_seed(0)
     # Float32 stays float32: no TF32 in matmuls or cuDNN convolutions.
@@ -125,14 +130,22 @@ def main(args):
             ksize=args.ksize, splat=not args.gather, pixel=args.pixel,
             conv_dtype=conv_dtype, remat=args.remat)
         model = Multisteps(**model_params)
-    interface = DenoiserInterface(model, lr=args.lr, device=args.device)
+    interface = DenoiserInterface(model, lr=args.lr, device=device,
+                                  distributed=dist.is_initialized())
 
     meta = model_meta(args.kpcn_mode, model_params, data_args, arch=arch)
-    checkpointer = Checkpointer(args.checkpoint_dir, meta=meta)
+    checkpointer = Checkpointer(args.checkpoint_dir,
+                                meta=meta if is_main() else None)
 
     loader = Loader(data, batch_size=args.bs, shuffle=True, pad_spp=pad_spp,
                     num_threads=args.num_worker_threads,
+                    shard_id=rank, num_shards=world,
                     random_mask_spp=random_mask_spp)
+    if dist.is_initialized():
+        log.info("Data-parallel: process %d of %d on %s, items %d::%d "
+                 "(%d of %d), %d steps an epoch of %d x %d", rank, world,
+                 device, rank, world, len(data) // world, len(data),
+                 len(loader), world, args.bs)
     val_loader = None
     if val_data is not None:
         val_loader = Loader(val_data, batch_size=args.bs, shuffle=False,
@@ -144,27 +157,28 @@ def main(args):
         interface.load_state_tree(state)
         log.info("Resumed from checkpoint step %s", step)
 
-    cbs = [
-        callbacks.ProgressCallback(interval=args.log_interval),
-        callbacks.CheckpointingCallback(
-            checkpointer, interface,
-            interval_steps=args.checkpoint_interval),
-        callbacks.ScalarLogCallback(
-            os.path.join(args.checkpoint_dir, "train_log.csv"),
-            interval=args.log_interval),
-    ]
-    if not args.kpcn_mode:
-        cbs.append(callbacks.DenoisingDisplayCallback(
-            interface, lambda: first,
-            os.path.join(args.checkpoint_dir, "viz")))
+    # Every rank checkpoints (rank 0 writes, all wait for it); only rank 0
+    # logs and draws.
+    cbs = [callbacks.CheckpointingCallback(
+        checkpointer, interface, interval_steps=args.checkpoint_interval)]
+    if is_main():
+        cbs += [
+            callbacks.ProgressCallback(interval=args.log_interval),
+            callbacks.ScalarLogCallback(
+                os.path.join(args.checkpoint_dir, "train_log.csv"),
+                interval=args.log_interval)]
+        if not args.kpcn_mode:
+            cbs.append(callbacks.DenoisingDisplayCallback(
+                interface, lambda: first,
+                os.path.join(args.checkpoint_dir, "viz")))
     trainer = Trainer(interface, cbs)
-    if args.device_reservoir > 0 and not args.kpcn_mode:
+    if args.device_reservoir > 0 and not args.kpcn_mode and world == 1:
         _train_from_reservoir(args, log, trainer, interface, data,
                               val_loader)
     else:
         if args.device_reservoir > 0:
-            log.info("--device_reservoir ignored (kpcn mode keeps the host "
-                     "loader)")
+            log.info("--device_reservoir ignored (data-parallel processes "
+                     "or kpcn mode keep the host loader)")
         trainer.train(loader, num_epochs=args.num_epochs,
                       val_dataloader=val_loader, max_steps=args.max_steps)
     return interface
@@ -200,7 +214,9 @@ def parse_args(argv=None):
     parser.add_argument("--val_data", help="validation data folder")
     parser.add_argument("--num_epochs", type=int, default=None)
     parser.add_argument("--max_steps", type=int, default=None)
-    parser.add_argument("--bs", type=int, default=1, help="batch size")
+    parser.add_argument("--bs", type=int, default=1,
+                        help="batch size of each process (under torchrun "
+                        "the global batch is bs x processes)")
     parser.add_argument("--lr", type=float, default=1e-4)
     parser.add_argument("--spp", type=int, default=8,
                         help="max samples per pixel")
@@ -266,5 +282,11 @@ def parse_args(argv=None):
     return args
 
 
+def cli(argv=None):
+    """The command line: train, then leave the process group."""
+    main(parse_args(argv))
+    shutdown()
+
+
 if __name__ == "__main__":
-    main(parse_args())
+    cli()

@@ -151,11 +151,11 @@ def test_frame_is_the_denoise_cli_frame(tiling):
         ["--input", "x", "--checkpoint", "c", "--output", "o.exr",
          "--tile_size", str(tile), "--tile_pad", str(pad), "--device",
          "cpu"] + (["--uniform_tiles"] if tiling == "uniform" else []))
-    run = (denoise._denoise_uniform if tiling == "uniform"
-           else denoise._denoise_ragged)
+    run = (denoise.denoise_uniform if tiling == "uniform"
+           else denoise.denoise_ragged)
     with torch.inference_mode():
         got = bench.merge_frame(bench.run_frame(model, geo, make_tile), geo)
-        want, _, n = run(model, batch, args, torch.device("cpu"))
+        want, _, n = run([model], batch, args, [torch.device("cpu")])
     assert n == geo.n_tiles and got.shape == (1, 3, h, w)
     np.testing.assert_array_equal(got, want)
     assert np.abs(got[..., 2:-2, 2:-2]).min() > 0

@@ -669,9 +669,8 @@ def test_cli_kpcn_and_lbf_exclude_each_other(tiles, tmp_path):
     assert not os.path.exists(str(tmp_path / "c"))
 
 
-def test_cli_refuses_several_processes(tiles, tmp_path, monkeypatch):
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="several GPUs"):
-        train_cli.main(_cli(tiles, str(tmp_path / "c"), "--device", "cpu"))
+def test_cli_has_no_profile_port(tiles):
+    """The JAX script's --profile_port (a jax.profiler server) has no
+    counterpart: the flag is refused, not accepted and ignored."""
     with pytest.raises(SystemExit):
         _cli(tiles, "c", "--profile_port", "9999")
