@@ -20,7 +20,9 @@ find; it imports neither JAX nor anything of ``sbmc_tpu``.
   ``--lbf_mode`` and ``--gather``).
 - ``denoise``: the inference entry point
   (``python -m sbmc_tpu_torch.denoise``); ``profile``: device time by
-  kernel class.
+  program span and the top kernels.
+- ``tracing``: spans and counters at the layer boundaries, on while a
+  ``torch.profiler`` records.
 - ``render`` and ``generate_training_data``: training data, from the
   wavefront path tracer on the card or, by default, from the procedural
   PBRT scenes of ``scene_generator`` rendered by an external ``pbrt``

@@ -14,12 +14,17 @@ visible one), with a copy of the model on each: ragged tiles round-robin,
 uniform tiles in contiguous shards of the stack; the frame is the same for
 every N. Runs on ``--device cuda`` unless told otherwise, and raises when that
 device is missing. Times are fenced with ``torch.cuda.synchronize()``.
-``--trace DIR`` records the first scene's tiles with ``torch.profiler``
-(host and, on the card, device activity) and writes a Chrome trace,
-``DIR/denoise_trace.json``.
+``--trace DIR`` records the whole first scene, from loading its samples
+to writing its EXR, with ``torch.profiler`` (host and, on the card, device
+activity), writes a Chrome trace, ``DIR/denoise_trace.json``, and logs one
+line a program span (:mod:`sbmc_tpu_torch.tracing`): a scene is
+``denoise.scene``, with ``denoise.load``, ``denoise.split``,
+``denoise.to_device``, ``denoise.tiles`` (the model calls under it),
+``denoise.readback``, ``denoise.merge`` and ``denoise.write`` under it.
 """
 
 import argparse
+import functools
 import logging
 import os
 import time
@@ -27,6 +32,7 @@ import time
 import numpy as np
 import torch
 
+from sbmc_tpu_torch import tracing
 from sbmc_tpu_torch.data.datasets import FullImagesDataset
 from sbmc_tpu_torch.models.build import build_model
 from sbmc_tpu_torch.params import load_jax_params
@@ -64,8 +70,12 @@ def _sync(devices):
 
 
 def _to_device(arrays, device):
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in arrays.items()}
+    out = {}
+    for k, v in arrays.items():
+        v = torch.from_numpy(np.ascontiguousarray(v))
+        tracing.count("h2d_bytes", v.nbytes)
+        out[k] = v.to(device)
+    return out
 
 
 def denoise_uniform(models, batch, args, devices):
@@ -78,41 +88,49 @@ def denoise_uniform(models, batch, args, devices):
     at a time; the tiles are enqueued on all devices before any output is
     read, so cards work at once. Returns ``(frame, ms, tiles)``; the frame
     does not depend on the device count."""
-    stacked, info = split_tiles_uniform(batch, tile=args.tile_size,
-                                        pad=args.tile_pad)
-    if not args.f32_transfer:
-        # Ship the dominant feature stacks as float16 (halves the
-        # host->device bytes and device residency, matching the f16-cached
-        # training feed); radiance stays float32 (HDR range).
-        for k in stacked:
-            if "features" in k or k.endswith("_in"):
-                stacked[k] = stacked[k].astype(np.float16)
+    with tracing.span("denoise.split"):
+        stacked, info = split_tiles_uniform(batch, tile=args.tile_size,
+                                            pad=args.tile_pad)
+        if not args.f32_transfer:
+            # Ship the dominant feature stacks as float16 (halves the
+            # host->device bytes and device residency, matching the
+            # f16-cached training feed); radiance stays float32 (HDR range).
+            for k in stacked:
+                if "features" in k or k.endswith("_in"):
+                    stacked[k] = stacked[k].astype(np.float16)
     n_tiles = stacked["features" if "features" in stacked
                       else "kpcn_diffuse_in"].shape[0]
     per = -(-n_tiles // min(len(devices), n_tiles))
     starts = range(0, n_tiles, per)
-    # Slices of the stack, not copies: one device ships it whole.
-    shards = [_to_device({k: v[lo:lo + per] for k, v in stacked.items()},
-                         devices[d]) for d, lo in enumerate(starts)]
-    _sync(devices)
+    with tracing.span("denoise.to_device"):
+        # Slices of the stack, not copies: one device ships it whole.
+        shards = [_to_device({k: v[lo:lo + per] for k, v in stacked.items()},
+                             devices[d]) for d, lo in enumerate(starts)]
+        _sync(devices)
     t0 = time.perf_counter()
     outs = [[] for _ in shards]
-    for i in range(per):
-        for d, (shard, lo) in enumerate(zip(shards, starts)):
-            if lo + i >= n_tiles:
-                continue  # the last shard is short
-            # Float16 stacks are upcast on the device, as the JAX script's
-            # _upcast does; the model then casts to its conv dtype.
-            tile = {k: (v[i:i + 1].float() if v.dtype == torch.float16
-                        else v[i:i + 1]) for k, v in shard.items()}
-            outs[d].append(models[d](tile)["radiance"])
-    # One read-back a device (it synchronises); one device's is the stack.
-    outs = [torch.cat(o).cpu().numpy() for o in outs]
-    out = outs[0] if len(outs) == 1 else np.concatenate(outs)
+    with tracing.span("denoise.tiles"):
+        for i in range(per):
+            for d, (shard, lo) in enumerate(zip(shards, starts)):
+                if lo + i >= n_tiles:
+                    continue  # the last shard is short
+                # Float16 stacks are upcast on the device, as the JAX
+                # script's _upcast does; the model then casts to its conv
+                # dtype.
+                tile = {k: (v[i:i + 1].float() if v.dtype == torch.float16
+                            else v[i:i + 1]) for k, v in shard.items()}
+                outs[d].append(models[d](tile)["radiance"])
+    with tracing.span("denoise.readback"):
+        # One read-back a device (it synchronises); one device's is the
+        # stack.
+        outs = [torch.cat(o).cpu().numpy() for o in outs]
+        out = outs[0] if len(outs) == 1 else np.concatenate(outs)
     elapsed = (time.perf_counter() - t0) * 1000
     log.info("    denoising time %.1f ms (%d uniform tiles over %d "
              "device(s))", elapsed, n_tiles, len(shards))
-    return merge_tiles_uniform(out, info), elapsed, n_tiles
+    with tracing.span("denoise.merge"):
+        frame = merge_tiles_uniform(out, info)
+    return frame, elapsed, n_tiles
 
 
 def denoise_ragged(models, batch, args, devices):
@@ -120,36 +138,78 @@ def denoise_ragged(models, batch, args, devices):
     (``models[d]`` on ``devices[d]``), as the JAX script deals them out:
     every tile is enqueued before any output is read. Returns ``(frame,
     ms, tiles)``; the frame does not depend on the device count."""
-    tiles = split_tiles(batch, max_sz=args.tile_size, pad=args.tile_pad)
-    canvas = np.zeros_like(np.asarray(batch["low_spp"]))
+    with tracing.span("denoise.split"):
+        tiles = split_tiles(batch, max_sz=args.tile_size, pad=args.tile_pad)
+        canvas = np.zeros_like(np.asarray(batch["low_spp"]))
     n_dev = len(devices) if len(tiles) > 1 else 1
     _sync(devices)
     t0 = time.perf_counter()
     outs = []
-    for i, (tb, *_) in enumerate(tiles):
-        d = i % n_dev
-        inputs = {k: v for k, v in tb.items() if isinstance(v, np.ndarray)}
-        outs.append(models[d](_to_device(inputs, devices[d]))["radiance"])
-    merged = [(pad_back(tb, out.cpu().numpy()), *where)
-              for out, (tb, *where) in zip(outs, tiles)]
+    with tracing.span("denoise.tiles"):
+        for i, (tb, *_) in enumerate(tiles):
+            d = i % n_dev
+            inputs = {k: v for k, v in tb.items()
+                      if isinstance(v, np.ndarray)}
+            with tracing.span("denoise.to_device", devices[d]):
+                inputs = _to_device(inputs, devices[d])
+            outs.append(models[d](inputs)["radiance"])
+    with tracing.span("denoise.readback"):
+        merged = [(pad_back(tb, out.cpu().numpy()), *where)
+                  for out, (tb, *where) in zip(outs, tiles)]
     elapsed = (time.perf_counter() - t0) * 1000
     log.info("    denoising time %.1f ms (%d tiles over %d device(s))",
              elapsed, len(tiles), n_dev)
-    return merge_tiles(canvas, merged), elapsed, len(tiles)
+    with tracing.span("denoise.merge"):
+        frame = merge_tiles(canvas, merged)
+    return frame, elapsed, len(tiles)
 
 
-def _traced(run, models, batch, args, devices):
-    """``run(models, batch, args, devices)`` under ``torch.profiler``
-    (every device's work); writes the Chrome trace into ``args.trace``."""
+def _scene(models, data, scene_id, args, devices, out_path):
+    """Denoise scene ``scene_id`` of ``data`` and write it to ``out_path``
+    (and a PNG beside it); returns ``(ms, tiles)``."""
+    run = denoise_uniform if args.uniform_tiles else denoise_ragged
+    with tracing.span("denoise.scene", devices[0]):
+        with tracing.span("denoise.load"):
+            item = data[scene_id]
+            batch = {k: v[None] if isinstance(v, np.ndarray) else v
+                     for k, v in item.items()}
+        with torch.inference_mode():
+            canvas, elapsed, n_tiles = run(models, batch, args, devices)
+        with tracing.span("denoise.write"):
+            out_radiance = np.asarray(canvas)[0].transpose(1, 2, 0)
+            outdir = os.path.dirname(out_path)
+            if outdir:
+                os.makedirs(outdir, exist_ok=True)
+            exr.write(out_path, out_radiance)
+            png = out_path.replace(".exr", ".png")
+            write_png(png, (np.clip(out_radiance, 0, 1) * 255
+                            ).astype(np.uint8))
+    log.info("    wrote %s / %s", out_path, png)
+    return elapsed, n_tiles
+
+
+def _traced(fn, devices, trace_dir):
+    """``fn()`` under ``torch.profiler`` (every device's work): writes the
+    Chrome trace into ``trace_dir`` and logs each program span of the
+    scene it recorded."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if devices[0].type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
-        out = run(models, batch, args, devices)
-    os.makedirs(args.trace, exist_ok=True)
-    path = os.path.join(args.trace, TRACE_FILE)
+        out = fn()
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, TRACE_FILE)
     prof.export_chrome_trace(path)
     log.info("    wrote profiler trace to %s", path)
+    call = tracing.calls("denoise.scene")[-1]
+    log.info("    %-20s %6s %11s %11s %13s", "span", "calls", "host ms",
+             "device ms", "h2d_bytes")
+    rows = [(call.name, 1, call.host_ms, call.device_ms, call.counters)]
+    rows += [(name, s.calls, s.host_ms, s.device_ms, s.counters)
+             for name, s in call.below.items()]
+    for name, n, host, dev, counters in rows:
+        log.info("    %-20s %6d %11.3f %11.3f %13d", name, n, host, dev,
+                 counters.get("h2d_bytes", 0))
     return out
 
 
@@ -185,29 +245,17 @@ def main(args):
 
     results = []
     for scene_id in range(len(data)):
-        item = data[scene_id]
-        batch = {k: v[None] if isinstance(v, np.ndarray) else v
-                 for k, v in item.items()}
         scene = os.path.basename(data.get_scene_name(scene_id))
         log.info("  scene %s", scene)
         # With several scenes, suffix the output path per scene.
         out_path = args.output if len(data) == 1 else \
             args.output.replace(".exr", "_%s.exr" % scene)
-        run = denoise_uniform if args.uniform_tiles else denoise_ragged
-        with torch.inference_mode():
-            if args.trace and scene_id == 0:
-                canvas, elapsed, n_tiles = _traced(run, models, batch, args,
-                                                   devices)
-            else:
-                canvas, elapsed, n_tiles = run(models, batch, args, devices)
-        out_radiance = np.asarray(canvas)[0].transpose(1, 2, 0)
-        outdir = os.path.dirname(out_path)
-        if outdir:
-            os.makedirs(outdir, exist_ok=True)
-        exr.write(out_path, out_radiance)
-        png = out_path.replace(".exr", ".png")
-        write_png(png, (np.clip(out_radiance, 0, 1) * 255).astype(np.uint8))
-        log.info("    wrote %s / %s", out_path, png)
+        one = functools.partial(_scene, models, data, scene_id, args,
+                                devices, out_path)
+        if args.trace and scene_id == 0:
+            elapsed, n_tiles = _traced(one, devices, args.trace)
+        else:
+            elapsed, n_tiles = one()
         results.append({"scene": scene, "output": out_path, "ms": elapsed,
                         "tiles": n_tiles, "spp": data.spp})
     return results

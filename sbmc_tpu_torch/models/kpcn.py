@@ -5,11 +5,16 @@ Two independent 9-layer, width-100, 5x5 valid-conv chains predict 21x21
 gather kernels for the diffuse and specular streams; the kernels are
 softmax-normalised and applied as gathers, then the streams are recombined
 as ``albedo * diffuse + (exp(specular) - 1)``.
+
+While tracing is on (:mod:`sbmc_tpu_torch.tracing`) a call is the span
+``kpcn.forward``, with ``kpcn.diffuse``, ``kpcn.specular`` (the chains) and
+``kpcn.apply`` (the gathers and the recombination) under it.
 """
 
 import torch
 import torch.nn as nn
 
+from sbmc_tpu_torch import tracing
 from sbmc_tpu_torch.models.multisteps import dtype_of
 from sbmc_tpu_torch.nn.kernel_apply import kernel_apply
 from sbmc_tpu_torch.nn.layers import ConvChain
@@ -62,21 +67,25 @@ class KPCN(nn.Module):
                 "(got %dx%d): the valid convolutions consume a %d-pixel "
                 "border." % (self.depth, shrink, shrink, h, w, shrink // 2))
 
-        # The inputs may arrive float16 (halved host->device transfer).
-        dt = self.conv_dtype or torch.float32
-        k_diffuse = self.diffuse(data["kpcn_diffuse_in"].to(dt))
-        k_specular = self.specular(data["kpcn_specular_in"].to(dt))
+        with tracing.span("kpcn.forward", data["kpcn_diffuse_in"]):
+            # The inputs may arrive float16 (halved host->device transfer).
+            dt = self.conv_dtype or torch.float32
+            with tracing.span("kpcn.diffuse"):
+                k_diffuse = self.diffuse(data["kpcn_diffuse_in"].to(dt))
+            with tracing.span("kpcn.specular"):
+                k_specular = self.specular(data["kpcn_specular_in"].to(dt))
 
-        b_diffuse = crop_like(data["kpcn_diffuse_buffer"].float(), k_diffuse)
-        b_specular = crop_like(data["kpcn_specular_buffer"].float(),
-                               k_specular)
-
-        r_diffuse, _ = kernel_apply(b_diffuse, k_diffuse, softmax=True,
-                                    splat=False)
-        r_specular, _ = kernel_apply(b_specular, k_specular, softmax=True,
-                                     splat=False)
-
-        albedo = crop_like(data["kpcn_albedo"], r_diffuse)
-        final_radiance = albedo * r_diffuse + (torch.exp(r_specular) - 1)
+            with tracing.span("kpcn.apply"):
+                b_diffuse = crop_like(data["kpcn_diffuse_buffer"].float(),
+                                      k_diffuse)
+                b_specular = crop_like(data["kpcn_specular_buffer"].float(),
+                                       k_specular)
+                r_diffuse, _ = kernel_apply(b_diffuse, k_diffuse,
+                                            softmax=True, splat=False)
+                r_specular, _ = kernel_apply(b_specular, k_specular,
+                                             softmax=True, splat=False)
+                albedo = crop_like(data["kpcn_albedo"], r_diffuse)
+                final_radiance = (albedo * r_diffuse
+                                  + (torch.exp(r_specular) - 1))
         return {"radiance": final_radiance, "diffuse": r_diffuse,
                 "specular": r_specular}

@@ -14,12 +14,17 @@ backward runs the hand-written backward kernels on the card). With
 ``remat`` the embedding and propagation stacks recompute their activations
 in the backward pass (``torch.utils.checkpoint``), as ``nn.remat`` does in
 the JAX model.
+
+While tracing is on (:mod:`sbmc_tpu_torch.tracing`) a call is the span
+``sbmc.forward``, with ``sbmc.embedding`` and ``sbmc.propagation`` a step
+and ``sbmc.regress`` and ``sbmc.splat`` a sample under it.
 """
 
 import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from sbmc_tpu_torch import tracing
 from sbmc_tpu_torch.nn.kernel_apply import (progressive_init,
                                             progressive_kernel_apply)
 from sbmc_tpu_torch.nn.layers import Autoencoder, ConvChain
@@ -122,6 +127,10 @@ class Multisteps(nn.Module):
         return module(x)
 
     def forward(self, samples):
+        with tracing.span("sbmc.forward", samples["features"]):
+            return self._forward(samples)
+
+    def _forward(self, samples):
         radiance = samples["radiance"].float()
         # Features may arrive float16 (halved host->device transfer).
         features = samples["features"].to(self.conv_dtype or torch.float32)
@@ -152,33 +161,39 @@ class Multisteps(nn.Module):
         gf = gfeatures.reshape(bs, -1, 1, 1).to(features.dtype)
         propagated = None
         for step in range(self.nsteps):
-            extra = gf if step == 0 else propagated
-            extra = extra[:, None].expand(bs, spp, extra.shape[1], h, w)
-            flat = torch.cat([feats, extra], dim=2)
-            flat = self._stack(f"embedding_{step:02d}",
-                               flat.reshape(bs * spp, -1, h, w))
-            feats = flat.reshape(bs, spp, -1, h, w)
-            # Permutation-invariant masked mean over samples.
-            reduced = ((feats * mask_f[:, :, None, None, None]).sum(dim=1)
-                       / n_valid[:, None, None, None])
-            propagated = self._stack(f"propagation_{step:02d}", reduced)
+            with tracing.span("sbmc.embedding"):
+                extra = gf if step == 0 else propagated
+                extra = extra[:, None].expand(bs, spp, extra.shape[1], h, w)
+                flat = torch.cat([feats, extra], dim=2)
+                flat = self._stack(f"embedding_{step:02d}",
+                                   flat.reshape(bs * spp, -1, h, w))
+                feats = flat.reshape(bs, spp, -1, h, w)
+            with tracing.span("sbmc.propagation"):
+                # Permutation-invariant masked mean over samples.
+                reduced = ((feats * mask_f[:, :, None, None, None]).sum(dim=1)
+                           / n_valid[:, None, None, None])
+                propagated = self._stack(f"propagation_{step:02d}", reduced)
 
         regressor = self.kernel_stage.kernel_regressor
         state = progressive_init(bs, radiance.shape[2], h, w,
                                  radiance.device)
         kernels_out = []
         for s in range(spp):
-            kernels = regressor(torch.cat([feats[:, s], propagated], dim=1))
-            # Logit safety clamp: the online softmax is shift-invariant, so
-            # this only turns a float32 overflow into a saturating kernel.
-            kernels = kernels.clamp(-3e4, 3e4)
-            if self.kernel_dtype is not None:
-                kernels = kernels.to(self.kernel_dtype)
-            kernels = kernels.contiguous()
-            data = crop_like(radiance[:, s], kernels).contiguous()
-            state = progressive_kernel_apply(
-                data, kernels, state, splat=self.splat,
-                valid=None if mask is None else mask[:, s])
+            with tracing.span("sbmc.regress"):
+                kernels = regressor(torch.cat([feats[:, s], propagated],
+                                              dim=1))
+                # Logit safety clamp: the online softmax is shift-invariant,
+                # so this only turns a float32 overflow into a saturating
+                # kernel.
+                kernels = kernels.clamp(-3e4, 3e4)
+                if self.kernel_dtype is not None:
+                    kernels = kernels.to(self.kernel_dtype)
+                kernels = kernels.contiguous()
+            with tracing.span("sbmc.splat"):
+                data = crop_like(radiance[:, s], kernels).contiguous()
+                state = progressive_kernel_apply(
+                    data, kernels, state, splat=self.splat,
+                    valid=None if mask is None else mask[:, s])
             if self.return_kernels:
                 kernels_out.append(kernels)
 

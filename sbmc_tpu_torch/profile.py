@@ -9,9 +9,12 @@
 
 Builds the checkpoint's model on the GPU, runs one tile of random inputs
 once to warm up, then once under ``torch.profiler``, and prints the wall
-time, the device's busy share of it, device time by kernel class
-(convolutions and GEMMs, the splat kernels, the optimizer, elementwise and
-copies, other) and the top kernels by device time. With ``--train`` the
+time, the device's busy share of it (the union of its kernel, copy and set
+intervals), device time and share by program span of the profiled call
+(:mod:`sbmc_tpu_torch.tracing`: ``sbmc.embedding``, ``sbmc.propagation``,
+``sbmc.regress``, ``sbmc.splat``; ``kpcn.*``; ``train.*`` and the model's
+spans under ``train.forward``) and the top kernels by device time. With
+``--train`` the
 profiled unit is one optimization step of ``DenoiserInterface`` (forward,
 loss, backward, clip, Adam) at the checkpoint's architecture on a random
 batch with random sample masks; ``--bf16`` runs the conv stacks in bfloat16
@@ -30,6 +33,7 @@ import time
 
 import torch
 
+from sbmc_tpu_torch import tracing
 from sbmc_tpu_torch.comparisons import denoise_buffers
 from sbmc_tpu_torch.denoise import load_model
 from sbmc_tpu_torch.models import KPCN, LBF
@@ -38,32 +42,34 @@ from sbmc_tpu_torch.train.checkpointer import Checkpointer
 from sbmc_tpu_torch.train.interface import DenoiserInterface
 from sbmc_tpu_torch.utils.device import resolve_device
 
-__all__ = ["classify", "main"]
+__all__ = ["busy_ms", "span_rows", "main"]
 
-_CONV = ("conv", "gemm", "xmma", "cutlass", "cudnn", "wgmma", "sm90",
-         "implicit", "winograd", "fft", "wgrad", "dgrad", "fprop")
-_ELEMENTWISE = ("elementwise", "vectorized", "copy", "cat", "reduce",
-                "pool", "upsample", "index", "fill", "memcpy", "memset")
+#: The span of one profiled unit, by what is profiled.
+UNIT_SPAN = {"train": "train.step", "sbmc": "sbmc.forward",
+             "gather": "sbmc.forward", "kpcn": "kpcn.forward"}
 
 
-def classify(name):
-    """Kernel class of a device event name."""
-    low = name.lower()
-    if "psf_kernel" in low:
-        return "splat kernel"
-    if "psb_ddata" in low or "psb_dlogits" in low:
-        return "splat backward kernels"
-    if any(k in low for k in ("kw_fwd_kernel", "kw_dw_kernel",
-                              "kw_exp_kernel", "s2g_kernel",
-                              "s2g_max_kernel")):
-        return "kernel-weighting kernels"
-    if "multi_tensor" in low or "foreach" in low:
-        return "optimizer/clip (foreach)"
-    if any(k in low for k in _CONV):
-        return "conv/gemm"
-    if any(k in low for k in _ELEMENTWISE):
-        return "elementwise/copy"
-    return "other"
+def busy_ms(intervals):
+    """Milliseconds covered by the union of ``(start_us, end_us)``
+    intervals: overlapping kernels count once."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e3
+
+
+def span_rows(call):
+    """``(name, calls, device_ms, share %)`` of call ``call`` and of each
+    span name below it, the share of the call's device ms."""
+    rows = [(call.name, 1, call.device_ms)]
+    rows += [(name, s.calls, s.device_ms) for name, s in call.below.items()]
+    return [(n, c, ms, 100.0 * ms / call.device_ms if call.device_ms else 0.0)
+            for n, c, ms in rows]
 
 
 def _device_us(evt):
@@ -204,38 +210,43 @@ def main(argv=None):
         def run():
             with torch.inference_mode():
                 model(batch)
+    unit = None if args.baseline else UNIT_SPAN.get(
+        "train" if args.train else args.arch)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_class, kernels = {}, []
-    for evt in prof.key_averages():
-        us = _device_us(evt)
-        if us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        # A labelled range (such as "Optimizer.step#Adam.step") spans
-        # kernels that are counted on their own.
-        if getattr(evt, "is_user_annotation", False) \
-                or evt.key.startswith(("Optimizer.", "ProfilerStep")):
-            continue
-        kernels.append((us, evt.count, evt.key))
-        cls = classify(evt.key)
-        by_class[cls] = by_class.get(cls, 0.0) + us
-    busy_ms = sum(by_class.values()) / 1e3
+    recorded = tracing.calls(unit) if unit else []
+    spans = {c.name for t in tracing.calls() for c in t.walk()}
+
+    def labelled(evt):
+        # A labelled range (a program span, "Optimizer.step#Adam.step")
+        # spans kernels that are counted on their own.
+        return (getattr(evt, "is_user_annotation", False) or evt.key in spans
+                or evt.key.startswith(("Optimizer.", "ProfilerStep")))
+
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [(_device_us(evt), evt.count, evt.key)
+               for evt in prof.key_averages()
+               if evt.device_type == cuda and _device_us(evt) > 0
+               and not labelled(evt)]
+    busy = busy_ms([(e.time_range.start, e.time_range.end)
+                    for e in prof.events()
+                    if e.device_type == cuda and not labelled(e)])
     samples = ", %d spp" % spp if args.baseline or args.arch != "kpcn" \
         else ""
     print("%s: %s, %dx%d tile%s: wall %.2f ms (profiled), device busy "
           "%.2f ms (%.1f%%)" % (torch.cuda.get_device_name(0), what, h, w,
-                                samples, wall_ms, busy_ms,
-                                100 * busy_ms / wall_ms))
+                                samples, wall_ms, busy, 100 * busy / wall_ms))
     if not kernels:
         print("the profiler recorded no device time")
         return
-    for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
-        print("  %-24s %9.2f ms  %5.1f%%" % (cls, us / 1e3,
-                                              100 * us / 1e3 / busy_ms))
+    if recorded:
+        print("program spans (device ms, share of %s, calls, name):" % unit)
+        for name, n, ms, share in span_rows(recorded[-1]):
+            print("  %9.2f  %5.1f%%  %5d  %s" % (ms, share, n, name))
     print("top kernels (device ms, launches, name):")
     for us, count, key in sorted(kernels, reverse=True)[:args.top]:
         print("  %9.2f  %5d  %s" % (us / 1e3, count, key[:110]))

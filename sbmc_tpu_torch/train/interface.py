@@ -21,6 +21,7 @@ import torch
 from torch.nn.parallel import DistributedDataParallel
 
 from sbmc_tpu_torch import losses as losses_mod
+from sbmc_tpu_torch import tracing
 from sbmc_tpu_torch.parallel.mesh import all_mean
 from sbmc_tpu_torch.params import (export_adam_state, export_jax_params,
                                    load_adam_state, load_jax_params)
@@ -134,18 +135,33 @@ class DenoiserInterface:
         tensors). Returns a dict of 0-dim tensors on the device: read them a
         step late so the host does not wait on every step. Data-parallel,
         they are the global means, the same on every rank, so a non-finite
-        loss stops every rank at the same step."""
-        batch = self._to_device(batch)
-        self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        loss, rmse, base = self._losses(batch, self._ddp)
-        loss.backward()
-        self._clip_gradients()
-        self.optimizer.step()
-        self.step += 1
-        metrics = (loss.detach(), rmse, base)
-        if self._ddp is not None:
-            metrics = all_mean(metrics)
+        loss stops every rank at the same step.
+
+        While tracing is on the step is the span ``train.step``, with
+        ``train.to_device``, ``train.forward`` (model, loss, metrics),
+        ``train.backward``, ``train.clip`` and ``train.optimizer`` (twice:
+        ``zero_grad`` before the forward, Adam after the clip) under it."""
+        with tracing.span("train.step", self.device):
+            with tracing.span("train.to_device"):
+                batch = self._to_device(batch)
+            self.model.train()
+            with tracing.span("train.optimizer"):
+                self.optimizer.zero_grad(set_to_none=True)
+            with tracing.span("train.forward"):
+                loss, rmse, base = self._losses(batch, self._ddp)
+            with tracing.span("train.backward"):
+                loss.backward()
+            with tracing.span("train.clip"):
+                self._clip_gradients()
+            with tracing.span("train.optimizer"):
+                self.optimizer.step()
+            self.step += 1
+            metrics = (loss.detach(), rmse, base)
+            # Free the autograd graph inside the span: tearing down its
+            # nodes is host time of the step, a millisecond or more.
+            del loss
+            if self._ddp is not None:
+                metrics = all_mean(metrics)
         return dict(zip(("loss", "rmse", "input_loss"), metrics))
 
     def eval_step(self, batch):
@@ -157,8 +173,10 @@ class DenoiserInterface:
 
     @staticmethod
     def check_finite(metrics):
-        """Fail fast on a NaN/Inf loss."""
-        loss = float(metrics["loss"])
+        """Fail fast on a NaN/Inf loss (the span ``train.check_finite``: the
+        host's read of a step's loss)."""
+        with tracing.span("train.check_finite", metrics["loss"]):
+            loss = float(metrics["loss"])
         if not np.isfinite(loss):
             raise RuntimeError(
                 "Loss is not finite (%r), there might be outliers in the "

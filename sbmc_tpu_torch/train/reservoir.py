@@ -33,6 +33,7 @@ import threading
 import numpy as np
 import torch
 
+from sbmc_tpu_torch import tracing
 from sbmc_tpu_torch.utils.logging import get_logger
 
 LOG = get_logger(__name__)
@@ -163,14 +164,20 @@ class DeviceReservoir:
                                   < ks[:, None])
         return out
 
-    def step_on(self, idx, ks=None):
-        """One train step on the batch of :meth:`batch`; returns the
-        interface's metrics."""
-        return self.interface.train_step(self.batch(idx, ks))
+    def step_on(self, idx=None, ks=None):
+        """One train step on the batch of :meth:`batch` (slots drawn by
+        :meth:`draw` when ``idx`` is None); returns the interface's metrics.
+        The draw and the gather are the span ``train.draw``, before
+        ``train.step``."""
+        with tracing.span("train.draw", self.device):
+            if idx is None:
+                idx, ks = self.draw()
+            batch = self.batch(idx, ks)
+        return self.interface.train_step(batch)
 
     def train_step(self):
         """One train step on a batch drawn from the reservoir."""
-        return self.step_on(*self.draw())
+        return self.step_on()
 
 
 class ReservoirFeeder:

@@ -763,3 +763,39 @@ def test_any_channel_count_matches_plain(device, c, hw, k, dtype):
     for g, r in zip(ops.kernel_weighting_exp(*exp_in),
                     ops.kernel_weighting_exp_ref(*exp_in)):
         assert torch.all((g - r).abs() <= ATOL + RTOL * r.abs())
+
+
+@pytest.mark.cuda
+def test_model_spans_on_the_card(device):
+    """While a profiler records, the flagship's spans time the card: the
+    call launches the tiled splat kernel once a ``sbmc.splat`` at 3 channels
+    (16-byte logits rows; ``ops.launch_counts`` before and after), every
+    recorded call has a positive device ms, and the ``sbmc.forward`` call's
+    device ms is at least the sum of its children's (their events lie inside
+    its two on the same stream; 1e-4 ms of slack for the float sums)."""
+    from sbmc_tpu_torch import tracing
+    from sbmc_tpu_torch.models import Multisteps
+    torch.manual_seed(0)
+    net = Multisteps(n_features=8, n_global_features=3, width=16,
+                     embedding_width=16, ksize=5, nsteps=2).to(device).eval()
+    spp = 3
+    x = {"radiance": torch.rand(1, spp, 3, 40, 64, device=device),
+         "features": torch.rand(1, spp, 8, 40, 64, device=device),
+         "global_features": torch.rand(1, 3, 1, 1, device=device)}
+    P = torch.profiler.ProfilerActivity
+    with torch.inference_mode():
+        want = net(x)["radiance"]
+        tracing.reset()
+        before = dict(ops.launch_counts)
+        with torch.profiler.profile(activities=[P.CPU, P.CUDA]):
+            got = net(x)["radiance"]
+    assert torch.equal(got, want)
+    launched = {k: n - before[k] for k, n in ops.launch_counts.items()
+                if n != before[k]}
+    assert launched == {"progressive_splat": spp}
+    call, = tracing.calls("sbmc.forward")
+    assert len(tracing.calls("sbmc.splat")) == spp
+    assert call.counters == {}
+    assert all(c.device_ms > 0 for c in call.walk())
+    assert call.device_ms >= sum(c.device_ms for c in call.children) - 1e-4
+    tracing.reset()

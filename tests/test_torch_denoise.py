@@ -7,6 +7,7 @@ models differ by ~1e-6, which can move a value across one half rounding
 boundary: ``|port - jax| <= 1e-3 + 2e-3 * |jax|`` (two half units).
 """
 
+import logging
 import os
 import subprocess
 import sys
@@ -109,9 +110,10 @@ def test_ragged_tiles_match_uniform_tiles(setup):
 
 @pytest.mark.parametrize("extra", [[], ["--uniform_tiles"]],
                          ids=["ragged", "uniform"])
-def test_trace_writes_a_chrome_trace(setup, tmp_path, extra):
-    """``--trace DIR`` records the first scene's tiles: a Chrome trace with
-    the model's convolutions in it, and the same frame as without it."""
+def test_trace_writes_a_chrome_trace(setup, tmp_path, extra, caplog):
+    """``--trace DIR`` records the whole first scene: a Chrome trace with
+    the model's convolutions in it and the entry point's spans around the
+    model's, and the same frame as without it."""
     import json
 
     import torch
@@ -119,6 +121,7 @@ def test_trace_writes_a_chrome_trace(setup, tmp_path, extra):
     if THREADS:
         torch.set_num_threads(1)
     _, data, ckpt = setup
+    caplog.set_level(logging.INFO, logger=denoise.log.name)
     frames = []
     for trace in (None, str(tmp_path / "trace")):
         out = str(tmp_path / ("traced" if trace else "plain") / "a.exr")
@@ -133,6 +136,33 @@ def test_trace_writes_a_chrome_trace(setup, tmp_path, extra):
         events = json.load(f)["traceEvents"]
     names = {e.get("name", "") for e in events}
     assert any("convolution" in n for n in names), sorted(names)[:20]
+    spans = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("name", "").startswith(
+                ("denoise.", "sbmc.")):
+            spans.setdefault(e["name"], []).append(
+                (float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+    stages = ["denoise.load", "denoise.split", "denoise.to_device",
+              "denoise.tiles", "denoise.readback", "denoise.merge",
+              "denoise.write"]
+    assert set(stages + ["denoise.scene", "sbmc.forward"]) <= set(spans)
+    (s0, s1), = spans["denoise.scene"]
+    for name in stages:
+        assert all(s0 <= a <= b <= s1 for a, b in spans[name]), name
+    # The stages run in order; the model's calls lie inside the tile loop.
+    firsts = [min(spans[n])[0] for n in stages if n != "denoise.to_device"]
+    assert firsts == sorted(firsts)
+    (t0, t1), = spans["denoise.tiles"]
+    assert spans["sbmc.forward"] and all(
+        t0 <= a <= b <= t1 for a, b in spans["sbmc.forward"])
+    # One log line a span name: calls, host ms, device ms, h2d_bytes.
+    logged = {r.getMessage().split()[0]: r.getMessage().split()[1:]
+              for r in caplog.records
+              if r.getMessage().lstrip().startswith(("denoise.", "sbmc."))}
+    assert set(logged) == set(spans)
+    assert int(logged["denoise.scene"][3]) == int(
+        logged["denoise.to_device"][3]) > 0
+    assert int(logged["sbmc.forward"][0]) == len(spans["sbmc.forward"])
 
 
 def test_cli_refuses_missing_cuda_and_random_weights(setup, tmp_path,
