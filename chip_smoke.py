@@ -141,8 +141,20 @@ Phases, each printing one line (or a few) before the last:
    ``multi-card: not run (1 device)``.
 
 The composed kernels' phases and the other entry points run between these
-(4b to 4e after 4, 6b after 6, 8b to 8i after 8; 12 after 8i, 13 after 11d,
-14 after 10):
+(4b to 4e after 4, 18 after 4e, 6b after 6, 8b to 8i after 8; 12 after 8i,
+13 after 11d, 14 after 10):
+
+18. per-sample chains: (a) the per-sample chain kernel
+    (``csrc/sample_chain.cu``: an embedding step, the kernel regressor)
+    against its plain version on the card, in bf16 units, at steps 0 and
+    >= 1, widths 8, 32 and 128, 1 to 8 samples, masked samples, odd,
+    misaligned and ragged planes, 441, 25 and 9 regressor outputs, the
+    logit clamp and NaN; (b) the flagship under inference_mode launches it
+    3 + spp times a tile and not at all with gradients on, the fused and
+    unfused frames agree, and the wrapper refuses what requires grad; (c)
+    both kernels timed at the bench's frame shape (1 x 4 x 1080 x 2048) on
+    the host clock and by CUDA-graph replay beside the plain version and
+    the bound (bytes at 3.35 TB/s, bf16 FLOPs at 989 TFLOP/s);
 
 4b. composed kernels: holds kernel weighting and its gradient to the
     weights (each as the tiled kernel and the generic one) and
@@ -301,6 +313,9 @@ KERNELS = (
      "sbmc_tpu/render/pathtracer.py:886"),
     ("threefry_uniform", _CSRC + "threefry.cu",
      "sbmc_tpu/render/pathtracer.py:1104"),
+    ("sample_chain", _CSRC + "sample_chain.cu",
+     "none: XLA fused the per-sample 1x1 chains of "
+     "sbmc_tpu/models/multisteps.py"),
 )
 #: Phase 16's SBMC training paths, each rank's apart.
 _DP_SBMC = ("dp_world1", "dp_steps_rank0", "dp_steps_rank1",
@@ -355,6 +370,13 @@ MUST_LAUNCH = {
     "tri_any": ("render",),
     "tri_any_generic": (),
     "threefry_uniform": ("render",),
+    # bf16 SBMC inference; float32 checkpoints and training never take it.
+    "sample_chain": ("denoise", "eval", "bench", "bench_ragged",
+                     "render_denoise", "probe_vs_input",
+                     "probe_vs_input_flagship", "kernel_grids",
+                     "profile_model_stages", "pbrt_denoise",
+                     "dp_cli_denoise", "dp_replicas_ragged",
+                     "dp_replicas_uniform"),
 }
 #: The generic variants of the splat, kernel-weighting (plain and exp),
 #: scatter2gather and triangle kernels (the first port's per-pixel,
@@ -377,7 +399,7 @@ _OP_OF = {"progressive_splat": "splat", "progressive_splat_ddata": "splat",
           "kernel_weighting_dw": "kw", "kernel_weighting_dw_generic": "kw",
           "scatter2gather": "s2g", "scatter2gather_generic": "s2g",
           "scatter2gather_max": "s2g_max", "kernel_weighting_exp": "kw_exp",
-          "kernel_weighting_exp_generic": "kw_exp"}
+          "kernel_weighting_exp_generic": "kw_exp", "sample_chain": "chain"}
 
 #: (bs, c, h, w, logit type) the paths give the splat step, k = 21: the
 #: denoise path's tile, a training batch in float32 and with --bf16 (from
@@ -535,6 +557,23 @@ def _case(data, logits):
     return tuple(data.shape), logits.shape[1], str(logits.dtype)
 
 
+def _chain_case(chain, feats, extra):
+    """A launch of the sample chain kernel: ("embed", ...) for an embedding
+    step on ``feats`` ``[bs, spp, c, h, w]``, ("regress", ...) for the
+    regressor on one sample of such a tensor (its spp read from its
+    stride); then bs, spp, h, w, the chain's feature and extra channels,
+    whether the extra features are per pixel, its hidden width and its
+    outputs."""
+    if feats.dim() == 5:
+        kind, (bs, spp, cx, h, w) = "embed", feats.shape
+    else:
+        kind, (bs, cx, h, w) = "regress", feats.shape
+        spp = feats.stride(0) // (cx * h * w)
+    return (kind, bs, spp, h, w, cx, extra.shape[1],
+            tuple(extra.shape[-2:]) != (1, 1), chain.layer_0.v.shape[0],
+            chain.prediction.v.shape[0])
+
+
 def _variant(ops, name, logits):
     """The splat kernel that ``logits`` are dispatched to: ``name``
     (``progressive_splat``, ``progressive_splat_ddata`` or
@@ -558,21 +597,24 @@ def _s2g_case(weights):
 class _record_shapes:
     """While active, notes every case the models give the splat step
     (``seen["splat"]``), kernel weighting (``seen["kw"]``), scatter2gather
-    (``seen["s2g"]``) and the two exp ops (``seen["s2g_max"]``,
-    ``seen["kw_exp"]``) on the card. The calls themselves go through
+    (``seen["s2g"]``), the two exp ops (``seen["s2g_max"]``,
+    ``seen["kw_exp"]``) and the sample chain's two wrappers
+    (``seen["chain"]``) on the card. The calls themselves go through
     unchanged."""
 
     def __init__(self, ops):
-        self.ops = ops
+        from sbmc_tpu_torch.nn import sample_chain
+        self.ops, self.sc = ops, sample_chain
         self.seen = {"splat": set(), "kw": set(), "s2g": set(),
-                     "s2g_max": set(), "kw_exp": set()}
+                     "s2g_max": set(), "kw_exp": set(), "chain": set()}
 
     def __enter__(self):
-        ops, seen = self.ops, self.seen
+        ops, sc, seen = self.ops, self.sc, self.seen
         self.plain = (ops.progressive_splat_update, ops.kernel_weighting,
                       ops.scatter2gather, ops.scatter2gather_max,
-                      ops.kernel_weighting_exp)
-        splat, kw, s2g, s2g_max, kw_exp = self.plain
+                      ops.kernel_weighting_exp, sc.embedding_step,
+                      sc.regress)
+        splat, kw, s2g, s2g_max, kw_exp, embed, regress = self.plain
 
         def rec_splat(data, klogits, *state):
             if data.is_cuda:
@@ -599,28 +641,43 @@ class _record_shapes:
                 seen["kw_exp"].add(_case(data, logits))
             return kw_exp(data, logits, maxes)
 
+        def rec_embed(chain, feats, extra, *rest):
+            if feats.is_cuda:
+                seen["chain"].add(_chain_case(chain, feats, extra))
+            return embed(chain, feats, extra, *rest)
+
+        def rec_regress(chain, feats_s, propagated, *rest):
+            if feats_s.is_cuda:
+                seen["chain"].add(_chain_case(chain, feats_s, propagated))
+            return regress(chain, feats_s, propagated, *rest)
+
         ops.progressive_splat_update = rec_splat
         ops.kernel_weighting = rec_kw
         ops.scatter2gather = rec_s2g
         ops.scatter2gather_max = rec_s2g_max
         ops.kernel_weighting_exp = rec_kw_exp
+        sc.embedding_step = rec_embed
+        sc.regress = rec_regress
         return seen
 
     def __exit__(self, *exc):
         (self.ops.progressive_splat_update, self.ops.kernel_weighting,
          self.ops.scatter2gather, self.ops.scatter2gather_max,
-         self.ops.kernel_weighting_exp) = self.plain
+         self.ops.kernel_weighting_exp, self.sc.embedding_step,
+         self.sc.regress) = self.plain
 
 
 def _check_shapes(path, seen, kernels):
     """Fails if the path did not reach the op of one of ``kernels``, or met
-    a case at which that kernel was not compared with its plain version."""
+    a case at which that kernel, or the sample chain kernel (any bf16 SBMC
+    inference launches it, display strips of training runs too), was not
+    compared with its plain version."""
     for name in kernels:
-        cases = seen[_OP_OF[name]]
-        if not cases:
+        if not seen[_OP_OF[name]]:
             raise AssertionError("the %s path never reached the op of %s"
                                  % (path, name))
-        missing = cases - _COMPARED[name]
+    for name in set(kernels) | {"sample_chain"}:
+        missing = seen[_OP_OF[name]] - _COMPARED[name]
         if missing:
             raise AssertionError(
                 "%s ran on the %s path at %s, where it was not held against "
@@ -629,6 +686,22 @@ def _check_shapes(path, seen, kernels):
 
 def _nonzero(counts):
     return {name: n for name, n in counts.items() if n}
+
+
+def _chain_launches(tiles, spp, nsteps=3):
+    """Launches of the per-sample chain kernel by bf16 SBMC inference over
+    ``tiles`` tiles: one an embedding step, one a sample's regressor."""
+    return tiles * (nsteps + spp)
+
+
+def _display_launches(spp, flags):
+    """Launches of one display strip of an SBMC training run (a forward
+    without gradients): the splat kernel a sample, and with ``--bf16`` the
+    per-sample chain kernel."""
+    want = {"progressive_splat": spp}
+    if "--bf16" in flags:
+        want["sample_chain"] = _chain_launches(1, spp)
+    return want
 
 
 def _compare(ops, args, tile_h=None):
@@ -1185,7 +1258,7 @@ def _main_phase(ops, checkpoint, tmp, tile, pad):
     with _record_shapes(ops) as seen:
         res = denoise.main(denoise.parse_args(argv))
     launches = dict(ops.launch_counts)
-    _check_shapes("denoise", seen, ["progressive_splat"])
+    _check_shapes("denoise", seen, ["progressive_splat", "sample_chain"])
     tiles = res[0]["tiles"]
     if launches["progressive_splat"] != tiles * spp:
         raise AssertionError("splat kernel launched %d times, expected "
@@ -1333,6 +1406,7 @@ def _run_training(ops, tag, what, argv, steps, kernels, in_steps_want,
     want = dict(in_steps_want)
     for name, n in display_want.items():
         want[name] = want.get(name, 0) + epochs * n
+    want = _nonzero(want)
     if _nonzero(counts) != want:
         raise AssertionError("%s: kernel launches %s, expected %s"
                              % (tag, _nonzero(counts), want))
@@ -1393,7 +1467,7 @@ def _train_phase(ops, tmp, steps=10, spp=8, bs=4):
             ["progressive_splat", "progressive_splat_dlogits"],
             {"progressive_splat": steps * spp,
              "progressive_splat_dlogits": steps * spp},
-            {"progressive_splat": spp}, "sbmc")
+            _display_launches(spp, flags), "sbmc")
         mp = Checkpointer.load_meta(ckpt)["model_params"]
         if (mp["n_features"] != 93 or mp["ksize"] != 21
                 or sum(p.numel() for p in iface.model.parameters()) < 30e6):
@@ -1411,9 +1485,11 @@ def _train_phase(ops, tmp, steps=10, spp=8, bs=4):
             ["--input", data_dir, "--checkpoint", ckpt, "--output", out,
              "--uniform_tiles", "--tile_size", "128", "--tile_pad", "32",
              "--device", "cuda"]))
-    _check_shapes("trained-checkpoint denoise", seen, ["progressive_splat"])
+    _check_shapes("trained-checkpoint denoise", seen,
+                  ["progressive_splat", "sample_chain"])
     if len(res) != 8 or _nonzero(ops.launch_counts) != {
-            "progressive_splat": 8 * spp}:
+            "progressive_splat": 8 * spp,
+            "sample_chain": _chain_launches(8, spp)}:
         raise AssertionError("denoising with the trained checkpoint: %d "
                              "scenes, %s launches" % (len(res),
                                                       ops.launch_counts))
@@ -2342,7 +2418,8 @@ def _eval_phase(ops, tmp, checkpoint, spp=4, tile=160, pad=32):
     torch.cuda.synchronize()
     launches = dict(ops.launch_counts)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    _check_shapes("eval", seen, ["progressive_splat", "kernel_weighting"])
+    _check_shapes("eval", seen, ["progressive_splat", "kernel_weighting",
+                                 "sample_chain"])
     methods = res["methods"]
     if methods != ["input", "ours", "nlm", "cbf", "rpf", "nfor", "lbf",
                    "kpcn"] or len(res["rows"]) != n_scenes:
@@ -2350,6 +2427,7 @@ def _eval_phase(ops, tmp, checkpoint, spp=4, tile=160, pad=32):
                              % (methods, len(res["rows"])))
     tiles = res["tiles"]
     want = {"progressive_splat": n_scenes * tiles["ours"] * spp,
+            "sample_chain": n_scenes * _chain_launches(tiles["ours"], spp),
             "kernel_weighting": n_scenes * 2 * tiles["kpcn"]}
     if _nonzero(launches) != want:
         raise AssertionError("eval_suite launched %s, expected %s (%s tiles "
@@ -2544,7 +2622,7 @@ def _reservoir_phase(ops, tmp, steps=10, spp=8, bs=4, capacity=8):
                 ["progressive_splat", "progressive_splat_dlogits"],
                 {"progressive_splat": steps * spp,
                  "progressive_splat_dlogits": steps * spp},
-                {"progressive_splat": spp}, "sbmc", owner=DeviceReservoir)
+                _display_launches(spp, flags), "sbmc", owner=DeviceReservoir)
         res = watch.res
         if res is None or res.capacity != capacity or watch.refreshes < 1:
             raise AssertionError("%s: reservoir %s, %d refreshes" % (
@@ -3625,7 +3703,7 @@ def _render_train_phase(ops, tmp, corpus, steps=4, spp=8, bs=4):
          "--bf16"], steps, ["progressive_splat", "progressive_splat_dlogits"],
         {"progressive_splat": steps * spp,
          "progressive_splat_dlogits": steps * spp},
-        {"progressive_splat": spp}, "sbmc", loader_wait=True)
+        _display_launches(spp, ["--bf16"]), "sbmc", loader_wait=True)
     out = os.path.join(tmp, "rendered_out", "frame.exr")
     ops.reset_launch_counts()
     with _record_shapes(ops) as seen:
@@ -3634,9 +3712,12 @@ def _render_train_phase(ops, tmp, corpus, steps=4, spp=8, bs=4):
              "--uniform_tiles", "--tile_size", "160", "--tile_pad", "32",
              "--spp", str(spp), "--device", "cuda"]))
     launches["render_denoise"] = dict(ops.launch_counts)
-    _check_shapes("render_denoise", seen, ["progressive_splat"])
+    _check_shapes("render_denoise", seen, ["progressive_splat",
+                                           "sample_chain"])
     tiles = sum(r["tiles"] for r in res)
-    if _nonzero(ops.launch_counts) != {"progressive_splat": tiles * spp}:
+    if _nonzero(ops.launch_counts) != {
+            "progressive_splat": tiles * spp,
+            "sample_chain": _chain_launches(tiles, spp)}:
         raise AssertionError("denoising the rendered corpus launched %s"
                              % ops.launch_counts)
     for r in res:
@@ -3676,11 +3757,16 @@ def _bench_phase(ops):
         with _record_shapes(ops) as seen:
             res = bench.main(args)
         launches[tag] = dict(ops.launch_counts)
-        _check_shapes(tag, seen, [kernel])
+        _check_shapes(tag, seen, [kernel] if args.model == "kpcn"
+                      else [kernel, "sample_chain"])
         per_frame = res["n_tiles"] * (2 if args.model == "kpcn"
                                       else res["spp"])
         frames = res["warmup"] + res["iters"]
-        if _nonzero(launches[tag]) != {kernel: per_frame * frames}:
+        want = {kernel: per_frame * frames}
+        if args.model != "kpcn":
+            want["sample_chain"] = frames * _chain_launches(res["n_tiles"],
+                                                            res["spp"])
+        if _nonzero(launches[tag]) != want:
             raise AssertionError("%s launched %s, expected %d frames x %d "
                                  "of %s" % (tag, _nonzero(launches[tag]),
                                             frames, per_frame, kernel))
@@ -3861,8 +3947,9 @@ def _probe_phase(ops, tmp, corpus, flagship, spp=8):
             res = probe_vs_input.main([corpus, src, "--spp", str(spp),
                                        "--device", "cuda"])
         launches[tag] = dict(ops.launch_counts)
-        _check_shapes(tag, seen, ["progressive_splat"])
-        want = {"progressive_splat": len(res["tiles"]) * spp}
+        _check_shapes(tag, seen, ["progressive_splat", "sample_chain"])
+        want = {"progressive_splat": len(res["tiles"]) * spp,
+                "sample_chain": _chain_launches(len(res["tiles"]), spp)}
         if _nonzero(launches[tag]) != want:
             raise AssertionError("%s launched %s, expected %s" % (
                 tag, _nonzero(launches[tag]), want))
@@ -3896,8 +3983,9 @@ def _probe_phase(ops, tmp, corpus, flagship, spp=8):
         n = kernel_grids.main(["--input", corpus, "--checkpoint", ckpt,
                                "--output", out, "--device", "cuda"])
     launches["kernel_grids"] = dict(ops.launch_counts)
-    _check_shapes("kernel_grids", seen, ["progressive_splat"])
-    if _nonzero(launches["kernel_grids"]) != {"progressive_splat": spp}:
+    _check_shapes("kernel_grids", seen, ["progressive_splat", "sample_chain"])
+    if _nonzero(launches["kernel_grids"]) != {
+            "progressive_splat": spp, "sample_chain": _chain_launches(1, spp)}:
         raise AssertionError("kernel_grids launched %s"
                              % _nonzero(launches["kernel_grids"]))
     rad = read_png(os.path.join(out, "output.png"))
@@ -3928,7 +4016,9 @@ def _profile_phase(ops):
             ("profile_scatter2gather", profile_scatter2gather, [],
              ["scatter2gather"], {"scatter2gather": 3 * calls}),
             ("profile_model_stages", profile_model_stages, [],
-             ["progressive_splat"], {"progressive_splat": 2 * 6 * 4}),
+             ["progressive_splat", "sample_chain"],
+             {"progressive_splat": 2 * 6 * 4,
+              "sample_chain": _chain_launches(6, 4)}),
             ("profile_model_stages_f32", profile_model_stages, ["--f32"],
              ["progressive_splat"], {"progressive_splat": 2 * 6 * 4}))
     launches = {}
@@ -4100,7 +4190,7 @@ def _pbrt_phase(ops, tmp, steps=4, spp=8, bs=4):
          "--bf16"], steps, ["progressive_splat", "progressive_splat_dlogits"],
         {"progressive_splat": steps * spp,
          "progressive_splat_dlogits": steps * spp},
-        {"progressive_splat": spp}, "sbmc", loader_wait=True)
+        _display_launches(spp, ["--bf16"]), "sbmc", loader_wait=True)
     one = os.path.join(tmp, "pbrt_one")
     os.makedirs(one)
     os.symlink(os.path.join(out, scenes[0]), os.path.join(one, scenes[0]))
@@ -4112,10 +4202,11 @@ def _pbrt_phase(ops, tmp, steps=4, spp=8, bs=4):
              "--tile_size", "160", "--tile_pad", "32", "--spp", str(spp),
              "--device", "cuda"]))
     launches["pbrt_denoise"] = dict(ops.launch_counts)
-    _check_shapes("pbrt_denoise", seen, ["progressive_splat"])
+    _check_shapes("pbrt_denoise", seen, ["progressive_splat", "sample_chain"])
     tiles = sum(r["tiles"] for r in res)
     if len(res) != 1 or _nonzero(ops.launch_counts) != {
-            "progressive_splat": tiles * spp}:
+            "progressive_splat": tiles * spp,
+            "sample_chain": _chain_launches(tiles, spp)}:
         raise AssertionError("denoising a pbrt scene: %d scenes, launches "
                              "%s" % (len(res), ops.launch_counts))
     img = exr.read(res[0]["output"])
@@ -4385,7 +4476,8 @@ def _torchrun(tmp, name, backend, jobs, nproc):
 
 def _merge_rank(by_path, path, res, kernels):
     """A rank's launches into ``by_path`` and its shapes into the checks."""
-    seen = {op: {(tuple(c[0]), c[1], c[2]) for c in cases}
+    seen = {op: {tuple(tuple(x) if isinstance(x, list) else x for x in c)
+                 for c in cases}
             for op, cases in res["seen"].items()}
     _check_shapes(path, seen, kernels)
     by_path[path] = res["launches"]
@@ -4617,11 +4709,13 @@ def _dp_cli(ops, tmp, by_path, steps=4, spp=8, bs=2):
             ["--input", os.path.join(tmp, "data"), "--checkpoint",
              ckpts["sbmc"], "--output", out, "--uniform_tiles", "--tile_size",
              "160", "--tile_pad", "32", "--spp", "4", "--device", "cuda"]))
-    _check_shapes("dp_cli_denoise", seen, ["progressive_splat"])
+    _check_shapes("dp_cli_denoise", seen, ["progressive_splat",
+                                           "sample_chain"])
     img = exr.read(out)
     if (img.shape != (256, 256, 3) or not np.isfinite(img).all()
             or _nonzero(ops.launch_counts) != {
-                "progressive_splat": res[0]["tiles"] * 4}):
+                "progressive_splat": res[0]["tiles"] * 4,
+                "sample_chain": _chain_launches(res[0]["tiles"], 4)}):
         raise AssertionError("16c denoise: EXR %s, launches %s" % (
             img.shape, _nonzero(ops.launch_counts)))
     by_path["dp_cli_denoise"] = dict(ops.launch_counts)
@@ -4656,9 +4750,11 @@ def _dp_replicas(ops, tmp, by_path, checkpoint, devices, spp=4):
             with _record_shapes(ops) as seen:
                 got, ms, _ = run(replicas(model, devices), batch, args,
                                  devices)
-        _check_shapes(name, seen, ["progressive_splat"])
+        _check_shapes(name, seen, ["progressive_splat", "sample_chain"])
         by_path[name] = dict(ops.launch_counts)
-        if _nonzero(ops.launch_counts) != {"progressive_splat": tiles * spp}:
+        if _nonzero(ops.launch_counts) != {
+                "progressive_splat": tiles * spp,
+                "sample_chain": _chain_launches(tiles, spp)}:
             raise AssertionError("%s: launches %s for %d tiles" % (
                 name, _nonzero(ops.launch_counts), tiles))
         diff = float(np.abs(got - want).max())
@@ -4704,6 +4800,283 @@ def _dp_cards(ops, tmp, by_path, checkpoint):
                  [torch.device("cuda", 0), torch.device("cuda", 1)])
 
 
+#: (bs, spp, h, w) the sample chain kernel is held to its plain version at
+#: with chains of several widths (18a): odd planes (element-by-element loads
+#: and stores), even planes that are not a multiple of 8 pixels (16-byte
+#: rows misaligned), ragged last warp tiles, 1 and 8 samples.
+CHAIN_CASES = ((2, 4, 37, 53), (1, 1, 30, 27), (2, 8, 16, 40), (1, 3, 9, 8),
+               (1, 4, 64, 64))
+#: (bs, spp, h, w) the paths give the flagship's chains (18c), all bf16
+#: SBMC inference: the denoise path's 160 px tiles at 4 spp (also the
+#: two-rank checkpoint's denoise and the replicas), the evaluation path's
+#: ragged tiles of a 256x256 frame (160 and 64 px sides), the trained
+#: checkpoint's 128x128 frames and the probes' tiles at 8 spp, the display
+#: strips of bf16 training runs (a batch of 4, and a rank's batch of 2 in
+#: the two-rank CLI) at 8 spp, the rendered-corpus and pbrt-branch denoise's
+#: 160 px tiles at 8 spp, kernel_grids' 64 px crop, the stage profile's
+#: 1216x768 strip, the bench's ragged tiles (512 and 312 rows, 512 and 384
+#: columns) and its uniform 1080x2048 tile, whose planes pass 2^31 bytes
+#: (last: 18c times the kernels there).
+CHAIN_PATH_SHAPES = (
+    (1, 4, 160, 160), (1, 4, 160, 64), (1, 4, 64, 160), (1, 4, 64, 64),
+    (1, 8, 128, 128), (4, 8, 128, 128), (2, 8, 128, 128), (1, 8, 160, 160),
+    (1, 8, 64, 64), (1, 4, 1216, 768), (1, 4, 512, 512), (1, 4, 512, 384),
+    (1, 4, 312, 512), (1, 4, 312, 384), (1, 4, 1080, 2048))
+# Kernel against plain version on the card, in bf16 units at the larger of
+# |plain| and the tensor's mean magnitude: the split first layer and the
+# order of float32 sums (MMA against cuDNN) flip a rounding now and then,
+# and a flipped hidden activation moves the outputs it feeds by a few units.
+CHAIN_MAX_UNITS, CHAIN_MEAN_UNITS = 8.0, 0.02
+H100_BF16_FLOPS = 989e12  # dense tensor cores, H100 SXM data sheet
+
+
+def _bf16_units(got, want):
+    want = want.float()
+    scale = torch.maximum(want.abs(), want.abs().mean().expand_as(want))
+    ulp = torch.pow(2.0, torch.floor(torch.log2(scale.clamp(min=1e-30))) - 7)
+    return (got.float() - want).abs() / ulp
+
+
+def _check_chain(what, got, want):
+    if isinstance(got, tuple):
+        return max((_check_chain("%s %s" % (what, part), g, w_)
+                    for part, g, w_ in zip(("embedded", "reduced"), got,
+                                           want)), key=lambda r: r[0])
+    units = _bf16_units(got, want)
+    mx, mean = float(units.max()), float(units.mean())
+    share = float((got != want).float().mean())
+    if not (mx <= CHAIN_MAX_UNITS and mean <= CHAIN_MEAN_UNITS):
+        raise AssertionError(
+            "sample chain kernel disagrees with its plain version at %s: "
+            "max %.3g, mean %.3g bf16 units (%.4f%% of values differ)"
+            % (what, mx, mean, 100 * share))
+    _MAX_ERR["sample_chain"] = max(_MAX_ERR.get("sample_chain", 0.0), mx)
+    return mx, mean, share
+
+
+def _chain_module(cin, cout, width, activation, seed):
+    from sbmc_tpu_torch.nn.layers import ConvChain
+    torch.manual_seed(seed)
+    chain = ConvChain(cin, cout, ksize=1, width=width, depth=3,
+                      activation=activation, dtype=torch.bfloat16)
+    with torch.no_grad():
+        for name, p in chain.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.3 * torch.randn_like(p))
+    return chain.cuda()
+
+
+def _chain_inputs(gen, bs, spp, h, w, cx, ce, per_batch, masked):
+    dev = torch.device("cuda")
+    feats = torch.randn(bs, spp, cx, h, w, generator=gen,
+                        device=dev).to(torch.bfloat16)
+    eh, ew = (1, 1) if per_batch else (h, w)
+    extra = torch.randn(bs, ce, eh, ew, generator=gen,
+                        device=dev).to(torch.bfloat16)
+    if masked:
+        mask_f = (torch.rand(bs, spp, generator=gen, device=dev)
+                  < 0.6).to(torch.bfloat16)
+        mask_f[0, 0] = 0
+    else:
+        mask_f = torch.ones(bs, spp, dtype=torch.bfloat16, device=dev)
+    return feats, extra, mask_f, mask_f.sum(dim=1).clamp(min=1.0)
+
+
+def _chain_checks(sc):
+    """18a: both kernels against their plain versions on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    worst = {}
+    # (step, feature channels, extra channels, width, cout)
+    steps = ((0, 93, 3, 128, 128), (1, 128, 128, 128, 128),
+             (0, 13, 3, 8, 8), (1, 8, 8, 8, 8), (1, 16, 40, 32, 24))
+    for step, cx, ce, width, cout in steps:
+        chain = _chain_module(cx + ce, cout, width, "relu", step + width)
+        for bs, spp, h, w in CHAIN_CASES:
+            for masked in (False, True):
+                args = _chain_inputs(gen, bs, spp, h, w, cx, ce, step == 0,
+                                     masked and spp > 1)
+                got = sc.embedding_step(chain, *args)
+                want = sc.embedding_step_ref(chain, *args)
+                what = "embed step %d %d+%d w%d %s%s" % (
+                    step, cx, ce, width, (bs, spp, h, w),
+                    " masked" if masked else "")
+                worst[what] = _check_chain(what, got, want)
+                _COMPARED["sample_chain"].add(_chain_case(chain, *args[:2]))
+    for cx, ce, width, nout in ((128, 128, 128, 441), (8, 8, 8, 25),
+                                (16, 40, 32, 9)):
+        chain = _chain_module(cx + ce, nout, width, "leaky_relu", nout)
+        weights = sc.regressor_weights(chain)
+        for bs, spp, h, w in CHAIN_CASES:
+            feats, prop, _, _ = _chain_inputs(gen, bs, spp, h, w, cx, ce,
+                                              False, False)
+            for s in range(spp):
+                for dt in (None, torch.float32):
+                    got = sc.regress(chain, feats[:, s], prop, dt, weights)
+                    want = sc.regress_ref(chain, feats[:, s], prop, dt)
+                    if got.dtype != want.dtype:
+                        raise AssertionError("regressor dtype %s, plain %s"
+                                             % (got.dtype, want.dtype))
+                    what = "regress %d+%d w%d -> %d %s s%d %s" % (
+                        cx, ce, width, nout, (bs, spp, h, w), s, dt)
+                    worst[what] = _check_chain(what, got, want)
+                    _COMPARED["sample_chain"].add(
+                        _chain_case(chain, feats[:, s], prop))
+    # Extreme logits: the clamp and NaN.
+    chain = _chain_module(16, 9, 8, "leaky_relu", 3)
+    with torch.no_grad():
+        chain.prediction.bias[:3] = torch.tensor([1e6, -1e6, float("nan")])
+    x = torch.randn(1, 8, 5, 6, device="cuda").to(torch.bfloat16)
+    got = sc.regress(chain, x, x, None)
+    want = sc.regress_ref(chain, x, x, None)
+    if not torch.equal(got[:, :2], want[:, :2]) or \
+            not bool(got[:, 2].isnan().all()):
+        raise AssertionError("regressor clamp: %s against %s"
+                             % (got[0, :3, 0, 0], want[0, :3, 0, 0]))
+    top = sorted(worst.items(), key=lambda kv: -kv[1][0])[:3]
+    print("18a sample chain kernel against plain (%d cases): worst %s"
+          % (len(worst), "; ".join("%s: max %.2f mean %.4f units, %.4f%% "
+                                   "differ" % (k, v[0], v[1], 100 * v[2])
+                                   for k, v in top)))
+
+
+def _chain_model_checks(ops, sc):
+    """18b: the model calls the kernel 3 + spp times under inference and
+    never with gradients on, and the wrapper refuses what requires grad."""
+    from sbmc_tpu_torch.models.multisteps import Multisteps
+    torch.manual_seed(0)
+    model = Multisteps(93, 3, width=128, embedding_width=128, ksize=21,
+                       conv_dtype="bfloat16", kernel_dtype="bfloat16").cuda()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bs, spp, h, w = 1, 4, 96, 128
+    x = {"radiance": torch.rand(bs, spp, 3, h, w, generator=gen,
+                                device="cuda"),
+         "features": torch.randn(bs, spp, 93, h, w, generator=gen,
+                                 device="cuda"),
+         "global_features": torch.randn(bs, 3, 1, 1, generator=gen,
+                                        device="cuda")}
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        fused = model(x)["radiance"]
+    torch.cuda.synchronize()
+    got = _nonzero(ops.launch_counts)
+    if got != {"sample_chain": 3 + spp, "progressive_splat": spp}:
+        raise AssertionError("inference launched %s" % got)
+    ops.reset_launch_counts()
+    plain = model(x)["radiance"].detach()
+    torch.cuda.synchronize()
+    got = _nonzero(ops.launch_counts)
+    if got != {"progressive_splat": spp}:
+        raise AssertionError("a forward with gradients launched %s" % got)
+    rel = float((fused - plain).norm() / plain.norm())
+    print("18b flagship %s: inference %s launches, with gradients 0; "
+          "fused against unfused output rel L2 %.3g" % (
+              (bs, spp, h, w), 3 + spp, rel))
+    if not rel < 2e-3:
+        raise AssertionError("fused model output rel L2 %.3g" % rel)
+    chain = model.embedding_01
+    feats = torch.randn(1, 2, 128, 8, 8, device="cuda").to(torch.bfloat16)
+    prop = torch.randn(1, 128, 8, 8, device="cuda").to(torch.bfloat16)
+    ones = torch.ones(1, 2, device="cuda", dtype=torch.bfloat16)
+    for what, call in (
+            ("embedding with gradients on", lambda: sc.embedding_step(
+                chain, feats, prop, ones, ones.sum(1))),
+            ("regressor input requiring grad", lambda: sc.regress(
+                model.kernel_stage.kernel_regressor,
+                feats[:, 0].clone().requires_grad_(), prop, None))):
+        try:
+            call()
+        except RuntimeError as err:
+            if "no backward" not in str(err):
+                raise
+        else:
+            raise AssertionError("the wrapper took %s" % what)
+
+
+def _chain_rows(sc, chains, gen, bs, spp, h, w):
+    """The flagship's chains (``chains``: step 0, a step >= 1, the
+    regressor) on random inputs of one shape: (what, kernel call, plain
+    call, case, bytes, FLOPs) for each embedding step and each sample's
+    regressor. Bytes and FLOPs count each input and output once."""
+    hw, hid = h * w, sc.HIDDEN
+    masked = bs > 1  # the display strips' randomized sample counts
+    rows = []
+    for step, chain, cx, ce in ((0, chains[0], 93, 3),
+                                (1, chains[1], 128, 128)):
+        args = _chain_inputs(gen, bs, spp, h, w, cx, ce, step == 0, masked)
+        rows.append((
+            "embed step %d, %dx%dx%dx%d" % (step, bs, spp, h, w),
+            lambda c=chain, a=args: sc.embedding_step(c, *a),
+            lambda c=chain, a=args: sc.embedding_step_ref(c, *a),
+            _chain_case(chain, *args[:2]),
+            2 * bs * hw * (spp * cx + spp * hid + hid
+                           + (0 if step == 0 else ce)),
+            2 * bs * hw * (spp * (cx * hid + 2 * hid * hid)
+                           + (0 if step == 0 else ce * hid))))
+    chain = chains[2]
+    feats, prop, _, _ = _chain_inputs(gen, bs, spp, h, w, 128, 128, False,
+                                      False)
+    weights = sc.regressor_weights(chain)
+    for s in range(spp):
+        rows.append((
+            "regress s%d, %dx%dx%dx%d" % (s, bs, spp, h, w),
+            lambda f=feats[:, s]: sc.regress(chain, f, prop, None, weights),
+            lambda f=feats[:, s]: sc.regress_ref(chain, f, prop, None),
+            _chain_case(chain, feats[:, s], prop),
+            2 * bs * hw * (256 + 441),
+            2 * bs * hw * (256 * hid + hid * hid + hid * 441)))
+    return rows
+
+
+def _chain_paths(sc, numbers):
+    """18c: the flagship's chains against their plain versions at every
+    shape the paths give them (CHAIN_PATH_SHAPES), then both kernels timed
+    at the bench's frame shape, beside the plain version and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    chains = (_chain_module(96, 128, 128, "relu", 0),
+              _chain_module(256, 128, 128, "relu", 1),
+              _chain_module(256, 441, 128, "leaky_relu", 9))
+    worst = (0.0, 0.0, 0.0)
+    for shape in CHAIN_PATH_SHAPES:
+        rows = _chain_rows(sc, chains, gen, *shape)
+        for what, fn, plain, case, _, _ in rows:
+            worst = max(worst, _check_chain(what, fn(), plain()))
+            _COMPARED["sample_chain"].add(case)
+        torch.cuda.empty_cache()
+    print("18c the flagship's chains against plain at the paths' %d shapes: "
+          "worst max %.2f mean %.4f bf16 units, %.4f%% differ"
+          % (len(CHAIN_PATH_SHAPES), worst[0], worst[1], 100 * worst[2]))
+    # The rows of the bench's frame: both embedding steps, one regressor.
+    for name, fn, plain, _, nbytes, flops in rows[:3]:
+        ms = _time_ms(fn, 2, 10)
+        device_ms = _graph_ms(fn, iters=3, reps=4)
+        plain_ms = _time_ms(plain, 1, 3)
+        by_bytes, by_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
+        bound = max(by_bytes, by_ops) * 1e3
+        by = "bytes" if by_bytes >= by_ops else "operations"
+        _record_times(numbers, "sample_chain", name.replace(" s0", ""), ms,
+                      plain_ms, bound, by, device_ms=device_ms,
+                      tflops=round(flops / device_ms / 1e9, 1),
+                      gbytes_s=round(nbytes / device_ms / 1e6, 1))
+    del rows
+    torch.cuda.empty_cache()
+
+
+def _sample_chain_phase(ops):
+    """18: the per-sample chain kernel (``csrc/sample_chain.cu``): against
+    its plain version, in the model, and timed at the bench's shapes.
+    Returns its numbers."""
+    from sbmc_tpu_torch.nn import sample_chain as sc
+    t0 = time.perf_counter()
+    numbers = {}
+    with torch.inference_mode():
+        _chain_checks(sc)
+    _chain_model_checks(ops, sc)
+    with torch.inference_mode():
+        _chain_paths(sc, numbers)
+    print("phase 18: %.1f s" % (time.perf_counter() - t0))
+    return numbers
+
+
 def _multi_rank_phase(ops, tmp, checkpoint):
     """16: several ranks. Returns the launch counts by path, every rank's
     apart."""
@@ -4744,6 +5117,7 @@ def main():
         numbers.update(_exp_kernel_phase(ops))
         by_path = {"composed_step": _composed_step_phase(ops)}
     _channel_phase(ops, numbers)
+    numbers.update(_sample_chain_phase(ops))
     checkpoint = os.path.join(ROOT, "weights", "flagship_f16")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -15,9 +15,17 @@ backward runs the hand-written backward kernels on the card). With
 in the backward pass (``torch.utils.checkpoint``), as ``nn.remat`` does in
 the JAX model.
 
+Under ``torch.no_grad()`` or ``torch.inference_mode()`` on the card, with
+bf16 convs, each embedding step and each sample's kernel regressor is one
+launch of the hand-written per-sample chain kernel
+(:mod:`sbmc_tpu_torch.nn.sample_chain`): 3 + ``spp`` launches a call at
+three steps. Otherwise the unfused modules run (the kernel has no
+backward).
+
 While tracing is on (:mod:`sbmc_tpu_torch.tracing`) a call is the span
-``sbmc.forward``, with ``sbmc.embedding`` and ``sbmc.propagation`` a step
-and ``sbmc.regress`` and ``sbmc.splat`` a sample under it.
+``sbmc.forward``, with ``sbmc.embedding`` (the chain and the masked mean
+over samples) and ``sbmc.propagation`` (the U-Net) a step and
+``sbmc.regress`` and ``sbmc.splat`` a sample under it.
 """
 
 import torch
@@ -25,6 +33,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from sbmc_tpu_torch import tracing
+from sbmc_tpu_torch.nn import sample_chain
 from sbmc_tpu_torch.nn.kernel_apply import (progressive_init,
                                             progressive_kernel_apply)
 from sbmc_tpu_torch.nn.layers import Autoencoder, ConvChain
@@ -106,6 +115,10 @@ class Multisteps(nn.Module):
         self.conv_dtype = dtype_of(conv_dtype)
         self.kernel_dtype = dtype_of(kernel_dtype)
         self.remat = remat
+        # (features, global features, embedding width, width): the channels
+        # the per-sample chains take.
+        self._chain_channels = (n_features, n_global_features,
+                                embedding_width, width)
         for step in range(nsteps):
             cin = (n_features + n_global_features if step == 0
                    else embedding_width + width)
@@ -125,6 +138,17 @@ class Multisteps(nn.Module):
         if self.remat and torch.is_grad_enabled():
             return checkpoint(module, x, use_reentrant=False)
         return module(x)
+
+    def chains_fit(self):
+        """Whether the per-sample chain kernel holds every embedding step
+        and the kernel regressor (asked of its CUDA build)."""
+        nf, ngf, ew, w = self._chain_channels
+        return (sample_chain.embedding_fits(self.embedding_00, nf, ngf, False)
+                and all(sample_chain.embedding_fits(
+                    getattr(self, f"embedding_{s:02d}"), ew, w, True)
+                    for s in range(1, self.nsteps))
+                and sample_chain.regress_fits(
+                    self.kernel_stage.kernel_regressor, ew + w))
 
     def forward(self, samples):
         with tracing.span("sbmc.forward", samples["features"]):
@@ -157,38 +181,44 @@ class Multisteps(nn.Module):
             n_valid = torch.ones((bs,), dtype=features.dtype,
                                  device=features.device)
 
+        # Inference on the card runs the per-sample chains as one kernel
+        # each (nn/sample_chain.py); with gradients, on the CPU or in
+        # float32 the unfused modules run.
+        fused = (not torch.is_grad_enabled() and features.is_cuda
+                 and self.conv_dtype == torch.bfloat16 and self.chains_fit())
         feats = features
         gf = gfeatures.reshape(bs, -1, 1, 1).to(features.dtype)
         propagated = None
         for step in range(self.nsteps):
+            name = f"embedding_{step:02d}"
+            extra = gf if step == 0 else propagated
             with tracing.span("sbmc.embedding"):
-                extra = gf if step == 0 else propagated
-                extra = extra[:, None].expand(bs, spp, extra.shape[1], h, w)
-                flat = torch.cat([feats, extra], dim=2)
-                flat = self._stack(f"embedding_{step:02d}",
-                                   flat.reshape(bs * spp, -1, h, w))
-                feats = flat.reshape(bs, spp, -1, h, w)
+                if fused:
+                    feats, reduced = sample_chain.embedding_step(
+                        getattr(self, name), feats, extra, mask_f, n_valid)
+                else:
+                    feats, reduced = sample_chain.embedding_step_ref(
+                        getattr(self, name), feats, extra, mask_f, n_valid,
+                        run=lambda x, name=name: self._stack(name, x))
             with tracing.span("sbmc.propagation"):
-                # Permutation-invariant masked mean over samples.
-                reduced = ((feats * mask_f[:, :, None, None, None]).sum(dim=1)
-                           / n_valid[:, None, None, None])
                 propagated = self._stack(f"propagation_{step:02d}", reduced)
 
         regressor = self.kernel_stage.kernel_regressor
+        weights = None
         state = progressive_init(bs, radiance.shape[2], h, w,
                                  radiance.device)
         kernels_out = []
         for s in range(spp):
             with tracing.span("sbmc.regress"):
-                kernels = regressor(torch.cat([feats[:, s], propagated],
-                                              dim=1))
-                # Logit safety clamp: the online softmax is shift-invariant,
-                # so this only turns a float32 overflow into a saturating
-                # kernel.
-                kernels = kernels.clamp(-3e4, 3e4)
-                if self.kernel_dtype is not None:
-                    kernels = kernels.to(self.kernel_dtype)
-                kernels = kernels.contiguous()
+                if fused:
+                    weights = weights or sample_chain.regressor_weights(
+                        regressor)
+                    kernels = sample_chain.regress(
+                        regressor, feats[:, s], propagated, self.kernel_dtype,
+                        weights)
+                else:
+                    kernels = sample_chain.regress_ref(
+                        regressor, feats[:, s], propagated, self.kernel_dtype)
             with tracing.span("sbmc.splat"):
                 data = crop_like(radiance[:, s], kernels).contiguous()
                 state = progressive_kernel_apply(

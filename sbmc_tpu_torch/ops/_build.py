@@ -29,6 +29,7 @@ HOST_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 #: sbmc_progressive_splat_generic(data, logits, logits_bf16, sum_r, sum_w,
 #:                                max_w, out_r, out_w, out_m, bs, c, h, w,
 #:                                k[, stream]); the tiled sbmc_progressive_splat
@@ -82,6 +83,18 @@ _TRI_ANY_ARGS = [_P, _P, _P, _P, _I, _I, _P]
 #: stream; the host builds of the tiled loop take rays (the rays a thread)
 #: last; the generic kernels are sbmc_tri_nearest_generic and
 #: sbmc_tri_any_generic
+#: sbmc_sample_embed(x, x_bs, x_ss, cx, kx, e, ce, ke, ebias, wx, we, w1, w2,
+#:                   bias, mask, nvalid, out, reduced, cout, bs, spp, hw,
+#:                   grid[, stream])
+_SAMPLE_EMBED_ARGS = [_P, _L, _L, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P,
+                      _P, _P, _P, _P, _I, _I, _I, _L, _I]
+#: sbmc_sample_regress(x, x_bs, cx, e, ce, k0, w0, w1, w2, bias, out, nout,
+#:                     bs, hw, grid[, stream])
+_SAMPLE_REGRESS_ARGS = [_P, _L, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I,
+                        _L, _I]
+#: sbmc_sample_embed_fits(cx, ce, hidden, cout), sbmc_sample_regress_fits(
+#: k_in, hidden, nout): whether a chain fits the kernels (host functions, no
+#: stream)
 
 #: source -> {exported function: argument types}; the CUDA entry points take
 #: the stream as one more pointer.
@@ -112,6 +125,11 @@ _CUDA = {
         "sbmc_tri_nearest_generic": _TRI_NEAREST_ARGS + [_P],
         "sbmc_tri_any": _TRI_ANY_ARGS + [_P, _P],
         "sbmc_tri_any_generic": _TRI_ANY_ARGS + [_P]},
+    "sample_chain.cu": {
+        "sbmc_sample_embed": _SAMPLE_EMBED_ARGS + [_P],
+        "sbmc_sample_regress": _SAMPLE_REGRESS_ARGS + [_P],
+        "sbmc_sample_embed_fits": [_I, _I, _I, _I],
+        "sbmc_sample_regress_fits": [_I, _I, _I]},
 }
 _HOST = {
     "progressive_splat_host.cpp": {

@@ -799,3 +799,171 @@ def test_model_spans_on_the_card(device):
     assert all(c.device_ms > 0 for c in call.walk())
     assert call.device_ms >= sum(c.device_ms for c in call.children) - 1e-4
     tracing.reset()
+
+
+# The per-sample chain kernel (csrc/sample_chain.cu) against its plain
+# version, in bf16 units at the larger of |plain| and the tensor's mean
+# magnitude: the split first layer and the order of float32 sums (MMA
+# against cuDNN) flip a rounding now and then, and a flipped hidden
+# activation moves the outputs it feeds by a few units.
+CHAIN_MAX_UNITS, CHAIN_MEAN_UNITS = 8.0, 0.02
+
+
+def _chain_units(got, want):
+    want = want.float()
+    scale = torch.maximum(want.abs(), want.abs().mean().expand_as(want))
+    ulp = torch.pow(2.0, torch.floor(torch.log2(scale.clamp(min=1e-30))) - 7)
+    units = (got.float() - want).abs() / ulp
+    return float(units.max()), float(units.mean())
+
+
+def _chain(cin, cout, width, activation, device, seed=0):
+    from sbmc_tpu_torch.nn.layers import ConvChain
+    torch.manual_seed(seed)
+    chain = ConvChain(cin, cout, ksize=1, width=width, depth=3,
+                      activation=activation, dtype=torch.bfloat16)
+    with torch.no_grad():
+        for name, p in chain.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.3 * torch.randn_like(p))
+    return chain.to(device)
+
+
+def _bf16(gen, *shape):
+    return torch.tensor(gen.randn(*shape), dtype=torch.float32).to(
+        torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step,cx,ce,width,cout", [
+    (0, 93, 3, 128, 128), (1, 128, 128, 128, 128), (0, 13, 3, 8, 8),
+    (1, 8, 8, 8, 8), (1, 16, 40, 32, 24)])
+@pytest.mark.parametrize("bs,spp,hw", [(2, 4, (37, 53)), (1, 1, (30, 27)),
+                                       (2, 8, (16, 40)), (1, 3, (9, 8))])
+@pytest.mark.parametrize("masked", [False, True])
+def test_sample_chain_embedding_matches_plain(device, step, cx, ce, width,
+                                              cout, bs, spp, hw, masked):
+    from sbmc_tpu_torch.nn import sample_chain
+    rng = np.random.RandomState(step * 100 + spp)
+    h, w = hw
+    chain = _chain(cx + ce, cout, width, "relu", device)
+    feats = _bf16(rng, bs, spp, cx, h, w).to(device)
+    extra = _bf16(rng, bs, ce, *((1, 1) if step == 0 else hw)).to(device)
+    mask_f = torch.ones(bs, spp, dtype=torch.bfloat16)
+    if masked:
+        mask_f = torch.tensor(rng.rand(bs, spp) < 0.6).to(torch.bfloat16)
+        mask_f[0, 0] = 0
+    mask_f = mask_f.to(device)
+    n_valid = mask_f.sum(dim=1).clamp(min=1.0)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        got = sample_chain.embedding_step(chain, feats, extra, mask_f,
+                                          n_valid)
+        assert _counts() == {"sample_chain": 1}
+        want = sample_chain.embedding_step_ref(chain, feats, extra, mask_f,
+                                               n_valid)
+    for g, r in zip(got, want):
+        assert g.shape == r.shape and g.dtype == r.dtype
+        mx, mean = _chain_units(g, r)
+        assert mx <= CHAIN_MAX_UNITS and mean <= CHAIN_MEAN_UNITS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cx,ce,width,nout", [(128, 128, 128, 441),
+                                              (8, 8, 8, 25), (16, 40, 32, 9)])
+@pytest.mark.parametrize("bs,spp,hw", [(2, 3, (37, 53)), (1, 1, (30, 27)),
+                                       (1, 2, (64, 64))])
+@pytest.mark.parametrize("kernel_dtype", [None, torch.float32])
+def test_sample_chain_regress_matches_plain(device, cx, ce, width, nout, bs,
+                                            spp, hw, kernel_dtype):
+    from sbmc_tpu_torch.nn import sample_chain
+    rng = np.random.RandomState(nout + spp)
+    chain = _chain(cx + ce, nout, width, "leaky_relu", device)
+    feats = _bf16(rng, bs, spp, cx, *hw).to(device)
+    prop = _bf16(rng, bs, ce, *hw).to(device)
+    with torch.inference_mode():
+        weights = sample_chain.regressor_weights(chain)
+        for s in range(spp):
+            got = sample_chain.regress(chain, feats[:, s], prop, kernel_dtype,
+                                       weights)
+            want = sample_chain.regress_ref(chain, feats[:, s], prop,
+                                            kernel_dtype)
+            assert got.dtype == want.dtype and got.is_contiguous()
+            mx, mean = _chain_units(got, want)
+            assert mx <= CHAIN_MAX_UNITS and mean <= CHAIN_MEAN_UNITS
+
+
+@pytest.mark.cuda
+def test_sample_chain_regress_clamps_logits(device):
+    """The clamp folded into the kernel's epilogue: ±3e4 as torch.clamp
+    gives it in bf16 (29952), NaN kept."""
+    from sbmc_tpu_torch.nn import sample_chain
+    chain = _chain(16, 9, 8, "leaky_relu", device, seed=3)
+    with torch.no_grad():
+        chain.prediction.bias[:3] = torch.tensor([1e6, -1e6, float("nan")])
+    x = torch.randn(1, 8, 5, 6, device=device).to(torch.bfloat16)
+    with torch.inference_mode():
+        got = sample_chain.regress(chain, x, x, None)
+        want = sample_chain.regress_ref(chain, x, x, None)
+    assert torch.equal(got[:, :2], want[:, :2])
+    assert float(got[:, 0].float().max()) == 29952.0
+    assert bool(got[:, 2].isnan().all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spp", [1, 4])
+def test_sample_chain_launches_per_tile(device, spp):
+    """3 + spp launches a tile under inference_mode (three embedding steps,
+    one regressor a sample), none with gradients on; the fused and unfused
+    frames agree to bf16 rounding."""
+    from sbmc_tpu_torch.models import Multisteps
+    torch.manual_seed(0)
+    net = Multisteps(n_features=93, n_global_features=3, width=128,
+                     embedding_width=128, ksize=21,
+                     conv_dtype="bfloat16").to(device)
+    g = torch.Generator(device=device).manual_seed(1)
+    x = {"radiance": torch.rand(1, spp, 3, 48, 64, generator=g,
+                                device=device),
+         "features": torch.randn(1, spp, 93, 48, 64, generator=g,
+                                 device=device),
+         "global_features": torch.randn(1, 3, 1, 1, generator=g,
+                                        device=device)}
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        fused = net(x)["radiance"]
+    assert _counts() == {"sample_chain": 3 + spp, "progressive_splat": spp}
+    ops.reset_launch_counts()
+    plain = net(x)["radiance"].detach()
+    assert _counts() == {"progressive_splat": spp}
+    assert float((fused - plain).norm() / plain.norm()) < 2e-3
+
+
+@pytest.mark.cuda
+def test_sample_chain_rejects_grad(device):
+    from sbmc_tpu_torch.nn import sample_chain
+    chain = _chain(256, 128, 128, "relu", device)
+    feats = torch.randn(1, 2, 128, 8, 8, device=device).to(torch.bfloat16)
+    prop = torch.randn(1, 128, 8, 8, device=device).to(torch.bfloat16)
+    ones = torch.ones(1, 2, device=device, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="no backward"):
+        sample_chain.embedding_step(chain, feats, prop, ones, ones.sum(1))
+    reg = _chain(256, 441, 128, "leaky_relu", device)
+    with torch.no_grad():
+        weights = sample_chain.regressor_weights(reg)
+    with torch.no_grad(), pytest.raises(RuntimeError, match="no backward"):
+        sample_chain.regress(reg, feats[:, 0].clone().requires_grad_(), prop,
+                             None, weights)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,fits", [
+    ({}, True), ({"width": 8, "embedding_width": 8}, True),
+    ({"width": 256}, False), ({"embedding_width": 192}, False)])
+def test_sample_chain_kernel_decides_what_fits(device, kw, fits):
+    """The kernel's build holds the flagship's and the tiny config's chains,
+    and refuses a hidden width or an embedding wider than 128."""
+    from sbmc_tpu_torch.models import Multisteps
+    args = dict(n_features=93, n_global_features=3, width=128,
+                embedding_width=128, ksize=21, conv_dtype="bfloat16")
+    args.update(kw)
+    assert Multisteps(**args).chains_fit() is fits
