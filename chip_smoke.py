@@ -141,7 +141,7 @@ Phases, each printing one line (or a few) before the last:
    ``multi-card: not run (1 device)``.
 
 The composed kernels' phases and the other entry points run between these
-(4b to 4e after 4, 18 after 4e, 6b after 6, 8b to 8i after 8; 12 after 8i,
+(4b to 4e after 4, 18 and 19 after 4e, 6b after 6, 8b to 8i after 8; 12 after 8i,
 13 after 11d, 14 after 10):
 
 18. per-sample chains: (a) the per-sample chain kernel
@@ -156,6 +156,16 @@ The composed kernels' phases and the other entry points run between these
     the host clock and by CUDA-graph replay beside the plain version and
     the bound (bytes at 3.35 TB/s, bf16 FLOPs at 989 TFLOP/s);
 
+19. the U-Net's channels-last kernels (``csrc/unet.cu``): (a) the
+    flagship's U-Net (random weights) at every tile shape the paths give it
+    (UNET_PATH_SHAPES) and odd sizes, each launch of the epilogue, the
+    upsample and the layout change held to its plain version on the same
+    inputs (bit for bit; the upsample within one bf16 unit where its scale
+    is not 1/2), 15 + 2 + 2 launches a call, the output held to the NCHW
+    U-Net's distance from the float32 U-Net; (b) each kernel timed at the
+    bench's frame shape (1 x 128 x 1080 x 2048 and its levels) on the host
+    clock and by CUDA-graph replay beside the plain version and the bound
+    (bytes at 3.35 TB/s), and the whole U-Net against the NCHW one;
 4b. composed kernels: holds kernel weighting and its gradient to the
     weights (each as the tiled kernel and the generic one) and
     scatter2gather against their plain versions (k in {3, 5, 21}, odd
@@ -316,11 +326,29 @@ KERNELS = (
     ("sample_chain", _CSRC + "sample_chain.cu",
      "none: XLA fused the per-sample 1x1 chains of "
      "sbmc_tpu/models/multisteps.py"),
+    # The U-Net's passes around its cuDNN convolutions, channels-last: XLA
+    # fused them into the convolutions' neighbours.
+    ("unet_epilogue", _CSRC + "unet.cu",
+     "none: XLA fused the bias, activation, pooling and concatenation of "
+     "sbmc_tpu/nn/layers.py's Autoencoder"),
+    ("unet_upsample", _CSRC + "unet.cu",
+     "none: XLA fused the resize and concatenation of sbmc_tpu/nn/layers.py's "
+     "Autoencoder"),
+    ("unet_layout", _CSRC + "unet.cu",
+     "none: the U-Net's layout change at its boundary (XLA picks layouts "
+     "itself)"),
 )
 #: Phase 16's SBMC training paths, each rank's apart.
 _DP_SBMC = ("dp_world1", "dp_steps_rank0", "dp_steps_rank1",
             "dp_steps_bf16_rank0", "dp_steps_bf16_rank1", "dp_cli_rank0",
             "dp_cli_rank1")
+#: The paths that run bf16 SBMC inference.
+_BF16_SBMC_INFERENCE = ("denoise", "eval", "bench", "bench_ragged",
+                        "render_denoise", "probe_vs_input",
+                        "probe_vs_input_flagship", "kernel_grids",
+                        "profile_model_stages", "pbrt_denoise",
+                        "dp_cli_denoise", "dp_replicas_ragged",
+                        "dp_replicas_uniform")
 #: The paths on which a kernel must have launched. The data-gradient kernel
 #: lies on neither main path by nature (its gradient goes to a batch input,
 #: which nothing asks for): the gradient phase runs it inside the model.
@@ -371,12 +399,11 @@ MUST_LAUNCH = {
     "tri_any_generic": (),
     "threefry_uniform": ("render",),
     # bf16 SBMC inference; float32 checkpoints and training never take it.
-    "sample_chain": ("denoise", "eval", "bench", "bench_ragged",
-                     "render_denoise", "probe_vs_input",
-                     "probe_vs_input_flagship", "kernel_grids",
-                     "profile_model_stages", "pbrt_denoise",
-                     "dp_cli_denoise", "dp_replicas_ragged",
-                     "dp_replicas_uniform"),
+    "sample_chain": _BF16_SBMC_INFERENCE,
+    # The same paths run the flagship's U-Nets channels-last.
+    "unet_epilogue": _BF16_SBMC_INFERENCE,
+    "unet_upsample": _BF16_SBMC_INFERENCE,
+    "unet_layout": _BF16_SBMC_INFERENCE,
 }
 #: The generic variants of the splat, kernel-weighting (plain and exp),
 #: scatter2gather and triangle kernels (the first port's per-pixel,
@@ -399,7 +426,14 @@ _OP_OF = {"progressive_splat": "splat", "progressive_splat_ddata": "splat",
           "kernel_weighting_dw": "kw", "kernel_weighting_dw_generic": "kw",
           "scatter2gather": "s2g", "scatter2gather_generic": "s2g",
           "scatter2gather_max": "s2g_max", "kernel_weighting_exp": "kw_exp",
-          "kernel_weighting_exp_generic": "kw_exp", "sample_chain": "chain"}
+          "kernel_weighting_exp_generic": "kw_exp", "sample_chain": "chain",
+          "unet_epilogue": "unet", "unet_upsample": "unet",
+          "unet_layout": "unet"}
+#: The kernels any bf16 SBMC inference launches (display strips of training
+#: runs too), held to the cases compared with the plain versions on every
+#: path.
+_INFERENCE_KERNELS = ("sample_chain", "unet_epilogue", "unet_upsample",
+                      "unet_layout")
 
 #: (bs, c, h, w, logit type) the paths give the splat step, k = 21: the
 #: denoise path's tile, a training batch in float32 and with --bf16 (from
@@ -598,23 +632,26 @@ class _record_shapes:
     """While active, notes every case the models give the splat step
     (``seen["splat"]``), kernel weighting (``seen["kw"]``), scatter2gather
     (``seen["s2g"]``), the two exp ops (``seen["s2g_max"]``,
-    ``seen["kw_exp"]``) and the sample chain's two wrappers
-    (``seen["chain"]``) on the card. The calls themselves go through
-    unchanged."""
+    ``seen["kw_exp"]``), the sample chain's two wrappers
+    (``seen["chain"]``) and the channels-last U-Net (``seen["unet"]``) on
+    the card. The calls themselves go through unchanged."""
 
     def __init__(self, ops):
         from sbmc_tpu_torch.nn import sample_chain
-        self.ops, self.sc = ops, sample_chain
+        from sbmc_tpu_torch.nn.layers import Autoencoder
+        self.ops, self.sc, self.ae = ops, sample_chain, Autoencoder
         self.seen = {"splat": set(), "kw": set(), "s2g": set(),
-                     "s2g_max": set(), "kw_exp": set(), "chain": set()}
+                     "s2g_max": set(), "kw_exp": set(), "chain": set(),
+                     "unet": set()}
 
     def __enter__(self):
         ops, sc, seen = self.ops, self.sc, self.seen
         self.plain = (ops.progressive_splat_update, ops.kernel_weighting,
                       ops.scatter2gather, ops.scatter2gather_max,
                       ops.kernel_weighting_exp, sc.embedding_step,
-                      sc.regress)
-        splat, kw, s2g, s2g_max, kw_exp, embed, regress = self.plain
+                      sc.regress, self.ae.forward_channels_last)
+        (splat, kw, s2g, s2g_max, kw_exp, embed, regress,
+         unet) = self.plain
 
         def rec_splat(data, klogits, *state):
             if data.is_cuda:
@@ -651,6 +688,11 @@ class _record_shapes:
                 seen["chain"].add(_chain_case(chain, feats_s, propagated))
             return regress(chain, feats_s, propagated, *rest)
 
+        def rec_unet(module, x):
+            if x.is_cuda:
+                seen["unet"].add(_unet_case(module, x))
+            return unet(module, x)
+
         ops.progressive_splat_update = rec_splat
         ops.kernel_weighting = rec_kw
         ops.scatter2gather = rec_s2g
@@ -658,25 +700,25 @@ class _record_shapes:
         ops.kernel_weighting_exp = rec_kw_exp
         sc.embedding_step = rec_embed
         sc.regress = rec_regress
+        self.ae.forward_channels_last = rec_unet
         return seen
 
     def __exit__(self, *exc):
         (self.ops.progressive_splat_update, self.ops.kernel_weighting,
          self.ops.scatter2gather, self.ops.scatter2gather_max,
          self.ops.kernel_weighting_exp, self.sc.embedding_step,
-         self.sc.regress) = self.plain
+         self.sc.regress, self.ae.forward_channels_last) = self.plain
 
 
 def _check_shapes(path, seen, kernels):
     """Fails if the path did not reach the op of one of ``kernels``, or met
-    a case at which that kernel, or the sample chain kernel (any bf16 SBMC
-    inference launches it, display strips of training runs too), was not
+    a case at which that kernel, or one of ``_INFERENCE_KERNELS``, was not
     compared with its plain version."""
     for name in kernels:
         if not seen[_OP_OF[name]]:
             raise AssertionError("the %s path never reached the op of %s"
                                  % (path, name))
-    for name in set(kernels) | {"sample_chain"}:
+    for name in set(kernels) | set(_INFERENCE_KERNELS):
         missing = seen[_OP_OF[name]] - _COMPARED[name]
         if missing:
             raise AssertionError(
@@ -688,19 +730,29 @@ def _nonzero(counts):
     return {name: n for name, n in counts.items() if n}
 
 
-def _chain_launches(tiles, spp, nsteps=3):
-    """Launches of the per-sample chain kernel by bf16 SBMC inference over
-    ``tiles`` tiles: one an embedding step, one a sample's regressor."""
-    return tiles * (nsteps + spp)
+def _unet_launches(calls):
+    """Launches of ``calls`` calls of the flagship's U-Net at inference:
+    the epilogue once a convolution (15), the upsample once a level below
+    the top (2), the layout change on each side (2)."""
+    return {"unet_epilogue": 15 * calls, "unet_upsample": 2 * calls,
+            "unet_layout": 2 * calls}
+
+
+def _fused_launches(tiles, spp, nsteps=3):
+    """Launches of bf16 SBMC inference's own kernels over ``tiles`` tiles:
+    the per-sample chain kernel once an embedding step and once a sample's
+    regressor, and each step's U-Net."""
+    return {"sample_chain": tiles * (nsteps + spp),
+            **_unet_launches(tiles * nsteps)}
 
 
 def _display_launches(spp, flags):
     """Launches of one display strip of an SBMC training run (a forward
     without gradients): the splat kernel a sample, and with ``--bf16`` the
-    per-sample chain kernel."""
+    per-sample chain kernel and the U-Nets' kernels."""
     want = {"progressive_splat": spp}
     if "--bf16" in flags:
-        want["sample_chain"] = _chain_launches(1, spp)
+        want.update(_fused_launches(1, spp))
     return want
 
 
@@ -1488,8 +1540,7 @@ def _train_phase(ops, tmp, steps=10, spp=8, bs=4):
     _check_shapes("trained-checkpoint denoise", seen,
                   ["progressive_splat", "sample_chain"])
     if len(res) != 8 or _nonzero(ops.launch_counts) != {
-            "progressive_splat": 8 * spp,
-            "sample_chain": _chain_launches(8, spp)}:
+            "progressive_splat": 8 * spp, **_fused_launches(8, spp)}:
         raise AssertionError("denoising with the trained checkpoint: %d "
                              "scenes, %s launches" % (len(res),
                                                       ops.launch_counts))
@@ -2427,7 +2478,7 @@ def _eval_phase(ops, tmp, checkpoint, spp=4, tile=160, pad=32):
                              % (methods, len(res["rows"])))
     tiles = res["tiles"]
     want = {"progressive_splat": n_scenes * tiles["ours"] * spp,
-            "sample_chain": n_scenes * _chain_launches(tiles["ours"], spp),
+            **_fused_launches(n_scenes * tiles["ours"], spp),
             "kernel_weighting": n_scenes * 2 * tiles["kpcn"]}
     if _nonzero(launches) != want:
         raise AssertionError("eval_suite launched %s, expected %s (%s tiles "
@@ -3716,8 +3767,7 @@ def _render_train_phase(ops, tmp, corpus, steps=4, spp=8, bs=4):
                                            "sample_chain"])
     tiles = sum(r["tiles"] for r in res)
     if _nonzero(ops.launch_counts) != {
-            "progressive_splat": tiles * spp,
-            "sample_chain": _chain_launches(tiles, spp)}:
+            "progressive_splat": tiles * spp, **_fused_launches(tiles, spp)}:
         raise AssertionError("denoising the rendered corpus launched %s"
                              % ops.launch_counts)
     for r in res:
@@ -3764,8 +3814,7 @@ def _bench_phase(ops):
         frames = res["warmup"] + res["iters"]
         want = {kernel: per_frame * frames}
         if args.model != "kpcn":
-            want["sample_chain"] = frames * _chain_launches(res["n_tiles"],
-                                                            res["spp"])
+            want.update(_fused_launches(frames * res["n_tiles"], res["spp"]))
         if _nonzero(launches[tag]) != want:
             raise AssertionError("%s launched %s, expected %d frames x %d "
                                  "of %s" % (tag, _nonzero(launches[tag]),
@@ -3949,7 +3998,7 @@ def _probe_phase(ops, tmp, corpus, flagship, spp=8):
         launches[tag] = dict(ops.launch_counts)
         _check_shapes(tag, seen, ["progressive_splat", "sample_chain"])
         want = {"progressive_splat": len(res["tiles"]) * spp,
-                "sample_chain": _chain_launches(len(res["tiles"]), spp)}
+                **_fused_launches(len(res["tiles"]), spp)}
         if _nonzero(launches[tag]) != want:
             raise AssertionError("%s launched %s, expected %s" % (
                 tag, _nonzero(launches[tag]), want))
@@ -3985,7 +4034,7 @@ def _probe_phase(ops, tmp, corpus, flagship, spp=8):
     launches["kernel_grids"] = dict(ops.launch_counts)
     _check_shapes("kernel_grids", seen, ["progressive_splat", "sample_chain"])
     if _nonzero(launches["kernel_grids"]) != {
-            "progressive_splat": spp, "sample_chain": _chain_launches(1, spp)}:
+            "progressive_splat": spp, **_fused_launches(1, spp)}:
         raise AssertionError("kernel_grids launched %s"
                              % _nonzero(launches["kernel_grids"]))
     rad = read_png(os.path.join(out, "output.png"))
@@ -4017,8 +4066,9 @@ def _profile_phase(ops):
              ["scatter2gather"], {"scatter2gather": 3 * calls}),
             ("profile_model_stages", profile_model_stages, [],
              ["progressive_splat", "sample_chain"],
-             {"progressive_splat": 2 * 6 * 4,
-              "sample_chain": _chain_launches(6, 4)}),
+             # Six model calls, and the U-Net stage's own six.
+             {"progressive_splat": 2 * 6 * 4, **_fused_launches(6, 4),
+              **_unet_launches(6 * 3 + 6)}),
             ("profile_model_stages_f32", profile_model_stages, ["--f32"],
              ["progressive_splat"], {"progressive_splat": 2 * 6 * 4}))
     launches = {}
@@ -4205,8 +4255,7 @@ def _pbrt_phase(ops, tmp, steps=4, spp=8, bs=4):
     _check_shapes("pbrt_denoise", seen, ["progressive_splat", "sample_chain"])
     tiles = sum(r["tiles"] for r in res)
     if len(res) != 1 or _nonzero(ops.launch_counts) != {
-            "progressive_splat": tiles * spp,
-            "sample_chain": _chain_launches(tiles, spp)}:
+            "progressive_splat": tiles * spp, **_fused_launches(tiles, spp)}:
         raise AssertionError("denoising a pbrt scene: %d scenes, launches "
                              "%s" % (len(res), ops.launch_counts))
     img = exr.read(res[0]["output"])
@@ -4715,7 +4764,7 @@ def _dp_cli(ops, tmp, by_path, steps=4, spp=8, bs=2):
     if (img.shape != (256, 256, 3) or not np.isfinite(img).all()
             or _nonzero(ops.launch_counts) != {
                 "progressive_splat": res[0]["tiles"] * 4,
-                "sample_chain": _chain_launches(res[0]["tiles"], 4)}):
+                **_fused_launches(res[0]["tiles"], 4)}):
         raise AssertionError("16c denoise: EXR %s, launches %s" % (
             img.shape, _nonzero(ops.launch_counts)))
     by_path["dp_cli_denoise"] = dict(ops.launch_counts)
@@ -4754,7 +4803,7 @@ def _dp_replicas(ops, tmp, by_path, checkpoint, devices, spp=4):
         by_path[name] = dict(ops.launch_counts)
         if _nonzero(ops.launch_counts) != {
                 "progressive_splat": tiles * spp,
-                "sample_chain": _chain_launches(tiles, spp)}:
+                **_fused_launches(tiles, spp)}:
             raise AssertionError("%s: launches %s for %d tiles" % (
                 name, _nonzero(ops.launch_counts), tiles))
         diff = float(np.abs(got - want).max())
@@ -4959,7 +5008,7 @@ def _chain_model_checks(ops, sc):
         fused = model(x)["radiance"]
     torch.cuda.synchronize()
     got = _nonzero(ops.launch_counts)
-    if got != {"sample_chain": 3 + spp, "progressive_splat": spp}:
+    if got != dict(_fused_launches(1, spp), progressive_splat=spp):
         raise AssertionError("inference launched %s" % got)
     ops.reset_launch_counts()
     plain = model(x)["radiance"].detach()
@@ -5061,6 +5110,223 @@ def _chain_paths(sc, numbers):
     torch.cuda.empty_cache()
 
 
+#: (bs, h, w) the paths give the flagship's U-Nets (bf16 SBMC inference:
+#: one a step on each tile of CHAIN_PATH_SHAPES), the bench's tile last
+#: (19b times the kernels there), after odd sizes no path gives.
+UNET_PATH_SHAPES = ((2, 37, 53), (1, 9, 8), (1, 30, 27)) + tuple(
+    sorted({(bs, h, w) for bs, _, h, w in CHAIN_PATH_SHAPES}
+           - {(1, 1080, 2048)})) + ((1, 1080, 2048),)
+
+
+def _unet_case(module, x):
+    """A call of the channels-last U-Net: the input's shape, the first
+    level's width and the levels (the kernels' shapes follow)."""
+    return (("unet",) + tuple(x.shape) + (module.left_0.prediction.v.shape[0],
+                                          module.num_levels))
+
+
+def _unet_module(seed, dtype=torch.bfloat16):
+    """The flagship's propagation U-Net on the card, random biases."""
+    from sbmc_tpu_torch.nn.layers import Autoencoder
+    torch.manual_seed(seed)
+    ae = Autoencoder(128, 128, num_levels=3, increase_factor=2.0,
+                     num_convs=3, width=128, ksize=3, output_type="leaky_relu",
+                     dtype=dtype)
+    with torch.no_grad():
+        for name, p in ae.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.3 * torch.randn_like(p))
+    return ae.cuda()
+
+
+class _checked_unet_kernels:
+    """While active, each launch of the U-Net's three kernels is held to
+    its plain version on the same inputs: the epilogue (and its pool) and
+    the layout change bit for bit, the upsample bit for bit at a scale of
+    1/2 and within one bf16 unit otherwise. Notes the launches."""
+
+    def __enter__(self):
+        from sbmc_tpu_torch.nn import unet
+        self.unet, self.launched = unet, []
+        self.real = (unet.epilogue, unet.upsample, unet.relayout)
+        epilogue, upsample, relayout = self.real
+
+        def same(name, got, want):
+            if not torch.equal(got, want):
+                raise AssertionError("%s disagrees with its plain version at "
+                                     "%s" % (name, tuple(got.shape)))
+
+        def checked_epilogue(y, bias, act, out=None, pool=None):
+            want_pool = None if pool is None else torch.empty_like(pool)
+            want = unet.epilogue_ref(y.clone(), bias, act, None, want_pool)
+            got = epilogue(y, bias, act, out, pool)
+            same("unet_epilogue", got, want)
+            if pool is not None:
+                same("unet_epilogue's pool", pool, want_pool)
+            self.launched.append("unet_epilogue")
+            return got
+
+        def checked_upsample(x, out):
+            want = unet.upsample_ref(x, torch.empty(
+                out.shape, dtype=out.dtype, device=out.device))
+            got = upsample(x, out)
+            if 2 * x.shape[2] == out.shape[2] and \
+                    2 * x.shape[3] == out.shape[3]:
+                same("unet_upsample", got, want)
+            else:
+                units = float(_bf16_units(got, want).max())
+                _note_err("unet_upsample", units)
+                if units > 1.0:
+                    raise AssertionError("unet_upsample %.2f bf16 units from "
+                                         "its plain version at %s"
+                                         % (units, tuple(out.shape)))
+            self.launched.append("unet_upsample")
+            return got
+
+        def checked_relayout(x, channels_last):
+            got = relayout(x, channels_last)
+            same("unet_layout", got, x)
+            if got is not x:
+                self.launched.append("unet_layout")
+            return got
+
+        unet.epilogue, unet.upsample, unet.relayout = (
+            checked_epilogue, checked_upsample, checked_relayout)
+        return self
+
+    def __exit__(self, *exc):
+        self.unet.epilogue, self.unet.upsample, self.unet.relayout = self.real
+
+
+def _unet_checks(ops):
+    """19a: the flagship's U-Net at every path shape, each kernel launch
+    against its plain version, the output against the NCHW U-Net's
+    distance from the float32 one."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    worst = []
+    for i, (bs, h, w) in enumerate(UNET_PATH_SHAPES):
+        ae = _unet_module(i)
+        x = torch.randn(bs, 128, h, w, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        with torch.inference_mode():
+            ops.reset_launch_counts()
+            with _checked_unet_kernels() as checked:
+                got = ae(x)
+            counts = {k: checked.launched.count(k) for k in
+                      ("unet_epilogue", "unet_upsample", "unet_layout")}
+            if counts != {"unet_epilogue": 15, "unet_upsample": 2,
+                          "unet_layout": 2} or \
+                    _nonzero(ops.launch_counts) != counts:
+                raise AssertionError("U-Net at %s launched %s (counted %s)"
+                                     % ((bs, h, w), checked.launched,
+                                        _nonzero(ops.launch_counts)))
+            ae._channels_last = False
+            want = ae(x)
+        for name in _INFERENCE_KERNELS[1:]:
+            _COMPARED[name].add(_unet_case(ae, x))
+        if h * w <= 512 * 512:
+            tf32 = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+            with torch.inference_mode():
+                f32 = _unet_module(i, None)(x.float())
+            torch.backends.cudnn.allow_tf32 = tf32
+            u, un = _bf16_units(got, f32), _bf16_units(want, f32)
+            worst.append(((bs, h, w), float(u.max()), float(u.mean()),
+                          float(un.max()), float(un.mean())))
+            if not (u.mean() <= 1.1 * un.mean() and u.max() <= 1.5 * un.max()):
+                raise AssertionError(
+                    "channels-last U-Net at %s: %.2f max / %.4f mean bf16 "
+                    "units from float32, the NCHW one %.2f / %.4f"
+                    % worst[-1])
+        del ae, x, got, want
+        torch.cuda.empty_cache()
+    print("19a the flagship's U-Net at %d shapes: every kernel launch equal "
+          "to its plain version (upsample within %.2f units), channels-last "
+          "/ NCHW bf16 units from float32 (max, mean): %s" % (
+              len(UNET_PATH_SHAPES), _MAX_ERR.get("unet_upsample", 0.0),
+              "; ".join("%s %.2f %.4f / %.2f %.4f" % r for r in worst)))
+
+
+def _unet_times(ops, numbers):
+    """19b: each kernel at the bench's frame shape and its levels, and the
+    whole U-Net channels-last against NCHW."""
+    from sbmc_tpu_torch.nn import unet
+    cl = torch.channels_last
+    gen = torch.Generator(device="cuda").manual_seed(20)
+
+    def rand(*shape, fmt=cl):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16).contiguous(memory_format=fmt)
+
+    def row(name, tag, fn, plain, nbytes):
+        ms = _time_ms(fn, 3, 20)
+        device_ms = _graph_ms(fn, iters=10, reps=3)
+        _record_times(numbers, name, tag, ms, _time_ms(plain, 1, 3),
+                      nbytes / H100_BYTES_PER_S * 1e3, "bytes",
+                      device_ms=device_ms,
+                      gbytes_s=round(nbytes / device_ms / 1e6, 1))
+
+    levels = ((128, 1080, 2048), (256, 540, 1024), (512, 270, 512))
+    for lvl, (c, h, w) in enumerate(levels):
+        y, bias = rand(1, c, h, w), torch.randn(c, device="cuda")
+        row("unet_epilogue", "L%d 1x%dx%dx%d" % (lvl, c, h, w),
+            lambda: unet.epilogue(y, bias, "relu"),
+            lambda: unet.epilogue_ref(y, bias, "relu"), 4 * y.numel())
+        if lvl == 2:
+            break
+        c_up = 2 * c
+        buf = torch.empty(1, c_up + c, h, w, dtype=torch.bfloat16,
+                          device="cuda", memory_format=cl)
+        pool = torch.empty(1, c, h // 2, w // 2, dtype=torch.bfloat16,
+                           device="cuda", memory_format=cl)
+        row("unet_epilogue", "L%d 1x%dx%dx%d + pool, into %d" % (
+                lvl, c, h, w, c_up + c),
+            lambda: unet.epilogue(y, bias, "relu", buf[:, c_up:], pool),
+            lambda: unet.epilogue_ref(y, bias, "relu", buf[:, c_up:], pool),
+            4 * y.numel() + 2 * pool.numel())
+        x = rand(1, c_up, h // 2, w // 2)
+        row("unet_upsample", "L%d to L%d 1x%dx%dx%d, into %d" % (
+                lvl + 1, lvl, c_up, h, w, c_up + c),
+            lambda: unet.upsample(x, buf[:, :c_up]),
+            lambda: unet.upsample_ref(x, buf[:, :c_up]),
+            2 * x.numel() + 2 * c_up * h * w)
+        if lvl == 0:
+            nchw = rand(1, c, h, w, fmt=torch.contiguous_format)
+            for to_cl, src in ((True, nchw), (False, y)):
+                row("unet_layout", "1x%dx%dx%d to %s" % (
+                        c, h, w, "NHWC" if to_cl else "NCHW"),
+                    lambda t=to_cl, s=src: unet.relayout(s, t),
+                    lambda t=to_cl, s=src: unet.relayout_ref(s, t),
+                    4 * y.numel())
+            del nchw
+        del buf, pool, x, y
+        torch.cuda.empty_cache()
+    ae = _unet_module(0)
+    x = torch.randn(1, 128, 1080, 2048, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    with torch.inference_mode():
+        cl_ms = _time_ms(lambda: ae(x), 2, 5)
+        ae._channels_last = False
+        nchw_ms = _time_ms(lambda: ae(x), 2, 5)
+    print("19b the flagship's U-Net at 1x128x1080x2048: channels-last %.2f "
+          "ms, NCHW %.2f ms (host clock, 5 calls)" % (cl_ms, nchw_ms))
+    del ae, x
+    torch.cuda.empty_cache()
+
+
+def _unet_phase(ops):
+    """19: the U-Net's channels-last kernels (``csrc/unet.cu``): against
+    their plain versions at the paths' shapes, and timed at the bench's.
+    Returns their numbers."""
+    t0 = time.perf_counter()
+    numbers = {}
+    _unet_checks(ops)
+    with torch.inference_mode():
+        _unet_times(ops, numbers)
+    print("phase 19: %.1f s" % (time.perf_counter() - t0))
+    return numbers
+
+
 def _sample_chain_phase(ops):
     """18: the per-sample chain kernel (``csrc/sample_chain.cu``): against
     its plain version, in the model, and timed at the bench's shapes.
@@ -5118,6 +5384,7 @@ def main():
         by_path = {"composed_step": _composed_step_phase(ops)}
     _channel_phase(ops, numbers)
     numbers.update(_sample_chain_phase(ops))
+    numbers.update(_unet_phase(ops))
     checkpoint = os.path.join(ROOT, "weights", "flagship_f16")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -12,6 +12,12 @@ a JAX checkpoint maps onto them leaf by leaf (see
   product is rounded to the compute dtype, as in the JAX package;
 - initialisation reproduces torch's ``xavier_uniform_`` with
   ``calculate_gain`` (the weights are overwritten when a checkpoint loads).
+
+At inference on the card a bf16 ``Autoencoder`` runs channels-last
+(:meth:`Autoencoder.forward_channels_last`): cuDNN's convolutions without
+their bias, and the hand-written epilogue, upsample and layout kernels of
+:mod:`sbmc_tpu_torch.nn.unet` around them, with the rounding of the NCHW
+modules.
 """
 
 import math
@@ -19,6 +25,8 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from sbmc_tpu_torch.nn import unet
 
 __all__ = ["WNConv2D", "ConvChain", "Autoencoder"]
 
@@ -94,6 +102,16 @@ class WNConv2D(nn.Module):
                      padding=(self.ksize - 1) // 2 if self.pad else 0)
         return y + self.bias.to(y.dtype)[:, None, None]
 
+    def conv_channels_last(self, x):
+        """The convolution without its bias on a channels-last ``x`` already
+        in the compute dtype, the weight laid out channels-last too (so cuDNN
+        runs its NHWC kernels with no layout change around them); the
+        product is rounded to ``x``'s dtype, as in :meth:`forward`."""
+        kernel = self.weight().to(x.dtype).contiguous(
+            memory_format=torch.channels_last)
+        return F.conv2d(x, kernel,
+                        padding=(self.ksize - 1) // 2 if self.pad else 0)
+
 
 class ConvChain(nn.Module):
     """``depth - 1`` conv + activation blocks at ``width`` channels, then a
@@ -112,6 +130,8 @@ class ConvChain(nn.Module):
             raise ValueError("activation should be one of: "
                              "relu, leaky_relu, tanh, elu")
         self.depth = depth
+        self.activation = activation
+        self.output_type = output_type
         self.act = _activation(activation)
         self.out_act = (None if output_type == "linear"
                         else _activation(output_type))
@@ -133,6 +153,26 @@ class ConvChain(nn.Module):
         x = self.prediction(x)
         return x if self.out_act is None else self.out_act(x)
 
+    def layers(self):
+        """The convolutions in order: ``layer_0``, ..., ``prediction``."""
+        return ([getattr(self, f"layer_{d}") for d in range(self.depth - 1)]
+                + [self.prediction])
+
+    def forward_channels_last(self, x, out=None, pool=None):
+        """The chain without gradients on a channels-last ``x`` in the
+        compute dtype: each convolution without its bias
+        (:meth:`WNConv2D.conv_channels_last`), then its bias and activation
+        (:func:`sbmc_tpu_torch.nn.unet.epilogue`, in place); the last writes
+        into ``out`` (a channels-last tensor or channel slot) if given, and
+        its 2x2 max-pool into ``pool`` if given. Returns the output."""
+        layers = self.layers()
+        for i, layer in enumerate(layers):
+            last = i == len(layers) - 1
+            x = unet.epilogue(layer.conv_channels_last(x), layer.bias,
+                              self.output_type if last else self.activation,
+                              out if last else None, pool if last else None)
+        return x
+
 
 class Autoencoder(nn.Module):
     """U-Net style autoencoder, NCHW, with max pooling.
@@ -142,6 +182,12 @@ class Autoencoder(nn.Module):
     to the skip's exact size, concatenates ``[upsampled, skip]`` and runs a
     right ``ConvChain``. Width grows by ``increase_factor`` per level,
     capped at ``max_width``.
+
+    Without gradients, on CUDA input, with bf16 convs and every channel
+    count a multiple of 8, :meth:`forward` runs
+    :meth:`forward_channels_last`, which launches the epilogue kernel once
+    a convolution, the upsample kernel once a level below the top and the
+    layout kernel on each side.
     """
 
     def __init__(self, in_features, noutputs, ksize=3, width=64,
@@ -173,8 +219,19 @@ class Autoencoder(nn.Module):
                 cin + w, noutputs if lvl == 0 else w, w,
                 output_type if lvl == 0 else activation))
             cin = noutputs if lvl == 0 else w
+        convs = [m for m in self.modules() if isinstance(m, WNConv2D)]
+        chains = [m for m in self.modules() if isinstance(m, ConvChain)]
+        # What the channels-last kernels hold, fixed by the architecture.
+        self._channels_last = (
+            dtype == torch.bfloat16
+            and all(c.pad and c.v.shape[0] % 8 == 0 and c.v.shape[1] % 8 == 0
+                    for c in convs)
+            and all(c.activation in unet.ACTIVATIONS
+                    and c.output_type in unet.ACTIVATIONS for c in chains))
 
     def forward(self, x):
+        if self._channels_last and x.is_cuda and not torch.is_grad_enabled():
+            return self.forward_channels_last(x)
         skips = []
         for lvl in range(self.num_levels):
             x = getattr(self, f"left_{lvl}")(x)
@@ -187,3 +244,37 @@ class Autoencoder(nn.Module):
                                align_corners=False)
             x = getattr(self, f"right_{lvl}")(torch.cat([us, left], dim=1))
         return x
+
+    def forward_channels_last(self, x):
+        """:meth:`forward` without gradients, channels-last inside: the
+        input ``[bs, c, h, w]`` is laid out channels-last once, each level's
+        last left convolution writes its skip into the channel slot
+        ``[c_up:]`` of a channels-last concatenation buffer and its max-pool
+        as the next level's input, the coarse result is upsampled into the
+        slot ``[:c_up]``, and the right chain reads the buffer whole. The
+        output is laid out NCHW once. The same arithmetic and roundings as
+        :meth:`forward`, up to the order of the convolutions' sums."""
+        cl = torch.channels_last
+        dtype = self.left_0.prediction.dtype or x.dtype
+        x = unet.relayout(x.to(dtype), channels_last=True)
+        cats = []
+        for lvl in range(self.num_levels):
+            left = getattr(self, f"left_{lvl}")
+            if lvl == self.num_levels - 1:
+                x = left.forward_channels_last(x)
+                break
+            bs, _, h, w = x.shape
+            c_skip = left.prediction.v.shape[0]
+            c_cat = getattr(self, f"right_{lvl}").layer_0.v.shape[1]
+            cats.append(torch.empty(bs, c_cat, h, w, dtype=x.dtype,
+                                    device=x.device, memory_format=cl))
+            pooled = torch.empty(bs, c_skip, h // 2, w // 2, dtype=x.dtype,
+                                 device=x.device, memory_format=cl)
+            left.forward_channels_last(x, out=cats[-1][:, c_cat - c_skip:],
+                                       pool=pooled)
+            x = pooled
+        for lvl in range(self.num_levels - 2, -1, -1):
+            unet.upsample(x, cats[-1][:, :x.shape[1]])
+            x = getattr(self, f"right_{lvl}").forward_channels_last(
+                cats.pop())
+        return unet.relayout(x, channels_last=False)

@@ -88,19 +88,14 @@ def regress_ref(chain, feats_s, propagated, kernel_dtype):
     return kernels.contiguous()
 
 
-def _layers(chain):
-    layers = [getattr(chain, f"layer_{d}") for d in range(chain.depth - 1)]
-    return layers + [chain.prediction]
-
-
 def _is_1x1_chain(chain, k_in):
-    layers = _layers(chain)
+    layers = chain.layers()
     return (chain.depth == 3 and all(l.ksize == 1 for l in layers)
             and layers[0].v.shape[1] == k_in)
 
 
 def _hidden(chain):
-    return max(l.v.shape[0] for l in _layers(chain)[:-1])
+    return max(l.v.shape[0] for l in chain.layers()[:-1])
 
 
 def embedding_fits(chain, cx, ce, per_pixel):
@@ -172,7 +167,7 @@ def embedding_weights(chain, cx, extra):
     float32 ``W_e . extra`` of each batch item, ``[bs, HIDDEN]``), the three
     biases in one bf16 vector, and the padded channel counts ``kx``,
     ``ke``."""
-    l0, l1, l2 = _layers(chain)
+    l0, l1, l2 = chain.layers()
     w0, w1, w2 = (l.weight()[:, :, 0, 0] for l in (l0, l1, l2))
     _no_grad("embedding", extra, w0, w1, w2)
     kx = _pad64(cx)
@@ -244,7 +239,7 @@ def embedding_step(chain, feats, extra, mask_f, n_valid):
 def regressor_weights(chain):
     """The regressor's weights and biases laid out for the kernel (once a
     forward: every sample's launch reads them)."""
-    l0, l1, l2 = _layers(chain)
+    l0, l1, l2 = chain.layers()
     w0, w1, w2 = (l.weight()[:, :, 0, 0] for l in (l0, l1, l2))
     _no_grad("regressor", w0, w1, w2)
     k0 = _pad64(w0.shape[1])

@@ -1,0 +1,192 @@
+"""The passes around the U-Net's convolutions, channels-last, for inference.
+
+:meth:`~sbmc_tpu_torch.nn.layers.Autoencoder.forward_channels_last` runs
+the U-Net in channels-last (NHWC) tensors: each convolution is cuDNN's,
+without its bias, and these ops do the rest.
+
+- :func:`epilogue`: the bias and the activation of one convolution's output
+  (``act(bf16(y + b))``, rounded as ``WNConv2D.forward`` and ``ConvChain``
+  round them), in place or into a channel slot of a wider tensor (the
+  skip's slot of the concatenation buffer), with the 2x2 max-pool of the
+  result (``F.max_pool2d(x, 2)``) if asked, in the same pass;
+- :func:`upsample`: ``F.interpolate(x, size, mode="bilinear",
+  align_corners=False)`` written into a channel slot (the upsampled slot of
+  the concatenation buffer);
+- :func:`relayout`: the U-Net's input from NCHW to channels-last, and its
+  output back.
+
+For CUDA tensors each is one launch of a hand-written kernel
+(``ops/csrc/unet.cu``: ``unet_epilogue``, ``unet_upsample``,
+``unet_layout``), counted in ``ops.launch_counts``; bf16 only, channel
+counts a multiple of 8, no gradient. For CPU tensors the plain versions run
+(:func:`epilogue_ref`, :func:`upsample_ref`, :func:`relayout_ref`), in any
+dtype and layout.
+
+A slot is a view ``buffer[:, lo:hi]`` of a channels-last tensor: its values
+of one pixel are contiguous, and its pixels lie ``buffer.shape[1]``
+channels apart.
+"""
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["ACTIVATIONS", "epilogue", "epilogue_ref", "upsample",
+           "upsample_ref", "relayout", "relayout_ref"]
+
+#: The activations the epilogue applies, by ``ConvChain`` name, and their
+#: codes in the kernel.
+ACTIVATIONS = {"linear": 0, "relu": 1, "leaky_relu": 2}
+
+
+def _activate(act, x):
+    if act == "relu":
+        return F.relu(x)
+    if act == "leaky_relu":
+        return F.leaky_relu(x, 0.01)
+    if act == "linear":
+        return x
+    raise ValueError(f"the U-Net epilogue has no activation {act!r}")
+
+
+def epilogue_ref(y, bias, act, out=None, pool=None):
+    """The plain epilogue: ``act(y + bias)`` in ``y``'s dtype, as
+    ``WNConv2D.forward`` and ``ConvChain`` compute it, written into ``out``
+    (``y`` itself if None), and with ``pool`` given its 2x2 max-pool into
+    ``pool``. ``y`` ``[bs, c, h, w]``, ``bias`` ``[c]`` (float32; rounded to
+    ``y``'s dtype first), ``out`` of ``y``'s shape, ``pool`` ``[bs, c, h //
+    2, w // 2]``. Returns ``out``."""
+    r = _activate(act, y + bias.to(y.dtype)[:, None, None])
+    if pool is not None:
+        pool.copy_(F.max_pool2d(r, 2))
+    out = y if out is None else out
+    return out.copy_(r)
+
+
+def upsample_ref(x, out):
+    """The plain upsample: ``F.interpolate(x, size=out.shape[-2:],
+    mode="bilinear", align_corners=False)`` written into ``out``. Returns
+    ``out``."""
+    return out.copy_(F.interpolate(x, size=tuple(out.shape[-2:]),
+                                   mode="bilinear", align_corners=False))
+
+
+def relayout_ref(x, channels_last):
+    """The plain layout change: ``x`` ``[bs, c, h, w]`` as a dense
+    channels-last tensor (``channels_last`` True) or a dense NCHW one."""
+    return x.contiguous(memory_format=torch.channels_last if channels_last
+                        else torch.contiguous_format)
+
+
+def _is_slot(t):
+    """Whether ``t`` ``[bs, c, h, w]`` lies as a channels-last tensor or a
+    channel slot of one: each pixel's channels contiguous, the pixels at
+    one stride (``t.stride(3)``) in row-major order."""
+    bs, c, h, w = t.shape
+    ld = t.stride(3)
+    return (t.stride(1) == 1 and ld >= c
+            and (h == 1 or t.stride(2) == w * ld)
+            and (bs == 1 or t.stride(0) == h * w * ld))
+
+
+def _check(name, t, shape=None):
+    if t.dtype != torch.bfloat16:
+        raise ValueError(f"{name} must be bfloat16, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.requires_grad:
+        raise RuntimeError(
+            f"the U-Net kernels have no backward: {name} must not require "
+            "grad (run under torch.no_grad() or torch.inference_mode(), or "
+            "use the plain versions)")
+    if t.shape[1] % 8 or t.stride(3) % 8 or t.data_ptr() % 16 \
+            or not _is_slot(t):
+        raise ValueError(
+            f"{name} must be channels-last with a multiple of 8 channels "
+            "(a channels-last tensor or a channel slot of one, 16-byte "
+            "aligned)")
+
+
+def epilogue(y, bias, act, out=None, pool=None):
+    """The epilogue of one convolution (arguments and result as
+    :func:`epilogue_ref`): the kernel for CUDA tensors (``y`` dense
+    channels-last; ``out`` a channels-last tensor or slot; ``pool`` dense
+    channels-last), the plain version for CPU ones."""
+    from sbmc_tpu_torch import ops
+    if ops._on_cpu(y, bias):
+        return epilogue_ref(y, bias, act, out, pool)
+    bs, c, h, w = y.shape
+    _check("y", y)
+    if y.stride(3) != c:
+        raise ValueError("y must be a dense channels-last tensor")
+    if out is None:
+        out = y
+    else:
+        _check("out", out, y.shape)
+    if pool is not None:
+        _check("pool", pool, (bs, c, h // 2, w // 2))
+        if pool.stride(3) != c:
+            raise ValueError("pool must be a dense channels-last tensor")
+    if act not in ACTIVATIONS:
+        raise ValueError(f"the U-Net epilogue has no activation {act!r}")
+    b = bias.detach().to(torch.bfloat16).contiguous()
+    ops._launch("unet_epilogue", _load().sbmc_unet_epilogue, y.device,
+                y.data_ptr(), b.data_ptr(), out.data_ptr(), out.stride(3),
+                None if pool is None else pool.data_ptr(), ACTIVATIONS[act],
+                bs, h, w, c, ops._sm_count(y.device))
+    return out
+
+
+def upsample(x, out):
+    """The bilinear upsample (arguments and result as
+    :func:`upsample_ref`): the kernel for CUDA tensors (``x`` dense
+    channels-last, ``out`` a channels-last tensor or slot at least twice its
+    height and width, as the U-Net's skips are), the plain version for CPU
+    ones."""
+    from sbmc_tpu_torch import ops
+    if ops._on_cpu(x, out):
+        return upsample_ref(x, out)
+    bs, c, hi, wi = x.shape
+    ho, wo = out.shape[-2:]
+    _check("x", x)
+    if x.stride(3) != c:
+        raise ValueError("x must be a dense channels-last tensor")
+    _check("out", out, (bs, c, ho, wo))
+    if 2 * hi > ho or 2 * wi > wo:
+        raise ValueError(f"the upsample kernel at least doubles: {hi}x{wi} "
+                         f"to {ho}x{wo}")
+    ops._launch("unet_upsample", _load().sbmc_unet_upsample, x.device,
+                x.data_ptr(), out.data_ptr(), out.stride(3), bs, hi, wi, ho,
+                wo, c)
+    return out
+
+
+def relayout(x, channels_last):
+    """The layout change (arguments and result as :func:`relayout_ref`):
+    ``x`` returned as it is if it already lies so, else the kernel for CUDA
+    tensors (``x`` dense in the other layout), the plain version for CPU
+    ones."""
+    from sbmc_tpu_torch import ops
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    if x.is_contiguous(memory_format=fmt):
+        return x
+    if ops._on_cpu(x):
+        return relayout_ref(x, channels_last)
+    if x.dtype != torch.bfloat16 or x.requires_grad or x.shape[1] % 8 \
+            or x.data_ptr() % 16 or not x.is_contiguous(memory_format=torch.contiguous_format
+                                   if channels_last else torch.channels_last):
+        raise ValueError("the layout kernel takes a dense bf16 tensor with a "
+                         "multiple of 8 channels and no gradient, NCHW or "
+                         "channels-last, 16-byte aligned")
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device,
+                      memory_format=fmt)
+    bs, c, h, w = x.shape
+    ops._launch("unet_layout", _load().sbmc_unet_layout, x.device,
+                x.data_ptr(), out.data_ptr(), int(channels_last), bs, c, h, w,
+                ops._sm_count(x.device))
+    return out
+
+
+def _load():
+    from sbmc_tpu_torch.ops import _build
+    return _build.load_cuda()

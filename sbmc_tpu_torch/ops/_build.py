@@ -95,6 +95,12 @@ _SAMPLE_REGRESS_ARGS = [_P, _L, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I,
 #: sbmc_sample_embed_fits(cx, ce, hidden, cout), sbmc_sample_regress_fits(
 #: k_in, hidden, nout): whether a chain fits the kernels (host functions, no
 #: stream)
+#: sbmc_unet_epilogue(y, bias, out, ldo, pool, act, bs, h, w, c, sms[, stream])
+_UNET_EPILOGUE_ARGS = [_P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I]
+#: sbmc_unet_upsample(x, out, ldo, bs, hi, wi, ho, wo, c[, stream])
+_UNET_UPSAMPLE_ARGS = [_P, _P, _L, _I, _I, _I, _I, _I, _I]
+#: sbmc_unet_layout(src, dst, to_nhwc, bs, c, h, w, sms[, stream])
+_UNET_LAYOUT_ARGS = [_P, _P, _I, _I, _I, _I, _I, _I]
 
 #: source -> {exported function: argument types}; the CUDA entry points take
 #: the stream as one more pointer.
@@ -130,6 +136,10 @@ _CUDA = {
         "sbmc_sample_regress": _SAMPLE_REGRESS_ARGS + [_P],
         "sbmc_sample_embed_fits": [_I, _I, _I, _I],
         "sbmc_sample_regress_fits": [_I, _I, _I]},
+    "unet.cu": {
+        "sbmc_unet_epilogue": _UNET_EPILOGUE_ARGS + [_P],
+        "sbmc_unet_upsample": _UNET_UPSAMPLE_ARGS + [_P],
+        "sbmc_unet_layout": _UNET_LAYOUT_ARGS + [_P]},
 }
 _HOST = {
     "progressive_splat_host.cpp": {

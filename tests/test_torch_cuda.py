@@ -914,8 +914,9 @@ def test_sample_chain_regress_clamps_logits(device):
 @pytest.mark.parametrize("spp", [1, 4])
 def test_sample_chain_launches_per_tile(device, spp):
     """3 + spp launches a tile under inference_mode (three embedding steps,
-    one regressor a sample), none with gradients on; the fused and unfused
-    frames agree to bf16 rounding."""
+    one regressor a sample), and the three U-Nets' 45 epilogues, 6
+    upsamples and 6 layout changes; none with gradients on; the fused and unfused frames agree
+    to bf16 rounding."""
     from sbmc_tpu_torch.models import Multisteps
     torch.manual_seed(0)
     net = Multisteps(n_features=93, n_global_features=3, width=128,
@@ -931,7 +932,9 @@ def test_sample_chain_launches_per_tile(device, spp):
     ops.reset_launch_counts()
     with torch.inference_mode():
         fused = net(x)["radiance"]
-    assert _counts() == {"sample_chain": 3 + spp, "progressive_splat": spp}
+    assert _counts() == {"sample_chain": 3 + spp, "progressive_splat": spp,
+                         "unet_epilogue": 45, "unet_upsample": 6,
+                         "unet_layout": 6}
     ops.reset_launch_counts()
     plain = net(x)["radiance"].detach()
     assert _counts() == {"progressive_splat": spp}
@@ -967,3 +970,156 @@ def test_sample_chain_kernel_decides_what_fits(device, kw, fits):
                 embedding_width=128, ksize=21, conv_dtype="bfloat16")
     args.update(kw)
     assert Multisteps(**args).chains_fit() is fits
+
+
+# The U-Net's channels-last kernels (csrc/unet.cu) against their plain
+# versions. The epilogue rounds as the plain version does (bf16(y + b), the
+# activation in float32, one rounding; the max of bf16 values): bit for bit.
+# The upsample computes upsample_bilinear2d's float32 expression: bit for
+# bit where the scale is 1/2 (every product and sum exact, as at the
+# flagship's levels); elsewhere the compilers may contract other products
+# into fused multiply-adds, at most one bf16 unit (at the larger of |plain|
+# and its mean magnitude). The layout change moves values: bit for bit.
+UNET_SHAPES = [(1, 128, 1080, 2048), (2, 24, 37, 53), (1, 8, 5, 1)]
+
+
+def _cl_bf16(gen, *shape, device):
+    return (torch.randn(*shape, generator=gen, device=device)
+            .to(torch.bfloat16).contiguous(memory_format=torch.channels_last))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,c,h,w", UNET_SHAPES)
+@pytest.mark.parametrize("act", ["relu", "leaky_relu", "linear"])
+def test_unet_epilogue_matches_plain(device, bs, c, h, w, act):
+    """In place, and into the skip slot of a wider buffer with the pool
+    (where the size allows one)."""
+    from sbmc_tpu_torch.nn import unet
+    cl = torch.channels_last
+    gen = torch.Generator(device=device).manual_seed(c + h)
+    y = _cl_bf16(gen, bs, c, h, w, device=device)
+    y[0, 0, 0, 0] = float("nan")
+    bias = 0.3 * torch.randn(c, generator=gen, device=device)
+    with torch.inference_mode():
+        want = unet.epilogue_ref(y.clone(), bias, act)
+        ops.reset_launch_counts()
+        got = unet.epilogue(y.clone(), bias, act)
+        assert _counts() == {"unet_epilogue": 1}
+        assert torch.equal(got[~want.isnan()], want[~want.isnan()])
+        assert bool(got[0, 0, 0, 0].isnan())
+        if h < 2 or w < 2:
+            return
+        buf = torch.full((bs, c + 16, h, w), 7.0, dtype=torch.bfloat16,
+                         device=device).contiguous(memory_format=cl)
+        pool = torch.empty(bs, c, h // 2, w // 2, dtype=torch.bfloat16,
+                           device=device, memory_format=cl)
+        want_pool = torch.empty_like(pool)
+        unet.epilogue_ref(y.clone(), bias, act, None, want_pool)
+        unet.epilogue(y, bias, act, buf[:, 16:], pool)
+    assert torch.equal(buf[:, 16:][~want.isnan()], want[~want.isnan()])
+    assert bool((buf[:, :16] == 7).all())
+    assert torch.equal(pool[~want_pool.isnan()],
+                       want_pool[~want_pool.isnan()])
+    assert bool(pool[0, 0, 0, 0].isnan())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,c,hi,wi,ho,wo", [
+    (1, 256, 540, 1024, 1080, 2048), (1, 512, 270, 512, 540, 1024),
+    (2, 24, 18, 26, 37, 53), (1, 8, 2, 1, 5, 3), (1, 16, 3, 4, 7, 9),
+    (1, 16, 2, 2, 9, 13)])
+def test_unet_upsample_matches_plain(device, bs, c, hi, wi, ho, wo):
+    """Into the leading slot of a buffer with channels beside it: the
+    flagship's two upsamples of a 1080x2048 tile, odd sizes (the pooled
+    sizes floor), more than a doubling."""
+    from sbmc_tpu_torch.nn import unet
+    cl = torch.channels_last
+    gen = torch.Generator(device=device).manual_seed(c + ho)
+    x = _cl_bf16(gen, bs, c, hi, wi, device=device)
+    buf = torch.full((bs, c + 8, ho, wo), 7.0, dtype=torch.bfloat16,
+                     device=device).contiguous(memory_format=cl)
+    with torch.inference_mode():
+        want = unet.upsample_ref(x, torch.empty(bs, c, ho, wo,
+                                                dtype=torch.bfloat16,
+                                                device=device))
+        ops.reset_launch_counts()
+        unet.upsample(x, buf[:, :c])
+        assert _counts() == {"unet_upsample": 1}
+    got = buf[:, :c]
+    assert bool((buf[:, c:] == 7).all())
+    if 2 * hi == ho and 2 * wi == wo:
+        assert torch.equal(got, want)
+    else:
+        assert _chain_units(got, want)[0] <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,c,h,w", [(1, 128, 1080, 2048), (2, 24, 37, 53),
+                                      (1, 16, 4, 4), (3, 8, 16, 5),
+                                      (2, 72, 3, 8)])
+def test_unet_layout_matches_plain(device, bs, c, h, w):
+    """Both directions, bit for bit: pixels a multiple of 16 (the vector
+    kernels), of 8 only (the vector kernel back to NCHW) and neither (a
+    value a thread)."""
+    from sbmc_tpu_torch.nn import unet
+    gen = torch.Generator(device=device).manual_seed(c + h)
+    x = torch.randn(bs, c, h, w, generator=gen, device=device).to(
+        torch.bfloat16)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        cl = unet.relayout(x, True)
+        back = unet.relayout(cl, False)
+        assert _counts() == {"unet_layout": 2}
+    assert cl.is_contiguous(memory_format=torch.channels_last)
+    assert back.is_contiguous()
+    assert torch.equal(cl, x) and torch.equal(back, x)
+
+
+# The channels-last U-Net against the NCHW modules: cuDNN picks other
+# algorithms for the two layouts at some shapes, which sum a convolution's
+# products in another order and flip roundings to bf16, and 15 layers carry
+# them on (up to 18 bf16 units apart, 0.74 on average). So both are held to
+# the float32 U-Net on the same weights (TF32 off): the channels-last
+# path's error is the NCHW path's, within a tenth on average and half at
+# the largest (measured: within 2%).
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,h,w", [(1, 96, 128), (2, 37, 53),
+                                    (1, 160, 160)])
+def test_unet_channels_last_matches_forward(device, bs, h, w):
+    """The flagship's U-Net: 15 epilogue, 2 upsample and 2 layout launches
+    under inference_mode, none with gradients on, and the two outputs as
+    close to the float32 U-Net."""
+    from sbmc_tpu_torch.nn.layers import Autoencoder
+
+    def unet_of(dtype):
+        torch.manual_seed(0)
+        ae = Autoencoder(128, 128, num_levels=3, increase_factor=2.0,
+                         num_convs=3, width=128, ksize=3,
+                         output_type="leaky_relu", dtype=dtype).to(device)
+        with torch.no_grad():
+            for name, p in ae.named_parameters():
+                if name.endswith("bias"):
+                    p.copy_(0.3 * torch.randn_like(p))
+        return ae
+
+    ae = unet_of(torch.bfloat16)
+    x = torch.randn(bs, 128, h, w, device=device).to(torch.bfloat16)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        got = ae(x)
+    assert _counts() == {"unet_epilogue": 15, "unet_upsample": 2,
+                         "unet_layout": 2}
+    assert got.is_contiguous() and got.dtype == torch.bfloat16
+    ops.reset_launch_counts()
+    want = ae(x).detach()
+    assert _counts() == {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            f32 = unet_of(None)(x.float())
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    mx, mean = _chain_units(got, f32)
+    mx_nchw, mean_nchw = _chain_units(want, f32)
+    assert mean <= 1.1 * mean_nchw and mx <= 1.5 * mx_nchw
