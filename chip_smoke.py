@@ -141,7 +141,7 @@ Phases, each printing one line (or a few) before the last:
    ``multi-card: not run (1 device)``.
 
 The composed kernels' phases and the other entry points run between these
-(4b to 4e after 4, 18 and 19 after 4e, 6b after 6, 8b to 8i after 8; 12 after 8i,
+(4b to 4e after 4, 18 to 20 after 4e, 6b after 6, 8b to 8i after 8; 12 after 8i,
 13 after 11d, 14 after 10):
 
 18. per-sample chains: (a) the per-sample chain kernel
@@ -166,6 +166,20 @@ The composed kernels' phases and the other entry points run between these
     bench's frame shape (1 x 128 x 1080 x 2048 and its levels) on the host
     clock and by CUDA-graph replay beside the plain version and the bound
     (bytes at 3.35 TB/s), and the whole U-Net against the NCHW one;
+
+20. KPCN's channels-last kernels (``csrc/kpcn.cu``): (a) KPCN at full
+    width, bf16 (random weights), at every tile shape the paths give it
+    (KPCN_PATH_SHAPES) and odd sizes, each launch of the entry (bit for
+    bit) and the exit (within one bf16 unit of ``torch.softmax``'s, at each
+    weight's own exponent) held to its plain version, and each epilogue's
+    as in 19a, 2 + 16 + 2 launches a call, the output held to the NCHW
+    KPCN's distance from the float32 KPCN; (b) both kernels timed at the
+    KPCN bench's tile (1 x 27 x 1160 x 2000 in, 1 x 448 x 1124 x 1964 out)
+    on the host clock and by CUDA-graph replay beside the plain version
+    and the bound (bytes at 3.35 TB/s), the width table (cuDNN's
+    channels-last convolutions alone at the tile's shapes, at widths 104,
+    112 and 128 and predictions of 448 and 512, and each whole chain), and
+    the whole KPCN against the NCHW one;
 4b. composed kernels: holds kernel weighting and its gradient to the
     weights (each as the tiled kernel and the generic one) and
     scatter2gather against their plain versions (k in {3, 5, 21}, odd
@@ -337,6 +351,14 @@ KERNELS = (
     ("unet_layout", _CSRC + "unet.cu",
      "none: the U-Net's layout change at its boundary (XLA picks layouts "
      "itself)"),
+    # KPCN's chain ends around cuDNN's channels-last convolutions: XLA fused
+    # them into the convolutions' neighbours.
+    ("kpcn_entry", _CSRC + "kpcn.cu",
+     "none: XLA fused the cast and layout of the inputs of "
+     "sbmc_tpu/models/kpcn.py's conv chains"),
+    ("kpcn_exit", _CSRC + "kpcn.cu",
+     "none: XLA fused the prediction's bias, the softmax over the taps and "
+     "the layout of sbmc_tpu/models/kpcn.py's kernels"),
 )
 #: Phase 16's SBMC training paths, each rank's apart.
 _DP_SBMC = ("dp_world1", "dp_steps_rank0", "dp_steps_rank1",
@@ -349,6 +371,8 @@ _BF16_SBMC_INFERENCE = ("denoise", "eval", "bench", "bench_ragged",
                         "profile_model_stages", "pbrt_denoise",
                         "dp_cli_denoise", "dp_replicas_ragged",
                         "dp_replicas_uniform")
+#: The paths that run bf16 KPCN inference.
+_BF16_KPCN_INFERENCE = ("kpcn_denoise_bf16", "eval", "bench_kpcn")
 #: The paths on which a kernel must have launched. The data-gradient kernel
 #: lies on neither main path by nature (its gradient goes to a batch input,
 #: which nothing asks for): the gradient phase runs it inside the model.
@@ -400,10 +424,14 @@ MUST_LAUNCH = {
     "threefry_uniform": ("render",),
     # bf16 SBMC inference; float32 checkpoints and training never take it.
     "sample_chain": _BF16_SBMC_INFERENCE,
-    # The same paths run the flagship's U-Nets channels-last.
-    "unet_epilogue": _BF16_SBMC_INFERENCE,
+    # The same paths run the flagship's U-Nets channels-last; bf16 KPCN
+    # inference runs its chains so, with the epilogue between convolutions.
+    "unet_epilogue": _BF16_SBMC_INFERENCE + ("kpcn_denoise_bf16",
+                                             "bench_kpcn"),
     "unet_upsample": _BF16_SBMC_INFERENCE,
     "unet_layout": _BF16_SBMC_INFERENCE,
+    "kpcn_entry": _BF16_KPCN_INFERENCE,
+    "kpcn_exit": _BF16_KPCN_INFERENCE,
 }
 #: The generic variants of the splat, kernel-weighting (plain and exp),
 #: scatter2gather and triangle kernels (the first port's per-pixel,
@@ -428,12 +456,13 @@ _OP_OF = {"progressive_splat": "splat", "progressive_splat_ddata": "splat",
           "scatter2gather_max": "s2g_max", "kernel_weighting_exp": "kw_exp",
           "kernel_weighting_exp_generic": "kw_exp", "sample_chain": "chain",
           "unet_epilogue": "unet", "unet_upsample": "unet",
-          "unet_layout": "unet"}
+          "unet_layout": "unet", "kpcn_entry": "kpcn", "kpcn_exit": "kpcn"}
 #: The kernels any bf16 SBMC inference launches (display strips of training
-#: runs too), held to the cases compared with the plain versions on every
-#: path.
+#: runs too), and bf16 KPCN inference's layout kernels, held to the cases
+#: compared with the plain versions on every path (KPCN's epilogues with its
+#: chains: phase 20a checks them in the same calls).
 _INFERENCE_KERNELS = ("sample_chain", "unet_epilogue", "unet_upsample",
-                      "unet_layout")
+                      "unet_layout", "kpcn_entry", "kpcn_exit")
 
 #: (bs, c, h, w, logit type) the paths give the splat step, k = 21: the
 #: denoise path's tile, a training batch in float32 and with --bf16 (from
@@ -633,25 +662,29 @@ class _record_shapes:
     (``seen["splat"]``), kernel weighting (``seen["kw"]``), scatter2gather
     (``seen["s2g"]``), the two exp ops (``seen["s2g_max"]``,
     ``seen["kw_exp"]``), the sample chain's two wrappers
-    (``seen["chain"]``) and the channels-last U-Net (``seen["unet"]``) on
-    the card. The calls themselves go through unchanged."""
+    (``seen["chain"]``), the channels-last U-Net (``seen["unet"]``) and
+    KPCN's channels-last chains (``seen["kpcn"]``) on the card. The calls
+    themselves go through unchanged."""
 
     def __init__(self, ops):
+        from sbmc_tpu_torch.models.kpcn import KPCN
         from sbmc_tpu_torch.nn import sample_chain
         from sbmc_tpu_torch.nn.layers import Autoencoder
-        self.ops, self.sc, self.ae = ops, sample_chain, Autoencoder
+        self.ops, self.sc, self.ae, self.kpcn = (ops, sample_chain,
+                                                 Autoencoder, KPCN)
         self.seen = {"splat": set(), "kw": set(), "s2g": set(),
                      "s2g_max": set(), "kw_exp": set(), "chain": set(),
-                     "unet": set()}
+                     "unet": set(), "kpcn": set()}
 
     def __enter__(self):
         ops, sc, seen = self.ops, self.sc, self.seen
         self.plain = (ops.progressive_splat_update, ops.kernel_weighting,
                       ops.scatter2gather, ops.scatter2gather_max,
                       ops.kernel_weighting_exp, sc.embedding_step,
-                      sc.regress, self.ae.forward_channels_last)
+                      sc.regress, self.ae.forward_channels_last,
+                      self.kpcn.forward_channels_last)
         (splat, kw, s2g, s2g_max, kw_exp, embed, regress,
-         unet) = self.plain
+         unet, kpcn) = self.plain
 
         def rec_splat(data, klogits, *state):
             if data.is_cuda:
@@ -693,6 +726,11 @@ class _record_shapes:
                 seen["unet"].add(_unet_case(module, x))
             return unet(module, x)
 
+        def rec_kpcn(module, data):
+            if data["kpcn_diffuse_in"].is_cuda:
+                seen["kpcn"].add(_kpcn_case(module, data["kpcn_diffuse_in"]))
+            return kpcn(module, data)
+
         ops.progressive_splat_update = rec_splat
         ops.kernel_weighting = rec_kw
         ops.scatter2gather = rec_s2g
@@ -701,13 +739,15 @@ class _record_shapes:
         sc.embedding_step = rec_embed
         sc.regress = rec_regress
         self.ae.forward_channels_last = rec_unet
+        self.kpcn.forward_channels_last = rec_kpcn
         return seen
 
     def __exit__(self, *exc):
         (self.ops.progressive_splat_update, self.ops.kernel_weighting,
          self.ops.scatter2gather, self.ops.scatter2gather_max,
          self.ops.kernel_weighting_exp, self.sc.embedding_step,
-         self.sc.regress, self.ae.forward_channels_last) = self.plain
+         self.sc.regress, self.ae.forward_channels_last,
+         self.kpcn.forward_channels_last) = self.plain
 
 
 def _check_shapes(path, seen, kernels):
@@ -744,6 +784,23 @@ def _fused_launches(tiles, spp, nsteps=3):
     regressor, and each step's U-Net."""
     return {"sample_chain": tiles * (nsteps + spp),
             **_unet_launches(tiles * nsteps)}
+
+
+def _kpcn_launches(tiles, depth=9):
+    """Launches of bf16 KPCN inference's own kernels over ``tiles`` tiles:
+    a chain's entry and exit, and its epilogues (one a convolution but the
+    prediction), for each of the two chains."""
+    return {"kpcn_entry": 2 * tiles, "unet_epilogue": 2 * (depth - 1) * tiles,
+            "kpcn_exit": 2 * tiles}
+
+
+def _summed(*counts):
+    """Launch counts added kernel by kernel."""
+    total = {}
+    for c in counts:
+        for name, n in c.items():
+            total[name] = total.get(name, 0) + n
+    return total
 
 
 def _display_launches(spp, flags):
@@ -2355,12 +2412,17 @@ def _kpcn_phase(ops, tmp, steps=10, bs=4):
         ops.reset_launch_counts()
         with _record_shapes(ops) as seen:
             res = denoise.main(denoise.parse_args(argv))
-        _check_shapes(tag + " denoise", seen, ["kernel_weighting"])
+        # A bf16 checkpoint runs the chains channels-last.
+        fused = ["kpcn_entry"] if flags else []
+        _check_shapes(tag + " denoise", seen, ["kernel_weighting"] + fused)
         tiles = res[0]["tiles"]
-        if _nonzero(ops.launch_counts) != {"kernel_weighting": 2 * tiles}:
-            raise AssertionError("KPCN denoise launched %s, expected 2 x %d "
-                                 "tiles of kernel_weighting"
-                                 % (_nonzero(ops.launch_counts), tiles))
+        want = {"kernel_weighting": 2 * tiles}
+        if fused:
+            want.update(_kpcn_launches(tiles))
+        if _nonzero(ops.launch_counts) != want:
+            raise AssertionError("KPCN denoise launched %s, expected %s (%d "
+                                 "tiles)" % (_nonzero(ops.launch_counts),
+                                             want, tiles))
         img = exr.read(out)
         if img.shape != (256, 256, 3) or not np.isfinite(img).all():
             raise AssertionError("KPCN denoised EXR is %s, finite: %s" % (
@@ -2470,16 +2532,17 @@ def _eval_phase(ops, tmp, checkpoint, spp=4, tile=160, pad=32):
     launches = dict(ops.launch_counts)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     _check_shapes("eval", seen, ["progressive_splat", "kernel_weighting",
-                                 "sample_chain"])
+                                 "sample_chain", "kpcn_entry"])
     methods = res["methods"]
     if methods != ["input", "ours", "nlm", "cbf", "rpf", "nfor", "lbf",
                    "kpcn"] or len(res["rows"]) != n_scenes:
         raise AssertionError("eval_suite scored %s on %d scenes"
                              % (methods, len(res["rows"])))
     tiles = res["tiles"]
-    want = {"progressive_splat": n_scenes * tiles["ours"] * spp,
-            **_fused_launches(n_scenes * tiles["ours"], spp),
-            "kernel_weighting": n_scenes * 2 * tiles["kpcn"]}
+    want = _summed({"progressive_splat": n_scenes * tiles["ours"] * spp,
+                    "kernel_weighting": n_scenes * 2 * tiles["kpcn"]},
+                   _fused_launches(n_scenes * tiles["ours"], spp),
+                   _kpcn_launches(n_scenes * tiles["kpcn"]))
     if _nonzero(launches) != want:
         raise AssertionError("eval_suite launched %s, expected %s (%s tiles "
                              "per frame)" % (_nonzero(launches), want, tiles))
@@ -3807,7 +3870,7 @@ def _bench_phase(ops):
         with _record_shapes(ops) as seen:
             res = bench.main(args)
         launches[tag] = dict(ops.launch_counts)
-        _check_shapes(tag, seen, [kernel] if args.model == "kpcn"
+        _check_shapes(tag, seen, [kernel, "kpcn_entry"] if args.model == "kpcn"
                       else [kernel, "sample_chain"])
         per_frame = res["n_tiles"] * (2 if args.model == "kpcn"
                                       else res["spp"])
@@ -3815,6 +3878,8 @@ def _bench_phase(ops):
         want = {kernel: per_frame * frames}
         if args.model != "kpcn":
             want.update(_fused_launches(frames * res["n_tiles"], res["spp"]))
+        else:
+            want.update(_kpcn_launches(frames * res["n_tiles"]))
         if _nonzero(launches[tag]) != want:
             raise AssertionError("%s launched %s, expected %d frames x %d "
                                  "of %s" % (tag, _nonzero(launches[tag]),
@@ -5327,6 +5392,231 @@ def _unet_phase(ops):
     return numbers
 
 
+#: (bs, h, w) the paths give KPCN's chains (bf16 KPCN inference, float32
+#: inputs: the denoise path's 160-pixel uniform tiles, the evaluation path's
+#: ragged tiles of a 256x256 frame, the KPCN bench's 1160x2000 tile, last),
+#: after odd sizes no path gives.
+KPCN_PATH_SHAPES = ((2, 41, 45), (1, 37, 53), (1, 64, 64), (1, 64, 160),
+                    (1, 160, 64), (1, 160, 160), (1, 1160, 2000))
+_KPCN_KEYS = ("kpcn_diffuse_in", "kpcn_specular_in", "kpcn_diffuse_buffer",
+              "kpcn_specular_buffer", "kpcn_albedo")
+
+
+def _kpcn_case(module, x):
+    """A call of the channels-last KPCN: the chains' input shape and type,
+    their width, the kernels' size and the depth (the kernels' shapes
+    follow)."""
+    return (("kpcn",) + tuple(x.shape)
+            + (str(x.dtype), module.diffuse.prediction.v.shape[1],
+               module.ksize, module.depth))
+
+
+def _kpcn_module(seed, dtype="bfloat16"):
+    """KPCN at full width on the card, random biases."""
+    from sbmc_tpu_torch.models import KPCN
+    torch.manual_seed(seed)
+    model = KPCN(conv_dtype=dtype)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.1 * torch.randn_like(p))
+    return model.cuda()
+
+
+def _own_units(got, want):
+    """``|got - want|`` in bf16 units at each plain value's own exponent."""
+    want = want.float()
+    ulp = torch.pow(2.0, torch.floor(torch.log2(
+        want.abs().clamp(min=2.0 ** -126))) - 7)
+    return (got.float() - want).abs() / ulp
+
+
+class _checked_kpcn_kernels:
+    """While active, each launch of KPCN's two layout kernels is held to its
+    plain version on the same inputs: the entry bit for bit, the exit
+    within one bf16 unit of each weight. Notes the launches."""
+
+    def __enter__(self):
+        from sbmc_tpu_torch.nn import kpcn_layout
+        self.kl, self.launched = kpcn_layout, []
+        self.real = (kpcn_layout.kpcn_entry, kpcn_layout.kpcn_exit)
+        entry, exit_ = self.real
+
+        def checked_entry(x, width, dtype=torch.bfloat16):
+            got = entry(x, width, dtype)
+            if not torch.equal(got, kpcn_layout.kpcn_entry_ref(x, width,
+                                                               dtype)):
+                raise AssertionError("kpcn_entry disagrees with its plain "
+                                     "version at %s" % (tuple(x.shape),))
+            self.launched.append("kpcn_entry")
+            return got
+
+        def checked_exit(y, bias, k2):
+            got = exit_(y, bias, k2)
+            units = float(_own_units(got, kpcn_layout.kpcn_exit_ref(
+                y, bias, k2)).max())
+            _note_err("kpcn_exit", units)
+            if units > 1.0:
+                raise AssertionError("kpcn_exit %.2f bf16 units from its "
+                                     "plain version at %s"
+                                     % (units, tuple(y.shape)))
+            self.launched.append("kpcn_exit")
+            return got
+
+        kpcn_layout.kpcn_entry = checked_entry
+        kpcn_layout.kpcn_exit = checked_exit
+        return self
+
+    def __exit__(self, *exc):
+        self.kl.kpcn_entry, self.kl.kpcn_exit = self.real
+
+
+def _kpcn_checks(ops):
+    """20a: KPCN at full width at every path shape (float32 inputs) and at
+    one odd shape in float16 and bf16, each launch of its kernels against
+    its plain version, the output against the NCHW KPCN's distance from the
+    float32 one."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    cases = ([(shape, torch.float32) for shape in KPCN_PATH_SHAPES]
+             + [((1, 41, 45), torch.float16), ((1, 41, 45), torch.bfloat16)])
+    worst = []
+    for i, ((bs, h, w), dtype) in enumerate(cases):
+        model = _kpcn_module(i)
+        data = {k: torch.rand(bs, 27 if k.endswith("_in") else 3, h, w,
+                              generator=gen, device="cuda").to(
+                                  dtype if k.endswith("_in")
+                                  else torch.float32) for k in _KPCN_KEYS}
+        with torch.inference_mode():
+            ops.reset_launch_counts()
+            with _checked_unet_kernels() as epilogues, \
+                    _checked_kpcn_kernels() as ends:
+                got = model(data)["radiance"]
+            counts = {k: ends.launched.count(k)
+                      for k in ("kpcn_entry", "kpcn_exit")}
+            counts["unet_epilogue"] = epilogues.launched.count(
+                "unet_epilogue")
+            if counts != _kpcn_launches(1) or _nonzero(ops.launch_counts) \
+                    != dict(counts, kernel_weighting=2):
+                raise AssertionError("KPCN at %s launched %s (counted %s)"
+                                     % ((bs, h, w), counts,
+                                        _nonzero(ops.launch_counts)))
+            model._channels_last = False
+            want = model(data)["radiance"]
+        for name in ("kpcn_entry", "kpcn_exit"):
+            _COMPARED[name].add(_kpcn_case(model, data["kpcn_diffuse_in"]))
+        if h * w <= 512 * 512:
+            tf32 = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+            with torch.inference_mode():
+                f32 = _kpcn_module(i, None)(data)["radiance"]
+            torch.backends.cudnn.allow_tf32 = tf32
+            err = float((got - f32).norm() / f32.norm())
+            err_nchw = float((want - f32).norm() / f32.norm())
+            worst.append(((bs, h, w), str(dtype)[6:], err, err_nchw))
+            if not err <= 1.25 * err_nchw:
+                raise AssertionError(
+                    "channels-last KPCN at %s (%s inputs): %.3g relative "
+                    "from float32, the NCHW one %.3g" % worst[-1])
+        del model, data, got, want
+        torch.cuda.empty_cache()
+    print("20a KPCN at %d shapes: every entry equal to its plain version, "
+          "every exit within %.2f bf16 units, every epilogue equal; "
+          "channels-last / NCHW relative error from float32: %s" % (
+              len(cases), _MAX_ERR.get("kpcn_exit", 0.0),
+              "; ".join("%s %s %.3g / %.3g" % r for r in worst)))
+
+
+def _kpcn_times(ops, numbers):
+    """20b: both kernels at the KPCN bench's tile, the width table, and the
+    whole KPCN channels-last against NCHW."""
+    import torch.nn.functional as F
+    from sbmc_tpu_torch.models import kpcn as kpcn_model
+    from sbmc_tpu_torch.nn import kpcn_layout
+    bf16, cl = torch.bfloat16, torch.channels_last
+    gen = torch.Generator(device="cuda").manual_seed(22)
+
+    def row(name, tag, fn, plain, nbytes):
+        ms = _time_ms(fn, 3, 20)
+        device_ms = _graph_ms(fn, iters=10, reps=3)
+        _record_times(numbers, name, tag, ms, _time_ms(plain, 1, 3),
+                      nbytes / H100_BYTES_PER_S * 1e3, "bytes",
+                      device_ms=device_ms,
+                      gbytes_s=round(nbytes / device_ms / 1e6, 1))
+
+    c_in, c_out = kpcn_model.padded_width(27), kpcn_model.padded_width(441)
+    for h, w in ((1160, 2000), (160, 160)):
+        x = torch.rand(1, 27, h, w, generator=gen, device="cuda")
+        row("kpcn_entry", "1x27x%dx%d float32 to %d channels" % (h, w, c_in),
+            lambda: kpcn_layout.kpcn_entry(x, c_in),
+            lambda: kpcn_layout.kpcn_entry_ref(x, c_in),
+            x.numel() * 4 + h * w * c_in * 2)
+        ho, wo = h - 36, w - 36
+        y = (3 * torch.randn(1, c_out, ho, wo, generator=gen,
+                             device="cuda")).to(bf16).contiguous(
+                                 memory_format=cl)
+        bias = torch.randn(441, generator=gen, device="cuda")
+        row("kpcn_exit", "1x%dx%dx%d to 1x441x%dx%d" % (c_out, ho, wo, ho,
+                                                        wo),
+            lambda: kpcn_layout.kpcn_exit(y, bias, 441),
+            lambda: kpcn_layout.kpcn_exit_ref(y, bias, 441),
+            y.numel() * 2 + 441 * ho * wo * 2)
+        del x, y
+    torch.cuda.empty_cache()
+
+    def conv_ms(cin, cout, h, w):
+        a = torch.randn(1, cin, h, w, generator=gen, device="cuda").to(
+            bf16).contiguous(memory_format=cl)
+        k = (0.05 * torch.randn(cout, cin, 5, 5, generator=gen,
+                                device="cuda")).to(bf16).contiguous(
+                                    memory_format=cl)
+        return _time_ms(lambda: F.conv2d(a, k), 2, 5)
+
+    model = _kpcn_module(0)
+    x = torch.rand(1, 27, 1160, 2000, generator=gen, device="cuda")
+    rule = kpcn_model.padded_width
+    for width in (104, 112, 128):
+        convs = [conv_ms(32, width, 1160, 2000)] + [
+            conv_ms(width, width, 1160 - 4 * d, 2000 - 4 * d)
+            for d in range(1, 8)]
+        preds, chains = [], []
+        for pred in (448, 512):
+            preds.append(conv_ms(width, pred, 1128, 1968))
+            kpcn_model.padded_width = (lambda c, w=width, p=pred:
+                                       {27: 32, 100: w, 441: p}[c])
+            chains.append(_time_ms(lambda: model.chain_channels_last(
+                model.diffuse, x), 2, 5))
+        kpcn_model.padded_width = rule
+        print("20b width %d: cuDNN's channels-last convs alone at the tile's "
+              "shapes: layer 0 %.3f ms, layers 1-7 %s ms (sum %.3f), "
+              "prediction to 448 / 512 %.3f / %.3f ms; the chain with the "
+              "prediction at 448 / 512 %.3f / %.3f ms" % (
+                  width, convs[0], " ".join("%.3f" % v for v in convs[1:]),
+                  sum(convs[1:]), preds[0], preds[1], chains[0], chains[1]))
+    data = {k: torch.rand(1, 27 if k.endswith("_in") else 3, 1160, 2000,
+                          generator=gen, device="cuda") for k in _KPCN_KEYS}
+    cl_ms = _time_ms(lambda: model(data), 2, 5)
+    model._channels_last = False
+    nchw_ms = _time_ms(lambda: model(data), 2, 5)
+    print("20b KPCN at 1x27x1160x2000: channels-last %.2f ms, NCHW %.2f ms "
+          "(host clock, 5 calls; padded widths %s)" % (
+              cl_ms, nchw_ms, [rule(c) for c in (27, 100, 441)]))
+    del model, x, data
+    torch.cuda.empty_cache()
+
+
+def _kpcn_layout_phase(ops):
+    """20: KPCN's channels-last kernels (``csrc/kpcn.cu``): against their
+    plain versions at the paths' shapes, and timed at the bench's. Returns
+    their numbers."""
+    t0 = time.perf_counter()
+    numbers = {}
+    _kpcn_checks(ops)
+    with torch.inference_mode():
+        _kpcn_times(ops, numbers)
+    print("phase 20: %.1f s" % (time.perf_counter() - t0))
+    return numbers
+
+
 def _sample_chain_phase(ops):
     """18: the per-sample chain kernel (``csrc/sample_chain.cu``): against
     its plain version, in the model, and timed at the bench's shapes.
@@ -5385,6 +5675,7 @@ def main():
     _channel_phase(ops, numbers)
     numbers.update(_sample_chain_phase(ops))
     numbers.update(_unet_phase(ops))
+    numbers.update(_kpcn_layout_phase(ops))
     checkpoint = os.path.join(ROOT, "weights", "flagship_f16")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -6,21 +6,52 @@ gather kernels for the diffuse and specular streams; the kernels are
 softmax-normalised and applied as gathers, then the streams are recombined
 as ``albedo * diffuse + (exp(specular) - 1)``.
 
+At inference on the card a bf16 KPCN runs its chains channels-last
+(:meth:`KPCN.forward_channels_last`): every tensor between the input and
+the normalised kernels is a dense channels-last bf16 tensor whose channels
+are padded with zeros to an aligned width (:func:`padded_width`), each
+convolution is cuDNN's on weights padded with zeros, and the hand-written
+kernels of :mod:`sbmc_tpu_torch.nn.kpcn_layout` and
+:func:`sbmc_tpu_torch.nn.unet.epilogue` do the rest, softmax included.
+
 While tracing is on (:mod:`sbmc_tpu_torch.tracing`) a call is the span
-``kpcn.forward``, with ``kpcn.diffuse``, ``kpcn.specular`` (the chains) and
-``kpcn.apply`` (the gathers and the recombination) under it.
+``kpcn.forward``, with ``kpcn.diffuse``, ``kpcn.specular`` (the chains; on
+the channels-last path with the softmax) and ``kpcn.apply`` (the gathers
+and the recombination; on the NCHW path with the softmax) under it.
 """
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from sbmc_tpu_torch import tracing
 from sbmc_tpu_torch.models.multisteps import dtype_of
+from sbmc_tpu_torch.nn import kpcn_layout, unet
 from sbmc_tpu_torch.nn.kernel_apply import kernel_apply
 from sbmc_tpu_torch.nn.layers import ConvChain
 from sbmc_tpu_torch.utils.image import crop_like
 
-__all__ = ["KPCN"]
+__all__ = ["KPCN", "padded_width"]
+
+
+def padded_width(c):
+    """The channel count a tensor of ``c`` channels is padded to on the
+    channels-last path: the next multiple of 32 (27 -> 32, 100 -> 128,
+    441 -> 448). On an H100, cuDNN's channels-last convolutions at KPCN's
+    1160x2000 tile ran a chain 2.1x faster at width 128 than at 104 and
+    1.7x faster than at 112 (``PERF.md``, the width table)."""
+    return -(-c // 32) * 32
+
+
+def _padded_weight(conv, cin, cout, dtype):
+    """``conv``'s kernel in ``dtype``, channels-last, with zero input
+    channels up to ``cin`` and zero output channels up to ``cout``; made
+    each call, so it always follows the parameters."""
+    v = conv.weight()
+    w = torch.empty((cout, cin) + tuple(v.shape[2:]), dtype=dtype,
+                    device=v.device, memory_format=torch.channels_last)
+    w.zero_()[:v.shape[0], :v.shape[1]] = v
+    return w
 
 
 class KPCN(nn.Module):
@@ -44,6 +75,11 @@ class KPCN(nn.Module):
 
     Returns a dict with "radiance", "diffuse", "specular" (all cropped to
     the valid conv output size).
+
+    Without gradients, on CUDA input and with bf16 convs, :meth:`forward`
+    runs :meth:`forward_channels_last`, which launches the entry kernel and
+    the exit kernel once a chain and the epilogue kernel once a convolution
+    but the prediction (2, 2 and 16 a call at depth 9).
     """
 
     def __init__(self, n_in=27, ksize=21, depth=9, width=100,
@@ -57,8 +93,54 @@ class KPCN(nn.Module):
                 n_in, ksize * ksize, depth=depth, width=width, ksize=5,
                 activation="relu", weight_norm=False, pad=False,
                 output_type="linear", dtype=self.conv_dtype))
+        # What the channels-last path holds, fixed by the architecture.
+        self._channels_last = (
+            self.conv_dtype == torch.bfloat16
+            and padded_width(ksize * ksize) <= kpcn_layout.MAX_EXIT_CHANNELS
+            and all(c.activation in unet.ACTIVATIONS
+                    and c.output_type == "linear"
+                    for c in (self.diffuse, self.specular)))
 
     def forward(self, data):
+        x = data["kpcn_diffuse_in"]
+        if self._channels_last and x.is_cuda and not torch.is_grad_enabled():
+            return self.forward_channels_last(data)
+        # The inputs may arrive float16 (halved host->device transfer).
+        dt = self.conv_dtype or torch.float32
+        return self._forward(data, lambda chain, x: chain(x.to(dt)),
+                             softmax=True)
+
+    def forward_channels_last(self, data):
+        """:meth:`forward` without gradients, each chain channels-last
+        (:meth:`chain_channels_last`) up to its normalised kernels. The same
+        arithmetic and roundings as :meth:`forward`, up to the order of the
+        convolutions' and the softmax's sums."""
+        return self._forward(data, self.chain_channels_last, softmax=False)
+
+    def chain_channels_last(self, chain, x):
+        """``chain`` on its NCHW input ``x`` without gradients: ``x`` laid
+        out channels-last at its padded width in the compute dtype
+        (:func:`~sbmc_tpu_torch.nn.kpcn_layout.kpcn_entry`); each
+        convolution on padded weights, without its bias; the bias and the
+        activation in place (:func:`~sbmc_tpu_torch.nn.unet.epilogue`); the
+        prediction's bias and the softmax over its ``k2`` taps, laid out
+        NCHW (:func:`~sbmc_tpu_torch.nn.kpcn_layout.kpcn_exit`). Pad
+        channels stay exactly zero: their weights and biases are zero."""
+        dt = self.conv_dtype or torch.float32
+        x = kpcn_layout.kpcn_entry(x, padded_width(x.shape[1]), dt)
+        layers = chain.layers()
+        for layer in layers[:-1]:
+            cout = layer.v.shape[0]
+            y = F.conv2d(x, _padded_weight(layer, x.shape[1],
+                                           padded_width(cout), dt))
+            x = unet.epilogue(y, F.pad(layer.bias, (0, y.shape[1] - cout)),
+                              chain.activation)
+        pred = chain.prediction
+        k2 = pred.v.shape[0]
+        y = F.conv2d(x, _padded_weight(pred, x.shape[1], padded_width(k2), dt))
+        return kpcn_layout.kpcn_exit(y, pred.bias, k2)
+
+    def _forward(self, data, run_chain, softmax):
         h, w = data["kpcn_diffuse_in"].shape[-2:]
         shrink = self.depth * 4  # depth valid 5x5 convs
         if h - shrink <= 0 or w - shrink <= 0:
@@ -68,12 +150,11 @@ class KPCN(nn.Module):
                 "border." % (self.depth, shrink, shrink, h, w, shrink // 2))
 
         with tracing.span("kpcn.forward", data["kpcn_diffuse_in"]):
-            # The inputs may arrive float16 (halved host->device transfer).
-            dt = self.conv_dtype or torch.float32
             with tracing.span("kpcn.diffuse"):
-                k_diffuse = self.diffuse(data["kpcn_diffuse_in"].to(dt))
+                k_diffuse = run_chain(self.diffuse, data["kpcn_diffuse_in"])
             with tracing.span("kpcn.specular"):
-                k_specular = self.specular(data["kpcn_specular_in"].to(dt))
+                k_specular = run_chain(self.specular,
+                                       data["kpcn_specular_in"])
 
             with tracing.span("kpcn.apply"):
                 b_diffuse = crop_like(data["kpcn_diffuse_buffer"].float(),
@@ -81,9 +162,9 @@ class KPCN(nn.Module):
                 b_specular = crop_like(data["kpcn_specular_buffer"].float(),
                                        k_specular)
                 r_diffuse, _ = kernel_apply(b_diffuse, k_diffuse,
-                                            softmax=True, splat=False)
+                                            softmax=softmax, splat=False)
                 r_specular, _ = kernel_apply(b_specular, k_specular,
-                                             softmax=True, splat=False)
+                                             softmax=softmax, splat=False)
                 albedo = crop_like(data["kpcn_albedo"], r_diffuse)
                 final_radiance = (albedo * r_diffuse
                                   + (torch.exp(r_specular) - 1))

@@ -1123,3 +1123,111 @@ def test_unet_channels_last_matches_forward(device, bs, h, w):
     mx, mean = _chain_units(got, f32)
     mx_nchw, mean_nchw = _chain_units(want, f32)
     assert mean <= 1.1 * mean_nchw and mx <= 1.5 * mx_nchw
+
+
+# KPCN's channels-last kernels (csrc/kpcn.cu) against their plain versions.
+# The entry casts and moves values: bit for bit. The exit adds the bias as
+# the plain version rounds it and takes the softmax with the hardware's exp2
+# and 1 / sum, its sum in another order: each weight within one bf16 unit
+# of torch.softmax's, at the weight's own exponent.
+def _own_units(got, want):
+    want = want.float()
+    ulp = torch.pow(2.0, torch.floor(torch.log2(
+        want.abs().clamp(min=2.0 ** -126))) - 7)
+    return float(((got.float() - want).abs() / ulp).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,c,h,w,dtype,width", [
+    (1, 27, 1160, 2000, torch.float32, 32), (2, 27, 37, 53, torch.bfloat16, 32),
+    (1, 5, 3, 7, torch.float16, 32), (1, 100, 9, 10, torch.bfloat16, 128)])
+def test_kpcn_entry_matches_plain(device, bs, c, h, w, dtype, width):
+    from sbmc_tpu_torch.nn import kpcn_layout
+    gen = torch.Generator(device=device).manual_seed(c + h)
+    x = torch.randn(bs, c, h, w, generator=gen, device=device).to(dtype)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        got = kpcn_layout.kpcn_entry(x, width)
+        assert _counts() == {"kpcn_entry": 1}
+        want = kpcn_layout.kpcn_entry_ref(x, width)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,c,k2,h,w", [
+    (1, 448, 441, 1124, 1964), (2, 448, 441, 37, 53), (1, 32, 9, 5, 7),
+    (1, 512, 512, 3, 33), (2, 448, 441, 1, 1), (3, 64, 49, 30, 31)])
+def test_kpcn_exit_matches_plain(device, bs, c, k2, h, w):
+    from sbmc_tpu_torch.nn import kpcn_layout
+    gen = torch.Generator(device=device).manual_seed(c + h)
+    y = (3 * torch.randn(bs, c, h, w, generator=gen, device=device)).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    bias = torch.randn(k2, generator=gen, device=device)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        got = kpcn_layout.kpcn_exit(y, bias, k2)
+        assert _counts() == {"kpcn_exit": 1}
+        want = kpcn_layout.kpcn_exit_ref(y, bias, k2)
+    assert got.is_contiguous() and got.shape == (bs, k2, h, w)
+    assert _own_units(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+def test_kpcn_kernels_reject_grad(device):
+    from sbmc_tpu_torch.nn import kpcn_layout
+    x = torch.rand(1, 27, 8, 8, device=device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        kpcn_layout.kpcn_entry(x, 32)
+    y = torch.randn(1, 448, 4, 4, device=device).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        kpcn_layout.kpcn_exit(y, torch.zeros(441, device=device), 441)
+
+
+# Bf16 KPCN channels-last against the NCHW modules: cuDNN sums the padded
+# convolutions in another order, which flips roundings to bf16 (as for the
+# U-Net above), so both are held to the float32 KPCN on the same weights
+# (TF32 off): the channels-last path's relative error within a quarter
+# more than the NCHW path's.
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,h,w", [(1, 96, 128), (2, 41, 45)])
+def test_kpcn_channels_last_matches_forward(device, bs, h, w):
+    """2 entry, 16 epilogue and 2 exit launches under inference_mode, none
+    with gradients on."""
+    from sbmc_tpu_torch.models import KPCN
+
+    def kpcn_of(dtype):
+        torch.manual_seed(0)
+        model = KPCN(conv_dtype=dtype).to(device)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith("bias"):
+                    p.copy_(0.1 * torch.randn_like(p))
+        return model
+
+    model = kpcn_of("bfloat16")
+    gen = torch.Generator(device=device).manual_seed(h)
+    x = {k: torch.rand(bs, 27 if k.endswith("_in") else 3, h, w,
+                       generator=gen, device=device)
+         for k in ("kpcn_diffuse_in", "kpcn_specular_in",
+                   "kpcn_diffuse_buffer", "kpcn_specular_buffer",
+                   "kpcn_albedo")}
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        got = model(x)["radiance"]
+    assert _counts() == {"kpcn_entry": 2, "unet_epilogue": 16,
+                         "kpcn_exit": 2, "kernel_weighting": 2}
+    ops.reset_launch_counts()
+    want = model(x)["radiance"].detach()
+    assert _counts() == {"kernel_weighting": 2}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            f32 = kpcn_of(None)(x)["radiance"]
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    err = float((got - f32).norm() / f32.norm())
+    err_nchw = float((want - f32).norm() / f32.norm())
+    assert err <= 1.25 * err_nchw
