@@ -267,6 +267,7 @@ the device line. Any failure raises and exits non-zero without printing a
 result.
 """
 
+import contextlib
 import csv
 import json
 import os
@@ -748,6 +749,19 @@ class _record_shapes:
          self.ops.kernel_weighting_exp, self.sc.embedding_step,
          self.sc.regress, self.ae.forward_channels_last,
          self.kpcn.forward_channels_last) = self.plain
+
+
+@contextlib.contextmanager
+def _plain_path():
+    """While active, every model runs its plain modules: the rule that
+    engages the inference kernels (``nn.layers.kernel_path``) says no."""
+    from sbmc_tpu_torch.nn import layers
+    rule = layers.kernel_path
+    layers.kernel_path = lambda module, x: False
+    try:
+        yield
+    finally:
+        layers.kernel_path = rule
 
 
 def _check_shapes(path, seen, kernels):
@@ -3941,7 +3955,6 @@ def _svg_kernel_check(ops):
 def _svg_card_against_cpu(tmp):
     """Three steps of both variants of the experiment (width 8) on the card
     and on the CPU from the same weights: every loss within SVG_RTOL."""
-    import contextlib
     import io
     from sbmc_tpu_torch import scatter_vs_gather as svg
     from sbmc_tpu_torch.params import export_jax_params
@@ -3966,7 +3979,6 @@ def _scatter_vs_gather_phase(ops, tmp):
     """12: ``python -m sbmc_tpu_torch.scatter_vs_gather`` at its defaults,
     with the launches of every step counted; returns the path's launch
     counts."""
-    import contextlib
     import io
     from sbmc_tpu_torch import scatter_vs_gather as svg
     from sbmc_tpu_torch.utils.image import read_png
@@ -4043,7 +4055,6 @@ def _probe_phase(ops, tmp, corpus, flagship, spp=8):
     """13: ``probe_vs_input`` on 11d's checkpoint and on the flagship (its
     first tile scored on the CPU too), then ``kernel_grids`` on 11d's
     checkpoint; returns each path's launch counts."""
-    import contextlib
     import io
     from sbmc_tpu_torch import kernel_grids, probe_vs_input
     from sbmc_tpu_torch.data.datasets import TilesDataset
@@ -5285,8 +5296,8 @@ def _unet_checks(ops):
                 raise AssertionError("U-Net at %s launched %s (counted %s)"
                                      % ((bs, h, w), checked.launched,
                                         _nonzero(ops.launch_counts)))
-            ae._channels_last = False
-            want = ae(x)
+            with _plain_path():
+                want = ae(x)
         for name in _INFERENCE_KERNELS[1:]:
             _COMPARED[name].add(_unet_case(ae, x))
         if h * w <= 512 * 512:
@@ -5371,8 +5382,8 @@ def _unet_times(ops, numbers):
                     device="cuda").to(torch.bfloat16)
     with torch.inference_mode():
         cl_ms = _time_ms(lambda: ae(x), 2, 5)
-        ae._channels_last = False
-        nchw_ms = _time_ms(lambda: ae(x), 2, 5)
+        with _plain_path():
+            nchw_ms = _time_ms(lambda: ae(x), 2, 5)
     print("19b the flagship's U-Net at 1x128x1080x2048: channels-last %.2f "
           "ms, NCHW %.2f ms (host clock, 5 calls)" % (cl_ms, nchw_ms))
     del ae, x
@@ -5500,8 +5511,8 @@ def _kpcn_checks(ops):
                 raise AssertionError("KPCN at %s launched %s (counted %s)"
                                      % ((bs, h, w), counts,
                                         _nonzero(ops.launch_counts)))
-            model._channels_last = False
-            want = model(data)["radiance"]
+            with _plain_path():
+                want = model(data)["radiance"]
         for name in ("kpcn_entry", "kpcn_exit"):
             _COMPARED[name].add(_kpcn_case(model, data["kpcn_diffuse_in"]))
         if h * w <= 512 * 512:
@@ -5595,8 +5606,8 @@ def _kpcn_times(ops, numbers):
     data = {k: torch.rand(1, 27 if k.endswith("_in") else 3, 1160, 2000,
                           generator=gen, device="cuda") for k in _KPCN_KEYS}
     cl_ms = _time_ms(lambda: model(data), 2, 5)
-    model._channels_last = False
-    nchw_ms = _time_ms(lambda: model(data), 2, 5)
+    with _plain_path():
+        nchw_ms = _time_ms(lambda: model(data), 2, 5)
     print("20b KPCN at 1x27x1160x2000: channels-last %.2f ms, NCHW %.2f ms "
           "(host clock, 5 calls; padded widths %s)" % (
               cl_ms, nchw_ms, [rule(c) for c in (27, 100, 441)]))

@@ -22,13 +22,11 @@ and the recombination; on the NCHW path with the softmax) under it.
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from sbmc_tpu_torch import tracing
-from sbmc_tpu_torch.models.multisteps import dtype_of
-from sbmc_tpu_torch.nn import kpcn_layout, unet
+from sbmc_tpu_torch.nn import kpcn_layout, layers, unet
 from sbmc_tpu_torch.nn.kernel_apply import kernel_apply
-from sbmc_tpu_torch.nn.layers import ConvChain
+from sbmc_tpu_torch.nn.layers import ConvChain, dtype_of
 from sbmc_tpu_torch.utils.image import crop_like
 
 __all__ = ["KPCN", "padded_width"]
@@ -41,17 +39,6 @@ def padded_width(c):
     1160x2000 tile ran a chain 2.1x faster at width 128 than at 104 and
     1.7x faster than at 112 (``PERF.md``, the width table)."""
     return -(-c // 32) * 32
-
-
-def _padded_weight(conv, cin, cout, dtype):
-    """``conv``'s kernel in ``dtype``, channels-last, with zero input
-    channels up to ``cin`` and zero output channels up to ``cout``; made
-    each call, so it always follows the parameters."""
-    v = conv.weight()
-    w = torch.empty((cout, cin) + tuple(v.shape[2:]), dtype=dtype,
-                    device=v.device, memory_format=torch.channels_last)
-    w.zero_()[:v.shape[0], :v.shape[1]] = v
-    return w
 
 
 class KPCN(nn.Module):
@@ -76,10 +63,11 @@ class KPCN(nn.Module):
     Returns a dict with "radiance", "diffuse", "specular" (all cropped to
     the valid conv output size).
 
-    Without gradients, on CUDA input and with bf16 convs, :meth:`forward`
-    runs :meth:`forward_channels_last`, which launches the entry kernel and
-    the exit kernel once a chain and the epilogue kernel once a convolution
-    but the prediction (2, 2 and 16 a call at depth 9).
+    Where :func:`~sbmc_tpu_torch.nn.layers.kernel_path` says so
+    (``kernels_fit``: a padded prediction the exit kernel holds),
+    :meth:`forward` runs :meth:`forward_channels_last`, which launches the
+    entry kernel and the exit kernel once a chain and the epilogue kernel
+    once a convolution but the prediction (2, 2 and 16 a call at depth 9).
     """
 
     def __init__(self, n_in=27, ksize=21, depth=9, width=100,
@@ -93,17 +81,14 @@ class KPCN(nn.Module):
                 n_in, ksize * ksize, depth=depth, width=width, ksize=5,
                 activation="relu", weight_norm=False, pad=False,
                 output_type="linear", dtype=self.conv_dtype))
-        # What the channels-last path holds, fixed by the architecture.
-        self._channels_last = (
-            self.conv_dtype == torch.bfloat16
-            and padded_width(ksize * ksize) <= kpcn_layout.MAX_EXIT_CHANNELS
+        self.kernels_fit = (
+            padded_width(ksize * ksize) <= kpcn_layout.MAX_EXIT_CHANNELS
             and all(c.activation in unet.ACTIVATIONS
                     and c.output_type == "linear"
                     for c in (self.diffuse, self.specular)))
 
     def forward(self, data):
-        x = data["kpcn_diffuse_in"]
-        if self._channels_last and x.is_cuda and not torch.is_grad_enabled():
+        if layers.kernel_path(self, data["kpcn_diffuse_in"]):
             return self.forward_channels_last(data)
         # The inputs may arrive float16 (halved host->device transfer).
         dt = self.conv_dtype or torch.float32
@@ -119,26 +104,23 @@ class KPCN(nn.Module):
 
     def chain_channels_last(self, chain, x):
         """``chain`` on its NCHW input ``x`` without gradients: ``x`` laid
-        out channels-last at its padded width in the compute dtype
-        (:func:`~sbmc_tpu_torch.nn.kpcn_layout.kpcn_entry`); each
-        convolution on padded weights, without its bias; the bias and the
-        activation in place (:func:`~sbmc_tpu_torch.nn.unet.epilogue`); the
-        prediction's bias and the softmax over its ``k2`` taps, laid out
-        NCHW (:func:`~sbmc_tpu_torch.nn.kpcn_layout.kpcn_exit`). Pad
-        channels stay exactly zero: their weights and biases are zero."""
-        dt = self.conv_dtype or torch.float32
-        x = kpcn_layout.kpcn_entry(x, padded_width(x.shape[1]), dt)
-        layers = chain.layers()
-        for layer in layers[:-1]:
-            cout = layer.v.shape[0]
-            y = F.conv2d(x, _padded_weight(layer, x.shape[1],
-                                           padded_width(cout), dt))
-            x = unet.epilogue(y, F.pad(layer.bias, (0, y.shape[1] - cout)),
-                              chain.activation)
+        out channels-last in the compute dtype (``kpcn_layout.kpcn_entry``),
+        each hidden layer as ``ConvChain``'s channels-last step
+        (``WNConv2D.forward_channels_last``), the prediction's convolution,
+        then its bias and the softmax over its ``k2`` taps, laid out NCHW
+        (``kpcn_layout.kpcn_exit``); every width padded. Pad channels stay
+        exactly zero: their weights and biases are zero."""
+        x = kpcn_layout.kpcn_entry(x, padded_width(x.shape[1]),
+                                   self.conv_dtype or torch.float32)
+        for layer in chain.layers()[:-1]:
+            x = layer.forward_channels_last(x, chain.activation,
+                                            padded_width(layer.v.shape[1]),
+                                            padded_width(layer.v.shape[0]))
         pred = chain.prediction
         k2 = pred.v.shape[0]
-        y = F.conv2d(x, _padded_weight(pred, x.shape[1], padded_width(k2), dt))
-        return kpcn_layout.kpcn_exit(y, pred.bias, k2)
+        return kpcn_layout.kpcn_exit(
+            pred.conv_channels_last(x, padded_width(pred.v.shape[1]),
+                                    padded_width(k2)), pred.bias, k2)
 
     def _forward(self, data, run_chain, softmax):
         h, w = data["kpcn_diffuse_in"].shape[-2:]

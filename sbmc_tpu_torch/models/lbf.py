@@ -21,8 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from sbmc_tpu_torch.models.multisteps import dtype_of
-from sbmc_tpu_torch.nn.layers import ConvChain
+from sbmc_tpu_torch.nn.layers import ConvChain, dtype_of
 
 __all__ = ["LBF"]
 

@@ -15,12 +15,11 @@ backward runs the hand-written backward kernels on the card). With
 in the backward pass (``torch.utils.checkpoint``), as ``nn.remat`` does in
 the JAX model.
 
-Under ``torch.no_grad()`` or ``torch.inference_mode()`` on the card, with
-bf16 convs, each embedding step and each sample's kernel regressor is one
-launch of the hand-written per-sample chain kernel
-(:mod:`sbmc_tpu_torch.nn.sample_chain`): 3 + ``spp`` launches a call at
-three steps. Otherwise the unfused modules run (the kernel has no
-backward).
+Where :func:`~sbmc_tpu_torch.nn.layers.kernel_path` says so (gradients off,
+on the card, bf16 convs, ``kernels_fit``), each embedding step and each
+sample's kernel regressor is one launch of the hand-written per-sample chain
+kernel (:mod:`sbmc_tpu_torch.nn.sample_chain`): 3 + ``spp`` launches a call
+at three steps. Otherwise the unfused modules run (it has no backward).
 
 While tracing is on (:mod:`sbmc_tpu_torch.tracing`) a call is the span
 ``sbmc.forward``, with ``sbmc.embedding`` (the chain and the masked mean
@@ -33,24 +32,13 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from sbmc_tpu_torch import tracing
-from sbmc_tpu_torch.nn import sample_chain
+from sbmc_tpu_torch.nn import layers, sample_chain
 from sbmc_tpu_torch.nn.kernel_apply import (progressive_init,
                                             progressive_kernel_apply)
-from sbmc_tpu_torch.nn.layers import Autoencoder, ConvChain
+from sbmc_tpu_torch.nn.layers import Autoencoder, ConvChain, dtype_of
 from sbmc_tpu_torch.utils.image import crop_like
 
-__all__ = ["Multisteps", "dtype_of"]
-
-
-def dtype_of(name):
-    """Resolve an optional dtype name ("bfloat16", "float32", ...) or
-    ``torch.dtype`` to a ``torch.dtype`` (None stays None)."""
-    if name is None or isinstance(name, torch.dtype):
-        return name
-    dt = getattr(torch, str(name), None)
-    if not isinstance(dt, torch.dtype):
-        raise ValueError(f"unknown dtype {name!r}")
-    return dt
+__all__ = ["Multisteps"]
 
 
 class _KernelStage(nn.Module):
@@ -139,9 +127,11 @@ class Multisteps(nn.Module):
             return checkpoint(module, x, use_reentrant=False)
         return module(x)
 
-    def chains_fit(self):
+    @property
+    def kernels_fit(self):
         """Whether the per-sample chain kernel holds every embedding step
-        and the kernel regressor (asked of its CUDA build)."""
+        and the kernel regressor. Asks the CUDA build, loading it (building
+        it on first use): only ``layers.kernel_path`` reads this, last."""
         nf, ngf, ew, w = self._chain_channels
         return (sample_chain.embedding_fits(self.embedding_00, nf, ngf, False)
                 and all(sample_chain.embedding_fits(
@@ -181,11 +171,7 @@ class Multisteps(nn.Module):
             n_valid = torch.ones((bs,), dtype=features.dtype,
                                  device=features.device)
 
-        # Inference on the card runs the per-sample chains as one kernel
-        # each (nn/sample_chain.py); with gradients, on the CPU or in
-        # float32 the unfused modules run.
-        fused = (not torch.is_grad_enabled() and features.is_cuda
-                 and self.conv_dtype == torch.bfloat16 and self.chains_fit())
+        fused = layers.kernel_path(self, features)
         feats = features
         gf = gfeatures.reshape(bs, -1, 1, 1).to(features.dtype)
         propagated = None

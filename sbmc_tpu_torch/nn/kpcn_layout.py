@@ -25,6 +25,8 @@ versions run (:func:`kpcn_entry_ref`, :func:`kpcn_exit_ref`), in any dtype.
 import torch
 import torch.nn.functional as F
 
+from sbmc_tpu_torch import ops
+
 __all__ = ["MAX_EXIT_CHANNELS", "kpcn_entry", "kpcn_entry_ref", "kpcn_exit",
            "kpcn_exit_ref"]
 
@@ -52,20 +54,11 @@ def kpcn_exit_ref(y, bias, k2):
     return torch.softmax(logits.contiguous(), dim=1)
 
 
-def _no_grad(name, t):
-    if t.requires_grad:
-        raise RuntimeError(
-            f"the KPCN layout kernels have no backward: {name} must not "
-            "require grad (run under torch.no_grad() or "
-            "torch.inference_mode(), or use the plain versions)")
-
-
 def kpcn_entry(x, width, dtype=torch.bfloat16):
     """The entry (arguments and result as :func:`kpcn_entry_ref`): the
     kernel for CUDA tensors (``x`` dense NCHW, float32, bf16 or float16;
     ``dtype`` bf16; ``width`` a multiple of 8), the plain version for CPU
     ones."""
-    from sbmc_tpu_torch import ops
     if ops._on_cpu(x):
         return kpcn_entry_ref(x, width, dtype)
     if dtype != torch.bfloat16:
@@ -73,7 +66,7 @@ def kpcn_entry(x, width, dtype=torch.bfloat16):
     if x.dtype not in _ENTRY_DTYPES:
         raise ValueError("x must be float32, bfloat16 or float16, got "
                          f"{x.dtype}")
-    _no_grad("x", x)
+    ops._no_grad("the KPCN layout kernels", x)
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError("x must be a dense NCHW tensor [bs, c, h, w]")
     bs, c, h, w = x.shape
@@ -82,9 +75,9 @@ def kpcn_entry(x, width, dtype=torch.bfloat16):
                          f"and at least the {c} channels")
     out = torch.empty(bs, width, h, w, dtype=torch.bfloat16, device=x.device,
                       memory_format=torch.channels_last)
-    ops._launch("kpcn_entry", _load().sbmc_kpcn_entry, x.device, x.data_ptr(),
-                _ENTRY_DTYPES[x.dtype], out.data_ptr(), bs, c, h, w, width,
-                ops._sm_count(x.device))
+    ops._launch("kpcn_entry", ops._load().sbmc_kpcn_entry, x.device,
+                x.data_ptr(), _ENTRY_DTYPES[x.dtype], out.data_ptr(), bs, c,
+                h, w, width, ops._sm_count(x.device))
     return out
 
 
@@ -93,12 +86,11 @@ def kpcn_exit(y, bias, k2):
     for CUDA tensors (``y`` bf16, dense channels-last, 16-byte aligned,
     channels a multiple of 8 up to :data:`MAX_EXIT_CHANNELS`), the plain
     version for CPU ones."""
-    from sbmc_tpu_torch import ops
     if ops._on_cpu(y, bias):
         return kpcn_exit_ref(y, bias, k2)
     if y.dtype != torch.bfloat16:
         raise ValueError(f"y must be bfloat16, got {y.dtype}")
-    _no_grad("y", y)
+    ops._no_grad("the KPCN layout kernels", y)
     bs, c, h, w = y.shape
     if not y.is_contiguous(memory_format=torch.channels_last) \
             or y.data_ptr() % 16:
@@ -113,12 +105,7 @@ def kpcn_exit(y, bias, k2):
                          f"{(k2,)}")
     b = bias.detach().to(torch.bfloat16).contiguous()
     out = torch.empty(bs, k2, h, w, dtype=torch.bfloat16, device=y.device)
-    ops._launch("kpcn_exit", _load().sbmc_kpcn_exit, y.device, y.data_ptr(),
-                b.data_ptr(), out.data_ptr(), bs, h, w, c, k2,
+    ops._launch("kpcn_exit", ops._load().sbmc_kpcn_exit, y.device,
+                y.data_ptr(), b.data_ptr(), out.data_ptr(), bs, h, w, c, k2,
                 ops._sm_count(y.device))
     return out
-
-
-def _load():
-    from sbmc_tpu_torch.ops import _build
-    return _build.load_cuda()

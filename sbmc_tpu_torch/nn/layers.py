@@ -13,11 +13,12 @@ a JAX checkpoint maps onto them leaf by leaf (see
 - initialisation reproduces torch's ``xavier_uniform_`` with
   ``calculate_gain`` (the weights are overwritten when a checkpoint loads).
 
-At inference on the card a bf16 ``Autoencoder`` runs channels-last
+At inference on the card a model takes its hand-written kernels where
+:func:`kernel_path` says so, on :class:`WNConv2D`'s ``inference_weight``
+and ``inference_bias``. An ``Autoencoder`` then runs channels-last
 (:meth:`Autoencoder.forward_channels_last`): cuDNN's convolutions without
 their bias, and the hand-written epilogue, upsample and layout kernels of
-:mod:`sbmc_tpu_torch.nn.unet` around them, with the rounding of the NCHW
-modules.
+:mod:`sbmc_tpu_torch.nn.unet` around them, with the NCHW rounding.
 """
 
 import math
@@ -28,7 +29,29 @@ import torch.nn.functional as F
 
 from sbmc_tpu_torch.nn import unet
 
-__all__ = ["WNConv2D", "ConvChain", "Autoencoder"]
+__all__ = ["WNConv2D", "ConvChain", "Autoencoder", "dtype_of",
+           "kernel_path"]
+
+
+def dtype_of(name):
+    """Resolve an optional dtype name ("bfloat16", "float32", ...) or
+    ``torch.dtype`` to a ``torch.dtype`` (None stays None)."""
+    if name is None or isinstance(name, torch.dtype):
+        return name
+    dt = getattr(torch, str(name), None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+def kernel_path(module, x):
+    """Whether ``module``'s forward on ``x`` takes its inference kernels:
+    gradients off (the kernels have no backward), ``x`` on the card, bf16
+    convs (``module.conv_dtype``) and an architecture the kernels hold
+    (``module.kernels_fit``, read last: ``Multisteps`` asks the kernels'
+    CUDA build). Otherwise the plain modules run."""
+    return (not torch.is_grad_enabled() and x.is_cuda
+            and module.conv_dtype == torch.bfloat16 and module.kernels_fit)
 
 
 def _gain(nonlinearity):
@@ -59,6 +82,19 @@ def _activation(name):
     if name == "softplus":
         return F.softplus
     raise ValueError(f"unknown activation {name!r}")
+
+
+def _padded(t, dtype, sizes, memory_format=torch.contiguous_format):
+    """``t`` rounded to ``dtype``, zeros appended to its leading dimensions
+    up to ``sizes`` (None: none)."""
+    lead = t.shape[:len(sizes)]
+    out = torch.empty(tuple(n or m for n, m in zip(sizes, lead))
+                      + t.shape[len(sizes):], dtype=dtype, device=t.device,
+                      memory_format=memory_format)
+    if out.shape != t.shape:
+        out.zero_()
+    out[tuple(slice(m) for m in lead)] = t
+    return out
 
 
 class WNConv2D(nn.Module):
@@ -102,15 +138,41 @@ class WNConv2D(nn.Module):
                      padding=(self.ksize - 1) // 2 if self.pad else 0)
         return y + self.bias.to(y.dtype)[:, None, None]
 
-    def conv_channels_last(self, x):
-        """The convolution without its bias on a channels-last ``x`` already
-        in the compute dtype, the weight laid out channels-last too (so cuDNN
-        runs its NHWC kernels with no layout change around them); the
-        product is rounded to ``x``'s dtype, as in :meth:`forward`."""
-        kernel = self.weight().to(x.dtype).contiguous(
-            memory_format=torch.channels_last)
+    def inference_weight(self, dtype, cin=None, cout=None,
+                         memory_format=torch.contiguous_format):
+        """The normalised weight for the inference kernels, made each call
+        (so it always follows the parameters): rounded to ``dtype``, with
+        zero output channels up to ``cout`` and zero input channels up to
+        ``cin`` (None: none added), in ``memory_format``."""
+        return _padded(self.weight(), dtype, (cout, cin), memory_format)
+
+    def inference_bias(self, dtype, cout):
+        """The bias as :meth:`inference_weight` makes the weight, with zero
+        channels up to ``cout``."""
+        return _padded(self.bias, dtype, (cout,))
+
+    def conv_channels_last(self, x, cin, cout):
+        """The convolution without its bias on a channels-last ``x`` of
+        ``cin`` channels already in the compute dtype, to ``cout`` output
+        channels (the zero ones beyond the layer's on either side), the
+        weight laid out channels-last too (so cuDNN runs its NHWC kernels
+        with no layout change around them); the product is rounded to
+        ``x``'s dtype, as in :meth:`forward`. An ``x`` of another width is
+        refused by the convolution."""
+        kernel = self.inference_weight(x.dtype, cin, cout,
+                                       torch.channels_last)
         return F.conv2d(x, kernel,
                         padding=(self.ksize - 1) // 2 if self.pad else 0)
+
+    def forward_channels_last(self, x, act, cin, cout, out=None,
+                              pool=None):
+        """One layer of a chain without gradients, channels-last:
+        :meth:`conv_channels_last`, then its bias and activation ``act``
+        (:func:`sbmc_tpu_torch.nn.unet.epilogue`, in place, or into ``out``
+        with the 2x2 max-pool into ``pool`` if given). Returns the output."""
+        return unet.epilogue(self.conv_channels_last(x, cin, cout),
+                             self.inference_bias(x.dtype, cout), act, out,
+                             pool)
 
 
 class ConvChain(nn.Module):
@@ -160,18 +222,19 @@ class ConvChain(nn.Module):
 
     def forward_channels_last(self, x, out=None, pool=None):
         """The chain without gradients on a channels-last ``x`` in the
-        compute dtype: each convolution without its bias
-        (:meth:`WNConv2D.conv_channels_last`), then its bias and activation
-        (:func:`sbmc_tpu_torch.nn.unet.epilogue`, in place); the last writes
-        into ``out`` (a channels-last tensor or channel slot) if given, and
-        its 2x2 max-pool into ``pool`` if given. Returns the output."""
+        compute dtype, one :meth:`WNConv2D.forward_channels_last` a layer;
+        the last writes into ``out`` (a channels-last tensor or channel
+        slot) if given, and its 2x2 max-pool into ``pool`` if given. Returns
+        the output."""
         layers = self.layers()
-        for i, layer in enumerate(layers):
-            last = i == len(layers) - 1
-            x = unet.epilogue(layer.conv_channels_last(x), layer.bias,
-                              self.output_type if last else self.activation,
-                              out if last else None, pool if last else None)
-        return x
+        for layer in layers[:-1]:
+            x = layer.forward_channels_last(x, self.activation,
+                                            layer.v.shape[1],
+                                            layer.v.shape[0])
+        last = layers[-1]
+        return last.forward_channels_last(x, self.output_type,
+                                          last.v.shape[1], last.v.shape[0],
+                                          out, pool)
 
 
 class Autoencoder(nn.Module):
@@ -183,11 +246,11 @@ class Autoencoder(nn.Module):
     right ``ConvChain``. Width grows by ``increase_factor`` per level,
     capped at ``max_width``.
 
-    Without gradients, on CUDA input, with bf16 convs and every channel
-    count a multiple of 8, :meth:`forward` runs
-    :meth:`forward_channels_last`, which launches the epilogue kernel once
-    a convolution, the upsample kernel once a level below the top and the
-    layout kernel on each side.
+    Where :func:`kernel_path` says so (``kernels_fit``: every channel count
+    a multiple of 8, activations the epilogue applies), :meth:`forward`
+    runs :meth:`forward_channels_last`, which launches the epilogue kernel
+    once a convolution, the upsample kernel once a level below the top and
+    the layout kernel on each side.
     """
 
     def __init__(self, in_features, noutputs, ksize=3, width=64,
@@ -196,6 +259,7 @@ class Autoencoder(nn.Module):
                  activation="relu", dtype=None):
         super().__init__()
         self.num_levels = num_levels
+        self.conv_dtype = dtype
 
         def width_of(lvl):
             return min(int(width * increase_factor ** lvl), max_width)
@@ -221,16 +285,14 @@ class Autoencoder(nn.Module):
             cin = noutputs if lvl == 0 else w
         convs = [m for m in self.modules() if isinstance(m, WNConv2D)]
         chains = [m for m in self.modules() if isinstance(m, ConvChain)]
-        # What the channels-last kernels hold, fixed by the architecture.
-        self._channels_last = (
-            dtype == torch.bfloat16
-            and all(c.pad and c.v.shape[0] % 8 == 0 and c.v.shape[1] % 8 == 0
-                    for c in convs)
+        self.kernels_fit = (
+            all(c.pad and c.v.shape[0] % 8 == 0 and c.v.shape[1] % 8 == 0
+                for c in convs)
             and all(c.activation in unet.ACTIVATIONS
                     and c.output_type in unet.ACTIVATIONS for c in chains))
 
     def forward(self, x):
-        if self._channels_last and x.is_cuda and not torch.is_grad_enabled():
+        if kernel_path(self, x):
             return self.forward_channels_last(x)
         skips = []
         for lvl in range(self.num_levels):
@@ -255,8 +317,8 @@ class Autoencoder(nn.Module):
         output is laid out NCHW once. The same arithmetic and roundings as
         :meth:`forward`, up to the order of the convolutions' sums."""
         cl = torch.channels_last
-        dtype = self.left_0.prediction.dtype or x.dtype
-        x = unet.relayout(x.to(dtype), channels_last=True)
+        x = unet.relayout(x.to(self.conv_dtype or x.dtype),
+                          channels_last=True)
         cats = []
         for lvl in range(self.num_levels):
             left = getattr(self, f"left_{lvl}")

@@ -22,16 +22,19 @@ plain versions run (:func:`embedding_step_ref`, :func:`regress_ref`): the
 unfused code, which ``Multisteps`` also runs whenever it does not take the
 kernel.
 
-Weight normalisation is ``WNConv2D.weight()``'s, once a call; the wrapper
-rounds the weights and biases to bf16 (as the bf16 convs do), zero-pads
-the hidden width to :data:`HIDDEN` and the input channels to a multiple of
-64, and lays each matrix out for the kernel (:func:`kernel_layout`). The
+The weights and biases are ``WNConv2D.inference_weight`` and
+``inference_bias``'s in bf16 (rounded as the bf16 convs round them), made
+once a call; the wrapper zero-pads the hidden width to :data:`HIDDEN` and
+the input channels to a multiple of 64, and lays each matrix out for the
+kernel (:func:`kernel_layout`). The
 first layer's product is split as ``W_f . feats + W_e . extra``; in step 0
 ``extra`` is the batch's global features and ``W_e . extra`` a float32
 vector a batch item, computed here.
 """
 
 import torch
+
+from sbmc_tpu_torch import ops
 
 __all__ = ["HIDDEN", "CHUNK", "embedding_step", "embedding_step_ref",
            "embedding_weights", "embedding_fits", "regress", "regress_ref",
@@ -104,7 +107,7 @@ def embedding_fits(chain, cx, ce, per_pixel):
     False) a vector a batch item. The kernel's entry point decides; CUDA
     builds only."""
     return _is_1x1_chain(chain, cx + ce) and bool(
-        _load().sbmc_sample_embed_fits(cx, ce if per_pixel else 0,
+        ops._load().sbmc_sample_embed_fits(cx, ce if per_pixel else 0,
                                        _hidden(chain),
                                        chain.prediction.v.shape[0]))
 
@@ -113,8 +116,8 @@ def regress_fits(chain, k_in):
     """Whether the kernel holds the regressor ``chain`` on ``k_in`` input
     channels (as :func:`embedding_fits`)."""
     return _is_1x1_chain(chain, k_in) and bool(
-        _load().sbmc_sample_regress_fits(k_in, _hidden(chain),
-                                         chain.prediction.v.shape[0]))
+        ops._load().sbmc_sample_regress_fits(k_in, _hidden(chain),
+                                             chain.prediction.v.shape[0]))
 
 
 def kernel_layout(w, rows, cols):
@@ -125,27 +128,13 @@ def kernel_layout(w, rows, cols):
     lies at ``j ^ (n & 7)`` (the 128-byte swizzle); shape ``[cols // 64,
     rows, 64]``."""
     out = torch.zeros(rows, cols, dtype=torch.bfloat16, device=w.device)
-    out[:w.shape[0], :w.shape[1]] = w.to(torch.bfloat16)
+    out[:w.shape[0], :w.shape[1]] = w
     blocks = out.view(rows, cols // 64, 8, 8).permute(1, 0, 2, 3)
     n = torch.arange(rows, device=w.device)[None, :, None]
     j = torch.arange(8, device=w.device)[None, None, :]
     src = (j ^ (n & 7)).expand(cols // 64, rows, 8)
     return blocks.gather(2, src[..., None].expand(cols // 64, rows, 8, 8)
                          ).reshape(cols // 64, rows, 64).contiguous()
-
-
-def _bias(conv, n):
-    out = torch.zeros(n, dtype=torch.bfloat16, device=conv.bias.device)
-    out[:conv.bias.shape[0]] = conv.bias.to(torch.bfloat16)
-    return out
-
-
-def _no_grad(what, *tensors):
-    if any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"the sample chain kernel ({what}) has no backward: its inputs "
-            "and weights must not require grad (run under torch.no_grad() "
-            "or torch.inference_mode(), or use the plain version)")
 
 
 def _check_input(name, t):
@@ -157,7 +146,6 @@ def _check_input(name, t):
 
 
 def _grid(device, warp_tiles):
-    from sbmc_tpu_torch import ops
     return max(1, min(ops._sm_count(device), -(-warp_tiles // _WARPS)))
 
 
@@ -167,15 +155,16 @@ def embedding_weights(chain, cx, extra):
     float32 ``W_e . extra`` of each batch item, ``[bs, HIDDEN]``), the three
     biases in one bf16 vector, and the padded channel counts ``kx``,
     ``ke``."""
-    l0, l1, l2 = chain.layers()
-    w0, w1, w2 = (l.weight()[:, :, 0, 0] for l in (l0, l1, l2))
-    _no_grad("embedding", extra, w0, w1, w2)
+    layers = chain.layers()
+    w0, w1, w2 = (l.inference_weight(torch.bfloat16)[:, :, 0, 0]
+                  for l in layers)
+    ops._no_grad("the sample chain kernel (embedding)", extra, w0, w1, w2)
     kx = _pad64(cx)
-    ops = {"wx": kernel_layout(w0[:, :cx], HIDDEN, kx),
+    wts = {"wx": kernel_layout(w0[:, :cx], HIDDEN, kx),
            "w1": kernel_layout(w1, HIDDEN, HIDDEN),
            "w2": kernel_layout(w2, HIDDEN, HIDDEN),
-           "bias": torch.cat([_bias(l0, HIDDEN), _bias(l1, HIDDEN),
-                              _bias(l2, HIDDEN)]),
+           "bias": torch.cat([l.inference_bias(torch.bfloat16, HIDDEN)
+                              for l in layers]),
            "kx": kx, "cout": w2.shape[0], "we": None, "ebias": None}
     we = w0[:, cx:]
     if tuple(extra.shape[-2:]) == (1, 1):
@@ -183,25 +172,25 @@ def embedding_weights(chain, cx, extra):
         # conv sums it.
         ebias = torch.zeros(extra.shape[0], HIDDEN, dtype=torch.float32,
                             device=extra.device)
-        ebias[:, :we.shape[0]] = (we.to(torch.bfloat16).float()[None]
+        ebias[:, :we.shape[0]] = (we.float()[None]
                                   * extra.reshape(extra.shape[0], -1).float()
                                   [:, None, :]).sum(-1)
-        ops.update(ebias=ebias, ke=0)
+        wts.update(ebias=ebias, ke=0)
     else:
-        ops.update(ke=_pad64(we.shape[1]))
-        ops["we"] = kernel_layout(we, HIDDEN, ops["ke"])
-    return ops
+        wts.update(ke=_pad64(we.shape[1]))
+        wts["we"] = kernel_layout(we, HIDDEN, wts["ke"])
+    return wts
 
 
 def embedding_step(chain, feats, extra, mask_f, n_valid):
     """One embedding step (arguments and result as
     :func:`embedding_step_ref`): the kernel for CUDA tensors (bf16 only;
     no gradient), the plain version for CPU ones."""
-    from sbmc_tpu_torch import ops
     if ops._on_cpu(feats, extra, mask_f, n_valid):
         return embedding_step_ref(chain, feats, extra, mask_f, n_valid)
     bs, spp, cx, h, w = feats.shape
-    _no_grad("embedding", feats, mask_f, n_valid)
+    ops._no_grad("the sample chain kernel (embedding)", feats, mask_f,
+                 n_valid)
     _check_input("feats", feats)
     per_pixel = tuple(extra.shape[-2:]) != (1, 1)
     if (extra.shape[0] != bs
@@ -225,7 +214,7 @@ def embedding_step(chain, feats, extra, mask_f, n_valid):
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    ops._launch("sample_chain", _load().sbmc_sample_embed, feats.device,
+    ops._launch("sample_chain", ops._load().sbmc_sample_embed, feats.device,
                 feats.data_ptr(), feats.stride(0), feats.stride(1), cx,
                 wts["kx"], ptr(e), 0 if e is None else e.shape[1], wts["ke"],
                 ptr(wts["ebias"]), wts["wx"].data_ptr(), ptr(wts["we"]),
@@ -239,9 +228,10 @@ def embedding_step(chain, feats, extra, mask_f, n_valid):
 def regressor_weights(chain):
     """The regressor's weights and biases laid out for the kernel (once a
     forward: every sample's launch reads them)."""
-    l0, l1, l2 = chain.layers()
-    w0, w1, w2 = (l.weight()[:, :, 0, 0] for l in (l0, l1, l2))
-    _no_grad("regressor", w0, w1, w2)
+    layers = chain.layers()
+    w0, w1, w2 = (l.inference_weight(torch.bfloat16)[:, :, 0, 0]
+                  for l in layers)
+    ops._no_grad("the sample chain kernel (regressor)", w0, w1, w2)
     k0 = _pad64(w0.shape[1])
     nout = w2.shape[0]
     nchunks = -(-nout // CHUNK)
@@ -251,8 +241,9 @@ def regressor_weights(chain):
             "w2": torch.stack([kernel_layout(w2[c * CHUNK:(c + 1) * CHUNK],
                                              CHUNK, HIDDEN)
                                for c in range(nchunks)]),
-            "bias": torch.cat([_bias(l0, HIDDEN), _bias(l1, HIDDEN),
-                               _bias(l2, nchunks * CHUNK)]),
+            "bias": torch.cat([l.inference_bias(torch.bfloat16, n)
+                               for l, n in zip(layers, (HIDDEN, HIDDEN,
+                                                        nchunks * CHUNK))]),
             "k_in": w0.shape[1], "k0": k0, "nout": nout}
 
 
@@ -261,12 +252,12 @@ def regress(chain, feats_s, propagated, kernel_dtype, weights=None):
     :func:`regress_ref`; ``weights`` from :func:`regressor_weights`, made
     here if None): the kernel for CUDA tensors (bf16 only; no gradient), the
     plain version for CPU ones."""
-    from sbmc_tpu_torch import ops
     if ops._on_cpu(feats_s, propagated):
         return regress_ref(chain, feats_s, propagated, kernel_dtype)
     if weights is None:
         weights = regressor_weights(chain)
-    _no_grad("regressor", feats_s, propagated)
+    ops._no_grad("the sample chain kernel (regressor)", feats_s,
+                 propagated)
     propagated = propagated.contiguous()
     _check_input("feats", feats_s)
     _check_input("propagated", propagated)
@@ -279,8 +270,8 @@ def regress(chain, feats_s, propagated, kernel_dtype, weights=None):
     hw = h * w
     out = torch.empty(bs, weights["nout"], h, w, dtype=torch.bfloat16,
                       device=feats_s.device)
-    ops._launch("sample_chain", _load().sbmc_sample_regress, feats_s.device,
-                feats_s.data_ptr(), feats_s.stride(0), cx,
+    ops._launch("sample_chain", ops._load().sbmc_sample_regress,
+                feats_s.device, feats_s.data_ptr(), feats_s.stride(0), cx,
                 propagated.data_ptr(), ce, weights["k0"],
                 weights["w0"].data_ptr(), weights["w1"].data_ptr(),
                 weights["w2"].data_ptr(), weights["bias"].data_ptr(),
@@ -289,8 +280,3 @@ def regress(chain, feats_s, propagated, kernel_dtype, weights=None):
     if kernel_dtype is not None and kernel_dtype != torch.bfloat16:
         out = out.to(kernel_dtype)
     return out
-
-
-def _load():
-    from sbmc_tpu_torch.ops import _build
-    return _build.load_cuda()

@@ -30,6 +30,8 @@ channels apart.
 import torch
 import torch.nn.functional as F
 
+from sbmc_tpu_torch import ops
+
 __all__ = ["ACTIVATIONS", "epilogue", "epilogue_ref", "upsample",
            "upsample_ref", "relayout", "relayout_ref"]
 
@@ -94,11 +96,7 @@ def _check(name, t, shape=None):
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
-    if t.requires_grad:
-        raise RuntimeError(
-            f"the U-Net kernels have no backward: {name} must not require "
-            "grad (run under torch.no_grad() or torch.inference_mode(), or "
-            "use the plain versions)")
+    ops._no_grad("the U-Net kernels", t)
     if t.shape[1] % 8 or t.stride(3) % 8 or t.data_ptr() % 16 \
             or not _is_slot(t):
         raise ValueError(
@@ -112,7 +110,6 @@ def epilogue(y, bias, act, out=None, pool=None):
     :func:`epilogue_ref`): the kernel for CUDA tensors (``y`` dense
     channels-last; ``out`` a channels-last tensor or slot; ``pool`` dense
     channels-last), the plain version for CPU ones."""
-    from sbmc_tpu_torch import ops
     if ops._on_cpu(y, bias):
         return epilogue_ref(y, bias, act, out, pool)
     bs, c, h, w = y.shape
@@ -130,7 +127,7 @@ def epilogue(y, bias, act, out=None, pool=None):
     if act not in ACTIVATIONS:
         raise ValueError(f"the U-Net epilogue has no activation {act!r}")
     b = bias.detach().to(torch.bfloat16).contiguous()
-    ops._launch("unet_epilogue", _load().sbmc_unet_epilogue, y.device,
+    ops._launch("unet_epilogue", ops._load().sbmc_unet_epilogue, y.device,
                 y.data_ptr(), b.data_ptr(), out.data_ptr(), out.stride(3),
                 None if pool is None else pool.data_ptr(), ACTIVATIONS[act],
                 bs, h, w, c, ops._sm_count(y.device))
@@ -143,7 +140,6 @@ def upsample(x, out):
     channels-last, ``out`` a channels-last tensor or slot at least twice its
     height and width, as the U-Net's skips are), the plain version for CPU
     ones."""
-    from sbmc_tpu_torch import ops
     if ops._on_cpu(x, out):
         return upsample_ref(x, out)
     bs, c, hi, wi = x.shape
@@ -155,7 +151,7 @@ def upsample(x, out):
     if 2 * hi > ho or 2 * wi > wo:
         raise ValueError(f"the upsample kernel at least doubles: {hi}x{wi} "
                          f"to {ho}x{wo}")
-    ops._launch("unet_upsample", _load().sbmc_unet_upsample, x.device,
+    ops._launch("unet_upsample", ops._load().sbmc_unet_upsample, x.device,
                 x.data_ptr(), out.data_ptr(), out.stride(3), bs, hi, wi, ho,
                 wo, c)
     return out
@@ -166,27 +162,22 @@ def relayout(x, channels_last):
     ``x`` returned as it is if it already lies so, else the kernel for CUDA
     tensors (``x`` dense in the other layout), the plain version for CPU
     ones."""
-    from sbmc_tpu_torch import ops
     fmt = torch.channels_last if channels_last else torch.contiguous_format
     if x.is_contiguous(memory_format=fmt):
         return x
     if ops._on_cpu(x):
         return relayout_ref(x, channels_last)
-    if x.dtype != torch.bfloat16 or x.requires_grad or x.shape[1] % 8 \
-            or x.data_ptr() % 16 or not x.is_contiguous(memory_format=torch.contiguous_format
-                                   if channels_last else torch.channels_last):
+    ops._no_grad("the U-Net kernels", x)
+    other = torch.contiguous_format if channels_last else torch.channels_last
+    if x.dtype != torch.bfloat16 or x.shape[1] % 8 or x.data_ptr() % 16 \
+            or not x.is_contiguous(memory_format=other):
         raise ValueError("the layout kernel takes a dense bf16 tensor with a "
-                         "multiple of 8 channels and no gradient, NCHW or "
-                         "channels-last, 16-byte aligned")
+                         "multiple of 8 channels, NCHW or channels-last, "
+                         "16-byte aligned")
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device,
                       memory_format=fmt)
     bs, c, h, w = x.shape
-    ops._launch("unet_layout", _load().sbmc_unet_layout, x.device,
+    ops._launch("unet_layout", ops._load().sbmc_unet_layout, x.device,
                 x.data_ptr(), out.data_ptr(), int(channels_last), bs, c, h, w,
                 ops._sm_count(x.device))
     return out
-
-
-def _load():
-    from sbmc_tpu_torch.ops import _build
-    return _build.load_cuda()

@@ -779,14 +779,30 @@ def _launch(name, fn, device, *args):
     launch_counts[name] += 1
 
 
+def _load():
+    """The kernels' CUDA build (built on first use), as every kernel binding
+    reaches it."""
+    from sbmc_tpu_torch.ops import _build
+    return _build.load_cuda()
+
+
+def _no_grad(what, *tensors):
+    """Raise if one of ``tensors`` requires grad: ``what`` (a kernel
+    binding, named in the message) has no backward."""
+    if any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"no backward for {what}: the inputs and weights must not "
+            "require grad (run under torch.no_grad() or "
+            "torch.inference_mode(), or use the plain versions)")
+
+
 def _progressive_splat_cuda(data, klogits, sum_r, sum_w, max_w, route=None,
                             tile_h=None):
     """One splat step on the card: the kernel of ``route`` (by default
     :func:`splat_route`'s), the tiled one at ``tile_h`` rows (by default
     :func:`splat_tile_rows`'s)."""
-    from sbmc_tpu_torch.ops import _build
     bs, c, h, w, k = _check(data, klogits, sum_r, sum_w, max_w)
-    lib = _build.load_cuda()
+    lib = _load()
     out_r = torch.empty_like(sum_r)
     out_w = torch.empty_like(sum_w)
     out_m = torch.empty_like(max_w)
@@ -810,10 +826,9 @@ def _ddata_cuda(klogits, new_max, d_r, route=None, groups=None):
     default :func:`splat_route`'s), the vector one with ``groups`` groups of
     tap rows in a block (by default :func:`ddata_groups`'). The other
     arguments are those of ``reference.progressive_splat_ddata_ref``."""
-    from sbmc_tpu_torch.ops import _build
     # d_r has data's shape and type; d_w's slot checks the other plane.
     bs, c, h, w, k = _check(d_r, klogits, d_r, new_max, new_max)
-    lib = _build.load_cuda()
+    lib = _load()
     d_data = torch.empty_like(d_r)
     args = (klogits.data_ptr(), int(klogits.dtype == torch.bfloat16),
             new_max.data_ptr(), d_r.data_ptr(), d_data.data_ptr(), bs, c, h,
@@ -836,9 +851,8 @@ def _dlogits_cuda(data, klogits, new_max, d_r, d_w, route=None):
     the kernel of ``route`` (by default :func:`splat_route`'s), the vector
     one with :func:`dlogits_row_blocks`'s blocks per tile. The other
     arguments are those of ``reference.progressive_splat_dlogits_ref``."""
-    from sbmc_tpu_torch.ops import _build
     bs, c, h, w, k = _check(data, klogits, d_r, d_w, new_max)
-    lib = _build.load_cuda()
+    lib = _load()
     d_logits = torch.empty_like(klogits)
     args = (data.data_ptr(), klogits.data_ptr(),
             int(klogits.dtype == torch.bfloat16), new_max.data_ptr(),
@@ -903,12 +917,11 @@ def _kernel_weighting_cuda(data, weights, route=None, groups=None):
     :func:`kw_route`'s), the tiled one with ``groups`` groups of tap rows
     (by default :func:`kw_groups`') and :func:`kw_pixels`' work items. The
     arguments and results are those of ``reference.kernel_weighting_ref``."""
-    from sbmc_tpu_torch.ops import _build
     _device_of(data, weights)
     bs, h, w, k = _check_weights(weights)
     _check_data("data", data, (bs, h, w))
     c = data.shape[1]
-    lib = _build.load_cuda()
+    lib = _load()
     out = torch.empty_like(data)
     sum_w = torch.empty((bs, h, w), dtype=torch.float32, device=data.device)
     args = (data.data_ptr(), weights.data_ptr(),
@@ -936,7 +949,6 @@ def _kernel_weighting_dw_cuda(data, d_output, d_sum_w, k,
     rows (by default :func:`kw_dw_groups`') and :func:`kw_pixels`' work
     items; the generic one writes float32, rounded afterwards. The other
     arguments are those of ``reference.kernel_weighting_dw_ref``."""
-    from sbmc_tpu_torch.ops import _build
     _device_of(data, d_output, d_sum_w)
     _check_data("data", data)
     bs, c, h, w = data.shape
@@ -951,7 +963,7 @@ def _kernel_weighting_dw_cuda(data, d_output, d_sum_w, k,
         raise ValueError(f"batch {bs} exceeds the kernel's grid limit 65535")
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"d_weights must be float32 or bfloat16, got {dtype}")
-    lib = _build.load_cuda()
+    lib = _load()
     ptrs = (data.data_ptr(), d_output.data_ptr(), d_sum_w.data_ptr())
     if (route or kw_route(k)) == "tiled":
         d_w = torch.empty((bs, k * k, h, w), dtype=dtype, device=data.device)
@@ -973,10 +985,9 @@ def _scatter2gather_cuda(weights, route=None, v=None):
     """scatter2gather on the card, in the input's dtype: the kernel of
     ``route`` (by default :func:`s2g_route`'s), the vector one with work
     items of ``v`` elements (by default :func:`s2g_pixels`')."""
-    from sbmc_tpu_torch.ops import _build
     _device_of(weights)
     bs, h, w, k = _check_weights(weights)
-    lib = _build.load_cuda()
+    lib = _load()
     out = torch.empty_like(weights)
     itemsize = weights.element_size()
     args = (weights.data_ptr(), itemsize, out.data_ptr(), bs, h, w, k)
@@ -995,10 +1006,9 @@ def _scatter2gather_cuda(weights, route=None, v=None):
 def _scatter2gather_max_cuda(weights):
     """scatter2gather_max on the card (kernel ``s2g_max``): the transposed
     kernels in the input's dtype and their float32 tap max."""
-    from sbmc_tpu_torch.ops import _build
     _device_of(weights)
     bs, h, w, k = _check_weights(weights)
-    lib = _build.load_cuda()
+    lib = _load()
     out = torch.empty_like(weights)
     kmax = torch.empty((bs, h, w), dtype=torch.float32, device=weights.device)
     _launch("scatter2gather_max", lib.sbmc_scatter2gather_max, weights.device,
@@ -1027,9 +1037,8 @@ def _kernel_weighting_exp_cuda(data, logits, maxes, route=None, groups=None):
     :func:`kw_exp_groups`') and :func:`kw_pixels`' work items, which also
     load the maxes of their pixels at once. The arguments and results are
     those of ``reference.kernel_weighting_exp_ref``."""
-    from sbmc_tpu_torch.ops import _build
     bs, c, h, w, k = _check_kw_exp(data, logits, maxes)
-    lib = _build.load_cuda()
+    lib = _load()
     out = torch.empty_like(data)
     sum_w = torch.empty((bs, h, w), dtype=torch.float32, device=data.device)
     args = (data.data_ptr(), logits.data_ptr(),
@@ -1079,13 +1088,12 @@ def _tri_nearest_cuda(org, dirs, time, tris, route=None):
     """R1 on the card (``csrc/trace_hits.cu``): the kernel of ``route`` (by
     default :func:`tri_route`'s), the tiled one (``sbmc_tri_nearest``) or
     ``sbmc_tri_nearest_generic``."""
-    from sbmc_tpu_torch.ops import _build
     n, t = _check_rays(org, dirs, time, tris)
     out_t = torch.full((n,), reference.TRI_MISS, device=org.device)
     out_idx = torch.zeros(n, dtype=torch.int32, device=org.device)
     out_back = torch.zeros(n, dtype=torch.bool, device=org.device)
     if n and t:
-        lib = _build.load_cuda()
+        lib = _load()
         args = (org.data_ptr(), dirs.data_ptr(), time.data_ptr(),
                 tris.data_ptr(), n, t, out_t.data_ptr(), out_idx.data_ptr(),
                 out_back.data_ptr())
@@ -1102,11 +1110,10 @@ def _tri_any_cuda(org, dirs, dist, tris, route=None):
     default :func:`tri_route`'s), the tiled one (``sbmc_tri_any``, whose
     warps take their tiles from a queue that starts at 0) or
     ``sbmc_tri_any_generic``."""
-    from sbmc_tpu_torch.ops import _build
     n, t = _check_rays(org, dirs, dist, tris)
     out = torch.zeros(n, dtype=torch.bool, device=org.device)
     if n and t:
-        lib = _build.load_cuda()
+        lib = _load()
         args = (org.data_ptr(), dirs.data_ptr(), dist.data_ptr(),
                 tris.data_ptr(), n, t, out.data_ptr())
         if (route or tri_route(t)) == "tiled":
@@ -1122,7 +1129,6 @@ def _tri_any_cuda(org, dirs, dist, tris, route=None):
 def _threefry_cuda(keys, n, minval, maxval, raw):
     """R3 on the card (``sbmc_threefry_uniform`` of ``csrc/threefry.cu``):
     float32 uniforms, or the int32 bits with ``raw``."""
-    from sbmc_tpu_torch.ops import _build
     _device_of(keys)
     if (keys.dtype != torch.int32 or keys.dim() != 2 or keys.shape[1] != 2
             or not keys.is_contiguous()):
@@ -1135,7 +1141,7 @@ def _threefry_cuda(keys, n, minval, maxval, raw):
     out = torch.empty((b, n), dtype=torch.int32 if raw else torch.float32,
                       device=keys.device)
     lo, hi = np.float32(minval), np.float32(maxval)
-    _launch("threefry_uniform", _build.load_cuda().sbmc_threefry_uniform,
+    _launch("threefry_uniform", _load().sbmc_threefry_uniform,
             keys.device, keys.data_ptr(), b, n, float(lo), float(hi - lo),
             int(raw), out.data_ptr())
     return out

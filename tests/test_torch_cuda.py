@@ -969,7 +969,7 @@ def test_sample_chain_kernel_decides_what_fits(device, kw, fits):
     args = dict(n_features=93, n_global_features=3, width=128,
                 embedding_width=128, ksize=21, conv_dtype="bfloat16")
     args.update(kw)
-    assert Multisteps(**args).chains_fit() is fits
+    assert Multisteps(**args).kernels_fit is fits
 
 
 # The U-Net's channels-last kernels (csrc/unet.cu) against their plain

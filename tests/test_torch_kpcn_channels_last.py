@@ -7,8 +7,9 @@ weights, the pad channels' zeros, the bias and softmax in the exit) to the
 NCHW ``KPCN.forward`` on the same weights and inputs, and the plain versions
 to the expressions they replace. The kernels' own arguments are checked by
 running the wrappers' CUDA branch on CPU tensors with the launch recorded in
-place of the call; the kernels themselves are held to the plain versions on
-the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+place of the call (the ``fake_card`` fixture); the kernels themselves are
+held to the plain versions on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``).
 
 Tolerances (as ``tests/test_torch_unet_fused.py``'s):
 
@@ -24,12 +25,13 @@ Tolerances (as ``tests/test_torch_unet_fused.py``'s):
 
 import pytest
 import torch
+import torch.nn.functional as F
 
-from sbmc_tpu_torch import ops
 from sbmc_tpu_torch.models import KPCN
 from sbmc_tpu_torch.models import kpcn as kpcn_module
-from sbmc_tpu_torch.nn import kpcn_layout, unet
-from sbmc_tpu_torch.ops import _build
+from sbmc_tpu_torch.nn import kpcn_layout, layers, sample_chain, unet
+from sbmc_tpu_torch.nn.layers import Autoencoder, ConvChain, dtype_of
+from tests.test_torch_kernel_paths import fake_card  # noqa: F401
 
 BF16 = torch.bfloat16
 CL = torch.channels_last
@@ -96,20 +98,186 @@ def test_channels_last_matches_forward(arch, bs, dh, dw, dtype):
         _close(got[key], want[key], dtype)
 
 
-@pytest.mark.parametrize("dtype", [None, "bfloat16"])
-def test_padded_weights_follow_the_parameters(dtype):
-    """The padded weights are made each call: after an update of the
-    parameters the channels-last path follows it."""
-    model = _kpcn(TINY, dtype)
-    x = _inputs(TINY, 1, 20, 21)
+# The expressions each inference path built its operands with before
+# ``WNConv2D.inference_weight`` and ``inference_bias``: the bias as the
+# epilogue kernel reads it, rounded to the compute dtype.
+
+def _parent_kpcn(model, dt):
+    weights, biases = [], []
+    for chain in (model.diffuse, model.specular):
+        cin = kpcn_module.padded_width(chain.layer_0.v.shape[1])
+        for layer in chain.layers():
+            v, cout = layer.weight(), layer.v.shape[0]
+            w = torch.empty((kpcn_module.padded_width(cout), cin)
+                            + tuple(v.shape[2:]), dtype=dt,
+                            memory_format=CL)
+            w.zero_()[:v.shape[0], :v.shape[1]] = v
+            weights.append(w)
+            cin = w.shape[0]
+            if layer is not chain.prediction:
+                biases.append(F.pad(layer.bias, (0, cin - cout)).to(dt))
+    return weights, biases
+
+
+def _parent_unet(ae, dt):
+    convs = [c for name in ("left_0", "left_1", "left_2", "right_1",
+                            "right_0") for c in getattr(ae, name).layers()]
+    return ([c.weight().to(dt).contiguous(memory_format=CL) for c in convs],
+            [c.bias.to(dt) for c in convs])
+
+
+def _parent_bias(conv, n):
+    out = torch.zeros(n, dtype=BF16)
+    out[:conv.bias.shape[0]] = conv.bias.to(BF16)
+    return out
+
+
+def _parent_embedding_weights(chain, cx, extra):
+    l0, l1, l2 = chain.layers()
+    w0, w1, w2 = (l.weight()[:, :, 0, 0] for l in (l0, l1, l2))
+    hid, kx = sample_chain.HIDDEN, -(-cx // 64) * 64
+    out = {"wx": sample_chain.kernel_layout(w0[:, :cx], hid, kx),
+           "w1": sample_chain.kernel_layout(w1, hid, hid),
+           "w2": sample_chain.kernel_layout(w2, hid, hid),
+           "bias": torch.cat([_parent_bias(l0, hid), _parent_bias(l1, hid),
+                              _parent_bias(l2, hid)]),
+           "kx": kx, "cout": w2.shape[0], "we": None, "ebias": None}
+    we = w0[:, cx:]
+    if tuple(extra.shape[-2:]) == (1, 1):
+        ebias = torch.zeros(extra.shape[0], hid, dtype=torch.float32)
+        ebias[:, :we.shape[0]] = (we.to(BF16).float()[None]
+                                  * extra.reshape(extra.shape[0], -1).float()
+                                  [:, None, :]).sum(-1)
+        out.update(ebias=ebias, ke=0)
+    else:
+        out.update(ke=-(-we.shape[1] // 64) * 64)
+        out["we"] = sample_chain.kernel_layout(we, hid, out["ke"])
+    return out
+
+
+def _parent_regressor_weights(chain):
+    l0, l1, l2 = chain.layers()
+    w0, w1, w2 = (l.weight()[:, :, 0, 0] for l in (l0, l1, l2))
+    hid, chunk = sample_chain.HIDDEN, sample_chain.CHUNK
+    k0, nout = -(-w0.shape[1] // 64) * 64, w2.shape[0]
+    nchunks = -(-nout // chunk)
+    return {"w0": sample_chain.kernel_layout(w0, hid, k0),
+            "w1": sample_chain.kernel_layout(w1, hid, hid),
+            "w2": torch.stack([sample_chain.kernel_layout(
+                w2[c * chunk:(c + 1) * chunk], chunk, hid)
+                for c in range(nchunks)]),
+            "bias": torch.cat([_parent_bias(l0, hid), _parent_bias(l1, hid),
+                               _parent_bias(l2, nchunks * chunk)]),
+            "k_in": w0.shape[1], "k0": k0, "nout": nout}
+
+
+def _handed(monkeypatch, run):
+    """The weights a channels-last run hands to the convolutions and the
+    biases it hands to the epilogue, in order."""
+    weights, biases = [], []
+    conv2d, epilogue = F.conv2d, unet.epilogue
+
+    def conv(x, w, *args, **kw):
+        weights.append(w)
+        return conv2d(x, w, *args, **kw)
+
+    def epi(y, bias, *args):
+        biases.append(bias)
+        return epilogue(y, bias, *args)
+
+    with monkeypatch.context() as m:
+        m.setattr(F, "conv2d", conv)
+        m.setattr(unet, "epilogue", epi)
+        run()
+    return weights, biases
+
+
+def _same(got, want):
+    """Bit for bit, in the same dtype and memory layout."""
+    if isinstance(want, torch.Tensor):
+        return (got.dtype == want.dtype and got.stride() == want.stride()
+                and torch.equal(got, want))
+    if isinstance(want, dict):
+        return got.keys() == want.keys() and all(_same(got[k], want[k])
+                                                 for k in want)
+    if isinstance(want, (list, tuple)):
+        return len(got) == len(want) and all(map(_same, got, want))
+    return got == want
+
+
+def _sample_chain_operands(chains, extras):
+    (c0, c1, reg), (gf, prop) = chains, extras
+    new = [sample_chain.embedding_weights(c0, 93, gf),
+           sample_chain.embedding_weights(c1, 128, prop),
+           sample_chain.regressor_weights(reg)]
+    old = [_parent_embedding_weights(c0, 93, gf),
+           _parent_embedding_weights(c1, 128, prop),
+           _parent_regressor_weights(reg)]
+    return new, old
+
+
+@pytest.mark.parametrize("user,dtype", [
+    ("kpcn", None), ("kpcn", "bfloat16"), ("unet", None), ("unet", "bfloat16"),
+    ("sample_chain", "bfloat16")])
+def test_padded_weights_follow_the_parameters(monkeypatch, user, dtype):
+    """The weights and biases each inference path hands to cuDNN and the
+    kernels (KPCN's padded chains at the published widths, the flagship's
+    U-Net, its per-sample chains) are bit for bit the expressions the path
+    wrote before, in dtype and layout too; made each call, they follow an
+    update of the parameters. KPCN's output follows it as well."""
+    dt = dtype_of(dtype) or torch.float32
+    if user == "kpcn":
+        model = _kpcn(FULL, dtype)
+        x = _inputs(FULL, 1, 40, 41)
+        updated = (model.diffuse.layer_1.v, model.specular.prediction.bias)
+
+        def operands():
+            got = _handed(monkeypatch,
+                          lambda: model.forward_channels_last(x))
+            return got, _parent_kpcn(model, dt)
+    elif user == "unet":
+        torch.manual_seed(0)
+        model = Autoencoder(128, 128, num_levels=3, increase_factor=2.0,
+                            num_convs=3, width=128, ksize=3,
+                            output_type="leaky_relu", dtype=dtype_of(dtype))
+        x = torch.randn(1, 128, 8, 10)
+        updated = (model.left_1.layer_0.g, model.right_0.prediction.bias)
+
+        def operands():
+            got = _handed(monkeypatch,
+                          lambda: model.forward_channels_last(x))
+            return got, _parent_unet(model, dt)
+    else:
+        torch.manual_seed(0)
+        chains = (ConvChain(96, 128, ksize=1, width=128, depth=3, dtype=BF16),
+                  ConvChain(256, 128, ksize=1, width=128, depth=3,
+                            dtype=BF16),
+                  ConvChain(256, 441, ksize=1, width=128, depth=3,
+                            activation="leaky_relu", dtype=BF16))
+        model = torch.nn.ModuleList(chains)
+        updated = (chains[0].layer_1.g, chains[2].prediction.bias)
+        g = torch.Generator().manual_seed(3)
+        extras = (torch.randn(2, 3, 1, 1, generator=g).to(BF16),
+                  torch.randn(2, 128, 5, 7, generator=g).to(BF16))
+
+        def operands():
+            return _sample_chain_operands(chains, extras)
     with torch.no_grad():
-        before = model.forward_channels_last(x)["radiance"]
-        model.diffuse.layer_1.v.mul_(1.5)
-        model.specular.prediction.bias.add_(0.2)
-        got = model.forward_channels_last(x)["radiance"]
-        want = model(x)["radiance"]
-    assert not torch.equal(got, before)
-    _close(got, want, dtype)
+        if user != "kpcn":
+            for name, p in model.named_parameters():
+                if name.endswith("bias"):
+                    p.copy_(0.3 * torch.randn_like(p))
+        before, want = operands()
+        assert _same(before, want)
+        out = model.forward_channels_last(x) if user == "kpcn" else None
+        updated[0].mul_(1.5)
+        updated[1].add_(0.2)
+        got, want = operands()
+        assert _same(got, want) and not _same(got, before)
+        if user == "kpcn":
+            new = model.forward_channels_last(x)["radiance"]
+            assert not torch.equal(new, out["radiance"])
+            _close(new, model(x)["radiance"], dtype)
 
 
 @pytest.mark.parametrize("arch", [FULL, TINY], ids=["full", "tiny"])
@@ -186,47 +354,21 @@ def test_plain_entry_is_cast_and_pad(dtype, src):
     assert bool((got[:, 27:] == 0).all())
 
 
-class _OnCard(torch.Tensor):
-    """A CPU tensor that says it lies on the card, so that ``forward``'s
-    choice of path can be watched here."""
-
-    @property
-    def is_cuda(self):
-        return True
-
-
-def _fake_card(monkeypatch):
-    """Runs the wrappers' CUDA branch on CPU tensors: each launch's
-    arguments are recorded in place of the call (the epilogue's too), and
-    ``kernel_apply`` returns zeros after noting whether it normalised."""
-    names = list(_build._CUDA["kpcn.cu"]) + list(_build._CUDA["unet.cu"])
-    lib = type("Lib", (), {name: name for name in names})()
-    launches = []
-    monkeypatch.setattr(kpcn_layout, "_load", lambda: lib)
-    monkeypatch.setattr(unet, "_load", lambda: lib)
-    monkeypatch.setattr(ops, "_on_cpu", lambda *tensors: False)
-    monkeypatch.setattr(ops, "_sm_count", lambda device: 132)
-    monkeypatch.setattr(ops, "_launch", lambda name, fn, device, *args:
-                        launches.append((name, fn, args)))
+def _record_gathers(monkeypatch, launches):
+    """``kernel_apply`` returns zeros after noting in ``launches`` whether
+    it normalised."""
 
     def apply(data, kernels, softmax, splat):
         launches.append(("kernel_apply", softmax, tuple(kernels.shape)))
         return torch.zeros_like(data), None
 
     monkeypatch.setattr(kpcn_module, "kernel_apply", apply)
-    return launches
-
-
-def _declared(fn):
-    """The argument count the ctypes binding declares, the stream left
-    out."""
-    return len(_build._CUDA["kpcn.cu"][fn]) - 1
 
 
 @pytest.mark.parametrize("src,code", [(torch.float32, 0), (BF16, 1),
                                       (torch.float16, 2)])
-def test_entry_launch_arguments(monkeypatch, src, code):
-    launches = _fake_card(monkeypatch)
+def test_entry_launch_arguments(fake_card, src, code):
+    launches = fake_card.launches
     x = torch.randn(2, 27, 5, 7).to(src)
     with torch.no_grad():
         out = kpcn_layout.kpcn_entry(x, 32)
@@ -234,12 +376,12 @@ def test_entry_launch_arguments(monkeypatch, src, code):
     assert out.is_contiguous(memory_format=CL)
     [(name, fn, args)] = launches
     assert (name, fn, len(args)) == ("kpcn_entry", "sbmc_kpcn_entry",
-                                     _declared(fn))
+                                     fake_card.declared(fn))
     assert args == (x.data_ptr(), code, out.data_ptr(), 2, 27, 5, 7, 32, 132)
 
 
-def test_exit_launch_arguments(monkeypatch):
-    launches = _fake_card(monkeypatch)
+def test_exit_launch_arguments(fake_card):
+    launches = fake_card.launches
     y = torch.randn(2, 448, 5, 7).to(BF16).contiguous(memory_format=CL)
     bias = torch.nn.Parameter(torch.randn(441))
     with torch.no_grad():
@@ -248,13 +390,12 @@ def test_exit_launch_arguments(monkeypatch):
     assert out.is_contiguous()
     [(name, fn, args)] = launches
     assert (name, fn, len(args)) == ("kpcn_exit", "sbmc_kpcn_exit",
-                                     _declared(fn))
+                                     fake_card.declared(fn))
     assert (args[0], args[2:]) == (y.data_ptr(), (out.data_ptr(), 2, 5, 7,
                                                   448, 441, 132))
 
 
-def test_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch):
-    _fake_card(monkeypatch)
+def test_wrappers_refuse_what_the_kernels_do_not_take(fake_card):
     x = torch.randn(1, 27, 4, 4)
     y = torch.randn(1, 448, 4, 4).to(BF16).contiguous(memory_format=CL)
     flat = torch.empty(1 + y.numel(), dtype=BF16)
@@ -290,18 +431,18 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch):
 
 
 @pytest.mark.parametrize("arch", [FULL, TINY], ids=["full", "tiny"])
-def test_channels_last_launches_per_tile(monkeypatch, arch):
+def test_channels_last_launches_per_tile(monkeypatch, fake_card, arch):
     """A chain: one entry (to the padded input width), one epilogue a
     convolution but the prediction (ReLU, in place, at the padded width, on
     each valid convolution's shrinking size) and one exit (the padded taps
     to the taps); the gathers take the exit's kernels unnormalised. 2 / 16
     / 2 a tile at the published depth."""
-    launches = _fake_card(monkeypatch)
+    launches = fake_card.launches
+    _record_gathers(monkeypatch, launches)
     model = _kpcn(arch, "bfloat16")
     shrink = 4 * arch["depth"]
     h, w = shrink + 3, shrink + 5
-    x = {k: v.as_subclass(_OnCard) for k, v in
-         _inputs(arch, 1, h, w).items()}
+    x = {k: fake_card.on_card(v) for k, v in _inputs(arch, 1, h, w).items()}
     with torch.no_grad():
         model(x)
     names = [entry[0] for entry in launches]
@@ -323,40 +464,14 @@ def test_channels_last_launches_per_tile(monkeypatch, arch):
     assert launches[-1] == ("kernel_apply", False, (1, k2, 3, 5))
 
 
-@pytest.mark.parametrize("conv_dtype,grad,on_card,takes", [
-    ("bfloat16", False, True, True), ("bfloat16", True, True, False),
-    (None, False, True, False), ("float32", False, True, False),
-    ("bfloat16", False, False, False)])
-def test_channels_last_taken_only_without_grad_on_card_bf16(
-        monkeypatch, conv_dtype, grad, on_card, takes):
-    """Recorded launches: the layout kernels and the epilogue launch only
-    for bf16 convs without gradients on the card; otherwise the NCHW
-    modules run and the gathers normalise."""
-    launches = _fake_card(monkeypatch)
-    if not on_card:
-        monkeypatch.setattr(ops, "_on_cpu", lambda *tensors: True)
-    model = _kpcn(TINY, conv_dtype)
-    assert model._channels_last is (conv_dtype == "bfloat16")
-    x = _inputs(TINY, 1, 17, 18)
-    if on_card:
-        x = {k: v.as_subclass(_OnCard) for k, v in x.items()}
-    with torch.set_grad_enabled(grad):
-        model(x)
-    names = [entry[0] for entry in launches]
-    if takes:
-        assert names.count("kpcn_entry") == names.count("kpcn_exit") == 2
-        assert names.count("unet_epilogue") == 4
-    else:
-        assert set(names) <= {"kernel_apply"}
-    assert [entry[1] for entry in launches
-            if entry[0] == "kernel_apply"] == [not takes] * 2
-
-
 @pytest.mark.parametrize("kw,takes", [
     ({}, True), ({"ksize": 23}, False), ({"conv_dtype": None}, False)])
-def test_channels_last_takes_what_the_kernels_hold(kw, takes):
+def test_channels_last_takes_what_the_kernels_hold(fake_card, kw, takes):
     """Fixed at construction: bf16 convs and a padded prediction the exit
-    kernel holds (441 taps pad to 448; 529 to 536, beyond 512)."""
+    kernel holds (441 taps pad to 448; 529 to 536, beyond 512); the rule
+    asked without gradients of an input on a faked card."""
     args = dict(conv_dtype="bfloat16", depth=2, width=8)
     args.update(kw)
-    assert KPCN(**args)._channels_last is takes
+    x = fake_card.on_card(torch.zeros(1, 27, 20, 20))
+    with torch.no_grad():
+        assert layers.kernel_path(KPCN(**args), x) is takes

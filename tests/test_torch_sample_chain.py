@@ -25,11 +25,10 @@ The kernel itself runs on the card only (``tests/test_torch_cuda.py``).
 import pytest
 import torch
 
-from sbmc_tpu_torch import ops
 from sbmc_tpu_torch.models.multisteps import Multisteps
 from sbmc_tpu_torch.nn import sample_chain
 from sbmc_tpu_torch.nn.layers import ConvChain
-from sbmc_tpu_torch.ops import _build
+from tests.test_torch_kernel_paths import fake_card  # noqa: F401
 
 BF16 = torch.bfloat16
 
@@ -270,22 +269,6 @@ def _flagship(**kw):
     return Multisteps(**args)
 
 
-class _AskedLib:
-    """Stands in for the kernel's CUDA build: records what its ``*_fits``
-    entry points are asked and answers ``answer``."""
-
-    def __init__(self, answer=1):
-        self.answer, self.asked = answer, []
-
-    def sbmc_sample_embed_fits(self, *args):
-        self.asked.append(("embed",) + args)
-        return self.answer
-
-    def sbmc_sample_regress_fits(self, *args):
-        self.asked.append(("regress",) + args)
-        return self.answer
-
-
 @pytest.mark.parametrize("kw,asked", [
     ({}, [("embed", 93, 0, 128, 128), ("embed", 128, 128, 128, 128),
           ("embed", 128, 128, 128, 128), ("regress", 256, 128, 441)]),
@@ -295,62 +278,35 @@ class _AskedLib:
      [("embed", 93, 0, 256, 128), ("regress", 384, 256, 441)]),
     ({"embedding_width": 192, "ksize": 5, "nsteps": 1},
      [("embed", 93, 0, 128, 192), ("regress", 320, 128, 25)])])
-def test_chains_fit_asks_the_kernel_for_every_chain(monkeypatch, kw, asked):
-    """``Multisteps.chains_fit`` asks the kernel's build about each chain
+def test_chains_fit_asks_the_kernel_for_every_chain(fake_card, kw, asked):
+    """``Multisteps.kernels_fit`` asks the kernel's build about each chain
     with the channels the chain takes (step 0's global features a vector a
     batch item, later steps' propagated features per pixel)."""
-    lib = _AskedLib()
-    monkeypatch.setattr(sample_chain, "_load", lambda: lib)
-    assert _flagship(**kw).chains_fit() is True
-    assert lib.asked == asked
+    assert _flagship(**kw).kernels_fit is True
+    assert fake_card.asked == asked
 
 
-def test_chains_fit_takes_the_kernels_no(monkeypatch):
-    lib = _AskedLib(answer=0)
-    monkeypatch.setattr(sample_chain, "_load", lambda: lib)
-    assert _flagship().chains_fit() is False
-    assert lib.asked == [("embed", 93, 0, 128, 128)]
+def test_chains_fit_takes_the_kernels_no(fake_card):
+    fake_card.answer = 0
+    assert _flagship().kernels_fit is False
+    assert fake_card.asked == [("embed", 93, 0, 128, 128)]
 
 
 @pytest.mark.parametrize("ksize,depth,k_in", [(3, 3, 16), (1, 2, 16),
                                               (1, 3, 17)])
-def test_fits_refuses_other_chains_without_asking(monkeypatch, ksize, depth,
+def test_fits_refuses_other_chains_without_asking(fake_card, ksize, depth,
                                                   k_in):
     """A chain that is not three 1x1 convs on the given channels is refused
     before the kernel's build is asked."""
-    lib = _AskedLib()
-    monkeypatch.setattr(sample_chain, "_load", lambda: lib)
     chain = ConvChain(16, 8, ksize=ksize, width=8, depth=depth)
     assert sample_chain.regress_fits(chain, k_in) is False
     assert sample_chain.embedding_fits(chain, k_in - 8, 8, True) is False
-    assert lib.asked == []
-
-
-def _fake_card(monkeypatch):
-    """Runs the wrappers' CUDA branch on CPU tensors: the kernel's build
-    answers that every chain fits, and each launch's arguments are
-    recorded in place of the call."""
-    lib = _AskedLib()
-    lib.sbmc_sample_embed = "sbmc_sample_embed"
-    lib.sbmc_sample_regress = "sbmc_sample_regress"
-    launches = []
-    monkeypatch.setattr(sample_chain, "_load", lambda: lib)
-    monkeypatch.setattr(ops, "_on_cpu", lambda *tensors: False)
-    monkeypatch.setattr(ops, "_sm_count", lambda device: 132)
-    monkeypatch.setattr(ops, "_launch", lambda name, fn, device, *args:
-                        launches.append((name, fn, args)))
-    return launches
-
-
-def _declared(fn):
-    """The argument count the ctypes binding declares, the stream left
-    out."""
-    return len(_build._CUDA["sample_chain.cu"][fn]) - 1
+    assert fake_card.asked == []
 
 
 @pytest.mark.parametrize("step", [0, 1])
-def test_embedding_step_launch_arguments(monkeypatch, step):
-    launches = _fake_card(monkeypatch)
+def test_embedding_step_launch_arguments(fake_card, step):
+    launches = fake_card.launches
     cx, ce = (93, 3) if step == 0 else (128, 128)
     chain = ConvChain(cx + ce, 128, ksize=1, width=128, depth=3, dtype=BF16)
     feats = torch.randn(2, 4, cx, 9, 11).to(BF16)
@@ -363,7 +319,7 @@ def test_embedding_step_launch_arguments(monkeypatch, step):
                                                                  11)
     [(name, fn, args)] = launches
     assert (name, fn, len(args)) == ("sample_chain", "sbmc_sample_embed",
-                                     _declared(fn))
+                                     fake_card.declared(fn))
     assert args[:5] == (feats.data_ptr(), feats.stride(0), feats.stride(1),
                         cx, 128)
     if step == 0:
@@ -376,8 +332,8 @@ def test_embedding_step_launch_arguments(monkeypatch, step):
     assert args[18:] == (128, 2, 4, 99, 2)
 
 
-def test_regress_launch_arguments(monkeypatch):
-    launches = _fake_card(monkeypatch)
+def test_regress_launch_arguments(fake_card):
+    launches = fake_card.launches
     chain = ConvChain(256, 441, ksize=1, width=128, depth=3,
                       activation="leaky_relu", output_type="linear",
                       dtype=BF16)
@@ -388,15 +344,14 @@ def test_regress_launch_arguments(monkeypatch):
     assert got.shape == (2, 441, 9, 11) and got.dtype == torch.float32
     [(name, fn, args)] = launches
     assert (name, fn, len(args)) == ("sample_chain", "sbmc_sample_regress",
-                                     _declared(fn))
+                                     fake_card.declared(fn))
     assert args[:6] == (feats[:, 1].data_ptr(), 4 * 128 * 99, 128,
                         prop.data_ptr(), 128, 256)
     assert args[11:] == (441, 2, 99, 2)
 
 
-def test_wrappers_refuse_what_the_kernel_does_not_hold(monkeypatch):
-    _fake_card(monkeypatch).clear()
-    monkeypatch.setattr(sample_chain, "_load", lambda: _AskedLib(answer=0))
+def test_wrappers_refuse_what_the_kernel_does_not_hold(fake_card):
+    fake_card.answer = 0
     chain = ConvChain(256, 128, ksize=1, width=128, depth=3, dtype=BF16)
     feats = torch.randn(1, 2, 128, 4, 4).to(BF16)
     ones = torch.ones(1, 2, dtype=BF16)

@@ -7,8 +7,9 @@ its slots, the pooled epilogue, the layout changes at the boundary) to the
 NCHW ``Autoencoder.forward`` on the same weights and input, and the plain
 versions to the expressions they replace. The kernels' own arguments are
 checked by running the wrappers' CUDA branch on CPU tensors with the launch
-recorded in place of the call; the kernels themselves are held to the plain
-versions on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+recorded in place of the call (the ``fake_card`` fixture); the kernels
+themselves are held to the plain versions on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 
 Tolerances:
 
@@ -28,11 +29,10 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from sbmc_tpu_torch import ops
 from sbmc_tpu_torch.models import Multisteps
-from sbmc_tpu_torch.nn import unet
+from sbmc_tpu_torch.nn import layers, unet
 from sbmc_tpu_torch.nn.layers import Autoencoder, ConvChain
-from sbmc_tpu_torch.ops import _build
+from tests.test_torch_kernel_paths import fake_card  # noqa: F401
 
 BF16 = torch.bfloat16
 CL = torch.channels_last
@@ -194,53 +194,41 @@ def test_multisteps_no_grad_matches_grad_end_to_end(monkeypatch, kw):
     ({}, True), ({"width": 8}, True), ({"dtype": None}, False),
     ({"width": 12}, False), ({"activation": "tanh"}, False),
     ({"output_type": "elu"}, False)])
-def test_channels_last_takes_what_the_kernels_hold(monkeypatch, kw, takes):
+def test_channels_last_takes_what_the_kernels_hold(monkeypatch, fake_card,
+                                                   kw, takes):
     """The path is fixed by the architecture: bf16 convs, every channel
-    count a multiple of 8, activations the epilogue applies. On the CPU
-    ``forward`` never takes it, with or without gradients."""
+    count a multiple of 8, activations the epilogue applies (the rule asked
+    without gradients of an input on a faked card). On the CPU ``forward``
+    never takes it, with or without gradients."""
     args = dict(width=128, dtype=BF16)
     args.update(kw)
     width = args.pop("width")
     ae = _unet(width, **args)
-    assert ae._channels_last is takes
+    x = torch.randn(1, width, 6, 6)
+    with torch.no_grad():
+        assert layers.kernel_path(ae, fake_card.on_card(x)) is takes
     monkeypatch.setattr(Autoencoder, "forward_channels_last",
                         lambda self, x: pytest.fail("took channels-last"))
-    x = torch.randn(1, width, 6, 6)
     with torch.no_grad():
         ae(x)
     ae(x)
+    assert fake_card.launches == []
 
 
-def test_flagship_unets_take_channels_last():
+def test_flagship_unets_take_channels_last(fake_card):
     model = Multisteps(93, 3, width=128, embedding_width=128, ksize=21,
                        conv_dtype="bfloat16")
-    assert all(getattr(model, f"propagation_{s:02d}")._channels_last
-               for s in range(3))
-    assert not Multisteps(93, 3, width=8, embedding_width=8, ksize=3,
-                          nsteps=1).propagation_00._channels_last
+    x = fake_card.on_card(torch.zeros(1, 128, 4, 4))
+    with torch.no_grad():
+        assert all(layers.kernel_path(getattr(model, f"propagation_{s:02d}"),
+                                      x) for s in range(3))
+        assert not layers.kernel_path(
+            Multisteps(93, 3, width=8, embedding_width=8, ksize=3,
+                       nsteps=1).propagation_00, x)
 
 
-def _fake_card(monkeypatch):
-    """Runs the wrappers' CUDA branch on CPU tensors: each launch's
-    arguments are recorded in place of the call."""
-    lib = type("Lib", (), {name: name for name in _build._CUDA["unet.cu"]})()
-    launches = []
-    monkeypatch.setattr(unet, "_load", lambda: lib)
-    monkeypatch.setattr(ops, "_on_cpu", lambda *tensors: False)
-    monkeypatch.setattr(ops, "_sm_count", lambda device: 132)
-    monkeypatch.setattr(ops, "_launch", lambda name, fn, device, *args:
-                        launches.append((name, fn, args)))
-    return launches
-
-
-def _declared(fn):
-    """The argument count the ctypes binding declares, the stream left
-    out."""
-    return len(_build._CUDA["unet.cu"][fn]) - 1
-
-
-def test_epilogue_launch_arguments(monkeypatch):
-    launches = _fake_card(monkeypatch)
+def test_epilogue_launch_arguments(fake_card):
+    launches = fake_card.launches
     y = torch.randn(2, 16, 7, 9).to(BF16).contiguous(memory_format=CL)
     bias = torch.randn(16)
     buf = torch.empty(2, 40, 7, 9, dtype=BF16, memory_format=CL)
@@ -251,28 +239,28 @@ def test_epilogue_launch_arguments(monkeypatch):
     assert slot.data_ptr() == buf.data_ptr() + 24 * 2
     (n0, f0, a0), (n1, f1, a1) = launches
     assert (n0, f0, len(a0)) == ("unet_epilogue", "sbmc_unet_epilogue",
-                                 _declared(f0))
+                                 fake_card.declared(f0))
     assert (a0[0], a0[2:]) == (y.data_ptr(), (y.data_ptr(), 16, None, 2, 2,
                                               7, 9, 16, 132))
     assert a1[2:] == (buf.data_ptr() + 48, 40, pool.data_ptr(), 1, 2, 7, 9,
                       16, 132)
 
 
-def test_upsample_launch_arguments(monkeypatch):
-    launches = _fake_card(monkeypatch)
+def test_upsample_launch_arguments(fake_card):
+    launches = fake_card.launches
     x = torch.randn(2, 16, 4, 5).to(BF16).contiguous(memory_format=CL)
     buf = torch.empty(2, 24, 9, 11, dtype=BF16, memory_format=CL)
     with torch.no_grad():
         unet.upsample(x, buf[:, :16])
     [(name, fn, args)] = launches
     assert (name, fn, len(args)) == ("unet_upsample", "sbmc_unet_upsample",
-                                     _declared(fn))
+                                     fake_card.declared(fn))
     assert args == (x.data_ptr(), buf.data_ptr(), 24, 2, 4, 5, 9, 11, 16)
 
 
 @pytest.mark.parametrize("channels_last", [True, False])
-def test_relayout_launch_arguments(monkeypatch, channels_last):
-    launches = _fake_card(monkeypatch)
+def test_relayout_launch_arguments(fake_card, channels_last):
+    launches = fake_card.launches
     x = torch.randn(2, 16, 5, 7).to(BF16)
     if not channels_last:
         x = x.contiguous(memory_format=CL)
@@ -282,13 +270,12 @@ def test_relayout_launch_arguments(monkeypatch, channels_last):
     assert out.is_contiguous(memory_format=fmt) and out.shape == x.shape
     [(name, fn, args)] = launches
     assert (name, fn, len(args)) == ("unet_layout", "sbmc_unet_layout",
-                                     _declared(fn))
+                                     fake_card.declared(fn))
     assert args == (x.data_ptr(), out.data_ptr(), int(channels_last), 2, 16,
                     5, 7, 132)
 
 
-def test_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch):
-    _fake_card(monkeypatch)
+def test_wrappers_refuse_what_the_kernels_do_not_take(fake_card):
     y = torch.randn(1, 16, 4, 4).to(BF16)
     bias = torch.zeros(16)
     with torch.no_grad():
@@ -320,12 +307,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch):
 
 
 @pytest.mark.parametrize("width,levels", [(8, 3), (16, 2)])
-def test_channels_last_launches_per_unet(monkeypatch, width, levels):
+def test_channels_last_launches_per_unet(fake_card, width, levels):
     """One epilogue a convolution (15 in the flagship's U-Net), the last of
     each left level's into its concatenation buffer's skip slot with the
     pool; one upsample a level below the top (2), into the leading slot;
     one layout change on each side."""
-    launches = _fake_card(monkeypatch)
+    launches = fake_card.launches
     ae = _unet(width, BF16, num_levels=levels)
     x = torch.randn(1, width, 9, 10)
     with torch.no_grad():
@@ -362,3 +349,14 @@ def test_conv_chain_keeps_its_activation_names():
     assert (chain.activation, chain.output_type) == ("leaky_relu", "relu")
     assert [type(l).__name__ for l in chain.layers()] == ["WNConv2D"] * 3
     assert chain.layers()[-1] is chain.prediction
+
+
+@pytest.mark.parametrize("cin", [8, 16])
+def test_channels_last_chain_refuses_an_input_of_another_width(cin):
+    """The chain's channels-last weights keep each layer's own input width,
+    so an input wider or narrower than the first layer takes (a miswired
+    concatenation buffer) is refused, not met by zero weights."""
+    chain = ConvChain(12, 8, width=8, depth=2)
+    x = torch.randn(1, cin, 6, 6).contiguous(memory_format=CL)
+    with torch.no_grad(), pytest.raises(RuntimeError):
+        chain.forward_channels_last(x)
