@@ -165,7 +165,18 @@ The composed kernels' phases and the other entry points run between these
     U-Net's distance from the float32 U-Net; (b) each kernel timed at the
     bench's frame shape (1 x 128 x 1080 x 2048 and its levels) on the host
     clock and by CUDA-graph replay beside the plain version and the bound
-    (bytes at 3.35 TB/s), and the whole U-Net against the NCHW one;
+    (bytes at 3.35 TB/s), and the whole U-Net against the NCHW one; (c) the
+    U-Net forward and backward under gradients at every training shape
+    (UNET_TRAIN_SHAPES), each launch of the five kernels held to its plain
+    version (the backward's within one bf16 unit where it sums in another
+    order), 15 + 2 + 2 launches forward and 15 + 2 + 2 backward, the
+    gradients held to the NCHW U-Net's distance from the float32 U-Net's;
+    (d) the two backward kernels timed at the train cell's levels (16 x 128
+    x 128 x 128 and below) as in (b), and the U-Net's forward and backward
+    there through the NCHW modules, the same modules on channels-last
+    tensors (stock autograd) and the port's Function. The bf16 SBMC
+    training paths (8, 8f, 11d, 15d, 16b, 16c) launch the U-Net's forward
+    and backward kernels in every step (``_unet_train_launches``);
 
 20. KPCN's channels-last kernels (``csrc/kpcn.cu``): (a) KPCN at full
     width, bf16 (random weights), at every tile shape the paths give it
@@ -352,6 +363,14 @@ KERNELS = (
     ("unet_layout", _CSRC + "unet.cu",
      "none: the U-Net's layout change at its boundary (XLA picks layouts "
      "itself)"),
+    # Their backward in the train step, around cuDNN's NHWC dgrad and wgrad:
+    # XLA fused the backward's passes as it fused the forward's.
+    ("unet_epilogue_backward", _CSRC + "unet.cu",
+     "none: XLA fused the backward of the bias, activation, pooling and "
+     "concatenation of sbmc_tpu/nn/layers.py's Autoencoder"),
+    ("unet_upsample_backward", _CSRC + "unet.cu",
+     "none: XLA fused the backward of the resize and concatenation of "
+     "sbmc_tpu/nn/layers.py's Autoencoder"),
     # KPCN's chain ends around cuDNN's channels-last convolutions: XLA fused
     # them into the convolutions' neighbours.
     ("kpcn_entry", _CSRC + "kpcn.cu",
@@ -374,6 +393,11 @@ _BF16_SBMC_INFERENCE = ("denoise", "eval", "bench", "bench_ragged",
                         "dp_replicas_uniform")
 #: The paths that run bf16 KPCN inference.
 _BF16_KPCN_INFERENCE = ("kpcn_denoise_bf16", "eval", "bench_kpcn")
+#: The paths that train SBMC with bf16 convs: their U-Nets run channels-last
+#: in the train steps, forward and backward.
+_BF16_SBMC_TRAIN = ("train_bf16", "reservoir_bf16", "render_train",
+                    "pbrt_train", "dp_steps_bf16_rank0", "dp_steps_bf16_rank1",
+                    "dp_cli_rank0", "dp_cli_rank1")
 #: The paths on which a kernel must have launched. The data-gradient kernel
 #: lies on neither main path by nature (its gradient goes to a batch input,
 #: which nothing asks for): the gradient phase runs it inside the model.
@@ -425,12 +449,15 @@ MUST_LAUNCH = {
     "threefry_uniform": ("render",),
     # bf16 SBMC inference; float32 checkpoints and training never take it.
     "sample_chain": _BF16_SBMC_INFERENCE,
-    # The same paths run the flagship's U-Nets channels-last; bf16 KPCN
-    # inference runs its chains so, with the epilogue between convolutions.
-    "unet_epilogue": _BF16_SBMC_INFERENCE + ("kpcn_denoise_bf16",
-                                             "bench_kpcn"),
-    "unet_upsample": _BF16_SBMC_INFERENCE,
-    "unet_layout": _BF16_SBMC_INFERENCE,
+    # The same paths run the flagship's U-Nets channels-last, and bf16
+    # SBMC training too, with their backward; bf16 KPCN inference runs its
+    # chains so, with the epilogue between convolutions.
+    "unet_epilogue": _BF16_SBMC_INFERENCE + _BF16_SBMC_TRAIN + (
+        "kpcn_denoise_bf16", "bench_kpcn"),
+    "unet_upsample": _BF16_SBMC_INFERENCE + _BF16_SBMC_TRAIN,
+    "unet_layout": _BF16_SBMC_INFERENCE + _BF16_SBMC_TRAIN,
+    "unet_epilogue_backward": _BF16_SBMC_TRAIN,
+    "unet_upsample_backward": _BF16_SBMC_TRAIN,
     "kpcn_entry": _BF16_KPCN_INFERENCE,
     "kpcn_exit": _BF16_KPCN_INFERENCE,
 }
@@ -457,13 +484,18 @@ _OP_OF = {"progressive_splat": "splat", "progressive_splat_ddata": "splat",
           "scatter2gather_max": "s2g_max", "kernel_weighting_exp": "kw_exp",
           "kernel_weighting_exp_generic": "kw_exp", "sample_chain": "chain",
           "unet_epilogue": "unet", "unet_upsample": "unet",
-          "unet_layout": "unet", "kpcn_entry": "kpcn", "kpcn_exit": "kpcn"}
+          "unet_layout": "unet", "unet_epilogue_backward": "unet_train",
+          "unet_upsample_backward": "unet_train", "kpcn_entry": "kpcn",
+          "kpcn_exit": "kpcn"}
 #: The kernels any bf16 SBMC inference launches (display strips of training
-#: runs too), and bf16 KPCN inference's layout kernels, held to the cases
-#: compared with the plain versions on every path (KPCN's epilogues with its
-#: chains: phase 20a checks them in the same calls).
-_INFERENCE_KERNELS = ("sample_chain", "unet_epilogue", "unet_upsample",
-                      "unet_layout", "kpcn_entry", "kpcn_exit")
+#: runs too), bf16 KPCN inference's layout kernels, and the U-Net's backward
+#: kernels of bf16 SBMC training, held to the cases compared with the plain
+#: versions on every path (KPCN's epilogues with its chains: phase 20a checks
+#: them in the same calls; the U-Net's forward under gradients with its
+#: inference cases, which 19a compares at every training shape too).
+_MODEL_KERNELS = ("sample_chain", "unet_epilogue", "unet_upsample",
+                  "unet_layout", "kpcn_entry", "kpcn_exit",
+                  "unet_epilogue_backward", "unet_upsample_backward")
 
 #: (bs, c, h, w, logit type) the paths give the splat step, k = 21: the
 #: denoise path's tile, a training batch in float32 and with --bf16 (from
@@ -663,9 +695,10 @@ class _record_shapes:
     (``seen["splat"]``), kernel weighting (``seen["kw"]``), scatter2gather
     (``seen["s2g"]``), the two exp ops (``seen["s2g_max"]``,
     ``seen["kw_exp"]``), the sample chain's two wrappers
-    (``seen["chain"]``), the channels-last U-Net (``seen["unet"]``) and
-    KPCN's channels-last chains (``seen["kpcn"]``) on the card. The calls
-    themselves go through unchanged."""
+    (``seen["chain"]``), the channels-last U-Net (``seen["unet"]``; under
+    gradients in ``seen["unet_train"]`` too) and KPCN's channels-last chains
+    (``seen["kpcn"]``) on the card. The calls themselves go through
+    unchanged."""
 
     def __init__(self, ops):
         from sbmc_tpu_torch.models.kpcn import KPCN
@@ -675,7 +708,7 @@ class _record_shapes:
                                                  Autoencoder, KPCN)
         self.seen = {"splat": set(), "kw": set(), "s2g": set(),
                      "s2g_max": set(), "kw_exp": set(), "chain": set(),
-                     "unet": set(), "kpcn": set()}
+                     "unet": set(), "unet_train": set(), "kpcn": set()}
 
     def __enter__(self):
         ops, sc, seen = self.ops, self.sc, self.seen
@@ -725,6 +758,8 @@ class _record_shapes:
         def rec_unet(module, x):
             if x.is_cuda:
                 seen["unet"].add(_unet_case(module, x))
+                if torch.is_grad_enabled():
+                    seen["unet_train"].add(_unet_case(module, x))
             return unet(module, x)
 
         def rec_kpcn(module, data):
@@ -766,13 +801,13 @@ def _plain_path():
 
 def _check_shapes(path, seen, kernels):
     """Fails if the path did not reach the op of one of ``kernels``, or met
-    a case at which that kernel, or one of ``_INFERENCE_KERNELS``, was not
+    a case at which that kernel, or one of ``_MODEL_KERNELS``, was not
     compared with its plain version."""
     for name in kernels:
         if not seen[_OP_OF[name]]:
             raise AssertionError("the %s path never reached the op of %s"
                                  % (path, name))
-    for name in set(kernels) | set(_INFERENCE_KERNELS):
+    for name in set(kernels) | set(_MODEL_KERNELS):
         missing = seen[_OP_OF[name]] - _COMPARED[name]
         if missing:
             raise AssertionError(
@@ -790,6 +825,27 @@ def _unet_launches(calls):
     the top (2), the layout change on each side (2)."""
     return {"unet_epilogue": 15 * calls, "unet_upsample": 2 * calls,
             "unet_layout": 2 * calls}
+
+
+def _unet_train_launches(steps, nsteps=3):
+    """Launches of ``steps`` bf16 SBMC train steps' U-Nets (``nsteps`` a
+    step): each U-Net's inference launches in the forward, then the
+    epilogue's backward once a convolution, the upsample's once a level
+    below the top and the layout change on each side in the backward."""
+    calls = steps * nsteps
+    return _summed(_unet_launches(calls), {
+        "unet_epilogue_backward": 15 * calls,
+        "unet_upsample_backward": 2 * calls, "unet_layout": 2 * calls})
+
+
+def _train_launches(steps, spp, bf16):
+    """Launches inside ``steps`` SBMC train steps: the forward and
+    logits-gradient splat kernels once a sample slot (masked samples too;
+    nothing asks for the gradient to the radiance, a batch input), and with
+    bf16 convs the U-Nets' (:func:`_unet_train_launches`)."""
+    want = {"progressive_splat": steps * spp,
+            "progressive_splat_dlogits": steps * spp}
+    return _summed(want, _unet_train_launches(steps)) if bf16 else want
 
 
 def _fused_launches(tiles, spp, nsteps=3):
@@ -1579,17 +1635,13 @@ def _train_phase(ops, tmp, steps=10, spp=8, bs=4):
     launches = {}
     for tag, flags in (("train", []), ("train_bf16", ["--bf16"])):
         ckpt = os.path.join(tmp, "ckpt_" + tag)
-        # Every sample slot of every step launches the forward and the
-        # logits-gradient kernel (masked samples too); nothing asks for the
-        # gradient to the radiance, a batch input.
         iface, launches[tag] = _run_training(
             ops, tag, "the flagship architecture, batch %d x %d spp x "
             "128x128 (randomized sample counts)" % (bs, spp),
             [data_dir, ckpt, "--spp", str(spp), "--bs", str(bs), "--ksize",
              "21"] + flags, steps,
             ["progressive_splat", "progressive_splat_dlogits"],
-            {"progressive_splat": steps * spp,
-             "progressive_splat_dlogits": steps * spp},
+            _train_launches(steps, spp, "--bf16" in flags),
             _display_launches(spp, flags), "sbmc")
         mp = Checkpointer.load_meta(ckpt)["model_params"]
         if (mp["n_features"] != 93 or mp["ksize"] != 21
@@ -2748,8 +2800,7 @@ def _reservoir_phase(ops, tmp, steps=10, spp=8, bs=4, capacity=8):
                  "--ksize", "21", "--device_reservoir", str(capacity),
                  "--refresh_every", "2"] + flags, steps,
                 ["progressive_splat", "progressive_splat_dlogits"],
-                {"progressive_splat": steps * spp,
-                 "progressive_splat_dlogits": steps * spp},
+                _train_launches(steps, spp, "--bf16" in flags),
                 _display_launches(spp, flags), "sbmc", owner=DeviceReservoir)
         res = watch.res
         if res is None or res.capacity != capacity or watch.refreshes < 1:
@@ -3829,8 +3880,7 @@ def _render_train_phase(ops, tmp, corpus, steps=4, spp=8, bs=4):
         "corpus, batch %d x %d spp x 128x128" % (bs, spp),
         [corpus, ckpt, "--spp", str(spp), "--bs", str(bs), "--ksize", "21",
          "--bf16"], steps, ["progressive_splat", "progressive_splat_dlogits"],
-        {"progressive_splat": steps * spp,
-         "progressive_splat_dlogits": steps * spp},
+        _train_launches(steps, spp, True),
         _display_launches(spp, ["--bf16"]), "sbmc", loader_wait=True)
     out = os.path.join(tmp, "rendered_out", "frame.exr")
     ops.reset_launch_counts()
@@ -4314,8 +4364,7 @@ def _pbrt_phase(ops, tmp, steps=4, spp=8, bs=4):
         "tiles, batch %d x %d spp x 128x128" % (bs, spp),
         [out, ckpt, "--spp", str(spp), "--bs", str(bs), "--ksize", "21",
          "--bf16"], steps, ["progressive_splat", "progressive_splat_dlogits"],
-        {"progressive_splat": steps * spp,
-         "progressive_splat_dlogits": steps * spp},
+        _train_launches(steps, spp, True),
         _display_launches(spp, ["--bf16"]), "sbmc", loader_wait=True)
     one = os.path.join(tmp, "pbrt_one")
     os.makedirs(one)
@@ -4718,8 +4767,7 @@ def _check_dp_steps(tag, ranks, steps, spp):
         if not bf16 and (st["g_ratio"] > 1 or st["update"] > DP_UPDATE
                          or st["compared"] < 1000):
             faults.append("step %d: gradient %s" % (s + 1, st))
-    want = {"progressive_splat": steps * spp,
-            "progressive_splat_dlogits": steps * spp}
+    want = _train_launches(steps, spp, bf16)
     for r in ranks:
         if r["digest"] != r0["digest"] or r["metrics"] != r0["metrics"]:
             faults.append("rank %d's gradients, parameters or metrics "
@@ -4784,8 +4832,7 @@ def _dp_cli(ops, tmp, by_path, steps=4, spp=8, bs=2):
             {"kind": "cli", "tag": "dp_cli_kpcn", "argv":
              [tiles, ckpts["kpcn"], "--kpcn_mode"] + base}]
     seconds, ranks = _torchrun(tmp, "dp_cli", "gloo", jobs, 2)
-    wants = {"dp_cli": {"progressive_splat": steps * spp,
-                        "progressive_splat_dlogits": steps * spp},
+    wants = {"dp_cli": _train_launches(steps, spp, True),
              "dp_cli_kpcn": {"kernel_weighting": 2 * steps,
                              "kernel_weighting_dw": 2 * steps}}
     for j, job in enumerate(jobs):
@@ -5066,7 +5113,8 @@ def _chain_checks(sc):
 
 def _chain_model_checks(ops, sc):
     """18b: the model calls the kernel 3 + spp times under inference and
-    never with gradients on, and the wrapper refuses what requires grad."""
+    never with gradients on (where only the U-Nets take their kernels), and
+    the wrapper refuses what requires grad."""
     from sbmc_tpu_torch.models.multisteps import Multisteps
     torch.manual_seed(0)
     model = Multisteps(93, 3, width=128, embedding_width=128, ksize=21,
@@ -5090,7 +5138,7 @@ def _chain_model_checks(ops, sc):
     plain = model(x)["radiance"].detach()
     torch.cuda.synchronize()
     got = _nonzero(ops.launch_counts)
-    if got != {"progressive_splat": spp}:
+    if got != {"progressive_splat": spp, **_unet_launches(3)}:
         raise AssertionError("a forward with gradients launched %s" % got)
     rel = float((fused - plain).norm() / plain.norm())
     print("18b flagship %s: inference %s launches, with gradients 0; "
@@ -5216,16 +5264,20 @@ def _unet_module(seed, dtype=torch.bfloat16):
 
 
 class _checked_unet_kernels:
-    """While active, each launch of the U-Net's three kernels is held to
+    """While active, each launch of the U-Net's five kernels is held to
     its plain version on the same inputs: the epilogue (and its pool) and
     the layout change bit for bit, the upsample bit for bit at a scale of
-    1/2 and within one bf16 unit otherwise. Notes the launches."""
+    1/2 and within one bf16 unit otherwise; the epilogue's backward's dz bit
+    for bit and its bias gradient within one bf16 unit at each value's own
+    exponent, the upsample's backward within one bf16 unit (float32 sums in
+    another order, each rounded once). Notes the launches."""
 
     def __enter__(self):
         from sbmc_tpu_torch.nn import unet
         self.unet, self.launched = unet, []
-        self.real = (unet.epilogue, unet.upsample, unet.relayout)
-        epilogue, upsample, relayout = self.real
+        self.real = (unet.epilogue, unet.upsample, unet.relayout,
+                     unet.epilogue_backward, unet.upsample_backward)
+        epilogue, upsample, relayout, epilogue_bwd, upsample_bwd = self.real
 
         def same(name, got, want):
             if not torch.equal(got, want):
@@ -5266,12 +5318,39 @@ class _checked_unet_kernels:
                 self.launched.append("unet_layout")
             return got
 
-        unet.epilogue, unet.upsample, unet.relayout = (
-            checked_epilogue, checked_upsample, checked_relayout)
+        def within_a_unit(name, got, want, units):
+            err = float(units(got, want).max())
+            _note_err(name, err)
+            if err > 1.0:
+                raise AssertionError("%s %.2f bf16 units from its plain "
+                                     "version at %s" % (name, err,
+                                                        tuple(got.shape)))
+
+        def checked_epilogue_bwd(dy, out, act, dpool=None):
+            want_dz, want_db = unet.epilogue_backward_ref(dy, out, act,
+                                                          dpool)
+            dz, db = epilogue_bwd(dy, out, act, dpool)
+            same("unet_epilogue_backward", dz, want_dz)
+            within_a_unit("unet_epilogue_backward", db, want_db, _own_units)
+            self.launched.append("unet_epilogue_backward")
+            return dz, db
+
+        def checked_upsample_bwd(g, size):
+            got = upsample_bwd(g, size)
+            within_a_unit("unet_upsample_backward", got,
+                          unet.upsample_backward_ref(g, size), _bf16_units)
+            self.launched.append("unet_upsample_backward")
+            return got
+
+        (unet.epilogue, unet.upsample, unet.relayout, unet.epilogue_backward,
+         unet.upsample_backward) = (
+            checked_epilogue, checked_upsample, checked_relayout,
+            checked_epilogue_bwd, checked_upsample_bwd)
         return self
 
     def __exit__(self, *exc):
-        self.unet.epilogue, self.unet.upsample, self.unet.relayout = self.real
+        (self.unet.epilogue, self.unet.upsample, self.unet.relayout,
+         self.unet.epilogue_backward, self.unet.upsample_backward) = self.real
 
 
 def _unet_checks(ops):
@@ -5298,7 +5377,7 @@ def _unet_checks(ops):
                                         _nonzero(ops.launch_counts)))
             with _plain_path():
                 want = ae(x)
-        for name in _INFERENCE_KERNELS[1:]:
+        for name in ("unet_epilogue", "unet_upsample", "unet_layout"):
             _COMPARED[name].add(_unet_case(ae, x))
         if h * w <= 512 * 512:
             tf32 = torch.backends.cudnn.allow_tf32
@@ -5390,6 +5469,163 @@ def _unet_times(ops, numbers):
     torch.cuda.empty_cache()
 
 
+#: (bs, h, w) the paths give the flagship's U-Nets under gradients (bf16
+#: SBMC training: batches of 4 128x128 tiles, 2 a rank in phase 16), after
+#: an odd size no path gives, and the train cell's batch of 16 last (19d
+#: times the kernels there).
+UNET_TRAIN_SHAPES = ((2, 37, 53), (4, 128, 128), (2, 128, 128),
+                     (16, 128, 128))
+#: 19c: the median leaf's gradient error (against the float32 U-Net) over
+#: the NCHW modules' may be at most this.
+UNET_GRAD_RATIO = 2.0
+
+
+def _unet_grads(ae, x, cot):
+    """The input's and every parameter's gradient of ``sum(ae(x) * cot)``,
+    float32."""
+    x = x.detach().requires_grad_()
+    params = [x] + list(ae.parameters())
+    return [g.float() for g in torch.autograd.grad(
+        (ae(x).float() * cot).sum(), params)]
+
+
+def _unet_train_checks(ops):
+    """19c: the flagship's U-Net forward and backward at every training
+    shape, each kernel launch against its plain version; the gradients
+    against the NCHW modules' distance from the float32 U-Net's."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rows = []
+    for i, (bs, h, w) in enumerate(UNET_TRAIN_SHAPES):
+        ae = _unet_module(i)
+        x = torch.randn(bs, 128, h, w, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        cot = torch.randn(bs, 128, h, w, generator=gen, device="cuda")
+        ops.reset_launch_counts()
+        with _checked_unet_kernels() as checked:
+            got = _unet_grads(ae, x, cot)
+        want = _unet_train_launches(1, nsteps=1)
+        counts = {k: checked.launched.count(k) for k in want}
+        if counts != want or _nonzero(ops.launch_counts) != want:
+            raise AssertionError("U-Net forward and backward at %s launched "
+                                 "%s (counted %s)" % (
+                                     (bs, h, w), counts,
+                                     _nonzero(ops.launch_counts)))
+        with _plain_path():
+            nchw = _unet_grads(ae, x, cot)
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        f32 = _unet_grads(_unet_module(i, None), x.float(), cot)
+        torch.backends.cudnn.allow_tf32 = tf32
+
+        def err(gs):
+            return [float((g - r).norm() / r.norm()) for g, r in zip(gs, f32)]
+
+        e, e_nchw = err(got), err(nchw)
+        ratios = sorted(a / b for a, b in zip(e, e_nchw))
+        median = ratios[len(ratios) // 2]
+        rows.append(((bs, h, w), e[0], e_nchw[0], median, ratios[-1]))
+        if median > UNET_GRAD_RATIO or e[0] > UNET_GRAD_RATIO * e_nchw[0]:
+            raise AssertionError(
+                "U-Net gradients at %s: input %.3g from float32 (NCHW "
+                "%.3g), median leaf's error %.3g of the NCHW one's (largest "
+                "%.3g)" % rows[-1])
+        for name in ("unet_epilogue", "unet_upsample", "unet_layout",
+                     "unet_epilogue_backward", "unet_upsample_backward"):
+            _COMPARED[name].add(_unet_case(ae, x))
+        del ae, x, cot, got, nchw, f32
+        torch.cuda.empty_cache()
+    print("19c the flagship's U-Net forward and backward at %d shapes: every "
+          "kernel launch against its plain version (the bias gradient within "
+          "%.2f units, the upsample's backward within %.2f); the input "
+          "gradient's relative error from float32, channels-last / NCHW, and "
+          "the leaves' error ratio (median, largest): %s" % (
+              len(UNET_TRAIN_SHAPES),
+              _MAX_ERR.get("unet_epilogue_backward", 0.0),
+              _MAX_ERR.get("unet_upsample_backward", 0.0),
+              "; ".join("%s %.3g / %.3g, %.3f %.3f" % r for r in rows)))
+
+
+def _unet_train_times(ops, numbers):
+    """19d: each backward kernel at the train cell's levels (batch 16,
+    128x128, 64x64, 32x32), and the U-Net's forward and backward there
+    three ways: the NCHW modules, the same modules on channels-last tensors
+    (stock autograd, a yardstick the port never calls) and the port's
+    Function."""
+    import copy
+    from sbmc_tpu_torch.nn import unet
+    cl = torch.channels_last
+    gen = torch.Generator(device="cuda").manual_seed(22)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16).contiguous(memory_format=cl)
+
+    def row(name, tag, fn, plain, nbytes):
+        ms = _time_ms(fn, 3, 20)
+        device_ms = _graph_ms(fn, iters=10, reps=3)
+        _record_times(numbers, name, tag, ms, _time_ms(plain, 1, 3),
+                      nbytes / H100_BYTES_PER_S * 1e3, "bytes",
+                      device_ms=device_ms,
+                      gbytes_s=round(nbytes / device_ms / 1e6, 1))
+
+    bs = 16
+    levels = ((128, 128, 128), (256, 64, 64), (512, 32, 32))
+    with torch.no_grad():
+        for lvl, (c, h, w) in enumerate(levels):
+            out, dy = torch.relu(rand(bs, c, h, w)), rand(bs, c, h, w)
+            n = out.numel()
+            row("unet_epilogue_backward", "L%d %dx%dx%dx%d" % (
+                    lvl, bs, c, h, w),
+                lambda: unet.epilogue_backward(dy, out, "relu"),
+                lambda: unet.epilogue_backward_ref(dy, out, "relu"), 6 * n)
+            if lvl == 2:
+                break
+            c_cat = 3 * c
+            dcat, skip = rand(bs, c_cat, h, w), rand(bs, c_cat, h, w)
+            dpool = rand(bs, c, h // 2, w // 2)
+            row("unet_epilogue_backward", "L%d %dx%dx%dx%d + pool, from %d" % (
+                    lvl, bs, c, h, w, c_cat),
+                lambda: unet.epilogue_backward(dcat[:, 2 * c:],
+                                               skip[:, 2 * c:], "relu", dpool),
+                lambda: unet.epilogue_backward_ref(
+                    dcat[:, 2 * c:], skip[:, 2 * c:], "relu", dpool),
+                6 * n + 2 * dpool.numel())
+            row("unet_upsample_backward", "L%d to L%d %dx%dx%dx%d, from %d" % (
+                    lvl, lvl + 1, bs, 2 * c, h, w, c_cat),
+                lambda: unet.upsample_backward(dcat[:, :2 * c],
+                                               (h // 2, w // 2)),
+                lambda: unet.upsample_backward_ref(dcat[:, :2 * c],
+                                                   (h // 2, w // 2)),
+                2 * bs * 2 * c * h * w + 2 * bs * 2 * c * (h // 2) * (w // 2))
+            del out, dy, dcat, skip, dpool
+            torch.cuda.empty_cache()
+    ae = _unet_module(0)
+    stock = copy.deepcopy(ae).to(memory_format=cl)
+    x = torch.randn(bs, 128, 128, 128, generator=gen,
+                    device="cuda").to(torch.bfloat16).requires_grad_()
+    x_cl = x.detach().contiguous(memory_format=cl).requires_grad_()
+    cot = torch.randn(bs, 128, 128, 128, generator=gen,
+                      device="cuda").to(torch.bfloat16)
+
+    def step(model, inp):
+        return lambda: model(inp).backward(cot)
+
+    ops.reset_launch_counts()
+    port_ms = _time_ms(step(ae, x), 2, 10)
+    launched = _nonzero(ops.launch_counts)
+    with _plain_path():
+        nchw_ms = _time_ms(step(ae, x), 2, 10)
+        stock_ms = _time_ms(step(stock, x_cl), 2, 10)
+    numbers["unet_epilogue_backward"]["unet_fwd_bwd_ms"] = {
+        "nchw": nchw_ms, "stock_channels_last": stock_ms, "port": port_ms}
+    print("19d the flagship's U-Net forward and backward at 16x128x128x128: "
+          "NCHW modules %.2f ms, stock channels-last autograd %.2f ms, the "
+          "port's Function %.2f ms (host clock, 10 calls; %s launched in 12)"
+          % (nchw_ms, stock_ms, port_ms, json.dumps(launched)))
+    del ae, stock, x, x_cl, cot
+    torch.cuda.empty_cache()
+
+
 def _unet_phase(ops):
     """19: the U-Net's channels-last kernels (``csrc/unet.cu``): against
     their plain versions at the paths' shapes, and timed at the bench's.
@@ -5399,6 +5635,8 @@ def _unet_phase(ops):
     _unet_checks(ops)
     with torch.inference_mode():
         _unet_times(ops, numbers)
+    _unet_train_checks(ops)
+    _unet_train_times(ops, numbers)
     print("phase 19: %.1f s" % (time.perf_counter() - t0))
     return numbers
 

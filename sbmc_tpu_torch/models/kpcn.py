@@ -70,6 +70,9 @@ class KPCN(nn.Module):
     once a convolution but the prediction (2, 2 and 16 a call at depth 9).
     """
 
+    #: The entry and exit kernels have no backward: inference only.
+    kernels_backward = False
+
     def __init__(self, n_in=27, ksize=21, depth=9, width=100,
                  conv_dtype=None):
         super().__init__()

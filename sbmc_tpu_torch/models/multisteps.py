@@ -84,6 +84,9 @@ class Multisteps(nn.Module):
     ``[bs, spp, ksize**2, h, w]``.
     """
 
+    #: The per-sample chain kernel has no backward: inference only.
+    kernels_backward = False
+
     def __init__(self, n_features, n_global_features, width=128,
                  embedding_width=128, ksize=21, splat=True, nsteps=3,
                  pixel=False, eps=1e-8, return_kernels=False,

@@ -13,12 +13,15 @@ a JAX checkpoint maps onto them leaf by leaf (see
 - initialisation reproduces torch's ``xavier_uniform_`` with
   ``calculate_gain`` (the weights are overwritten when a checkpoint loads).
 
-At inference on the card a model takes its hand-written kernels where
+On the card a model takes its hand-written kernels where
 :func:`kernel_path` says so, on :class:`WNConv2D`'s ``inference_weight``
-and ``inference_bias``. An ``Autoencoder`` then runs channels-last
-(:meth:`Autoencoder.forward_channels_last`): cuDNN's convolutions without
-their bias, and the hand-written epilogue, upsample and layout kernels of
-:mod:`sbmc_tpu_torch.nn.unet` around them, with the NCHW rounding.
+and ``inference_bias``: at inference, and for an ``Autoencoder``, whose
+kernels have a backward, in training too. An ``Autoencoder`` then runs
+channels-last (:meth:`Autoencoder.forward_channels_last`): cuDNN's
+convolutions without their bias, and the hand-written epilogue, upsample
+and layout kernels of :mod:`sbmc_tpu_torch.nn.unet` around them, with the
+NCHW rounding; under gradients inside one autograd Function whose backward
+runs the kernels' backward around cuDNN's NHWC dgrad and wgrad.
 """
 
 import math
@@ -45,13 +48,15 @@ def dtype_of(name):
 
 
 def kernel_path(module, x):
-    """Whether ``module``'s forward on ``x`` takes its inference kernels:
-    gradients off (the kernels have no backward), ``x`` on the card, bf16
-    convs (``module.conv_dtype``) and an architecture the kernels hold
+    """Whether ``module``'s forward on ``x`` takes its hand-written kernels:
+    gradients off, or kernels that have a backward
+    (``module.kernels_backward``); ``x`` on the card; bf16 convs
+    (``module.conv_dtype``); and an architecture the kernels hold
     (``module.kernels_fit``, read last: ``Multisteps`` asks the kernels'
     CUDA build). Otherwise the plain modules run."""
-    return (not torch.is_grad_enabled() and x.is_cuda
-            and module.conv_dtype == torch.bfloat16 and module.kernels_fit)
+    return ((not torch.is_grad_enabled() or module.kernels_backward)
+            and x.is_cuda and module.conv_dtype == torch.bfloat16
+            and module.kernels_fit)
 
 
 def _gain(nonlinearity):
@@ -134,8 +139,7 @@ class WNConv2D(nn.Module):
         if self.dtype is not None:
             x = x.to(self.dtype)
             kernel = kernel.to(self.dtype)
-        y = F.conv2d(x, kernel,
-                     padding=(self.ksize - 1) // 2 if self.pad else 0)
+        y = F.conv2d(x, kernel, padding=self.padding)
         return y + self.bias.to(y.dtype)[:, None, None]
 
     def inference_weight(self, dtype, cin=None, cout=None,
@@ -151,28 +155,37 @@ class WNConv2D(nn.Module):
         channels up to ``cout``."""
         return _padded(self.bias, dtype, (cout,))
 
-    def conv_channels_last(self, x, cin, cout):
+    @property
+    def padding(self):
+        """The convolution's padding: "same" with ``pad``, else none."""
+        return (self.ksize - 1) // 2 if self.pad else 0
+
+    def conv_channels_last(self, x, cin, cout, kernel=None):
         """The convolution without its bias on a channels-last ``x`` of
         ``cin`` channels already in the compute dtype, to ``cout`` output
         channels (the zero ones beyond the layer's on either side), the
         weight laid out channels-last too (so cuDNN runs its NHWC kernels
-        with no layout change around them); the product is rounded to
-        ``x``'s dtype, as in :meth:`forward`. An ``x`` of another width is
-        refused by the convolution."""
-        kernel = self.inference_weight(x.dtype, cin, cout,
-                                       torch.channels_last)
-        return F.conv2d(x, kernel,
-                        padding=(self.ksize - 1) // 2 if self.pad else 0)
+        with no layout change around them; ``kernel``: that weight, made
+        here if None); the product is rounded to ``x``'s dtype, as in
+        :meth:`forward`. An ``x`` of another width is refused by the
+        convolution."""
+        if kernel is None:
+            kernel = self.inference_weight(x.dtype, cin, cout,
+                                           torch.channels_last)
+        return F.conv2d(x, kernel, padding=self.padding)
 
     def forward_channels_last(self, x, act, cin, cout, out=None,
-                              pool=None):
-        """One layer of a chain without gradients, channels-last:
+                              pool=None, kernel=None, bias=None):
+        """One layer of a chain without autograd, channels-last:
         :meth:`conv_channels_last`, then its bias and activation ``act``
         (:func:`sbmc_tpu_torch.nn.unet.epilogue`, in place, or into ``out``
-        with the 2x2 max-pool into ``pool`` if given). Returns the output."""
-        return unet.epilogue(self.conv_channels_last(x, cin, cout),
-                             self.inference_bias(x.dtype, cout), act, out,
-                             pool)
+        with the 2x2 max-pool into ``pool`` if given). ``kernel`` and
+        ``bias``: the weight and bias to use (made here if None). Returns
+        the output."""
+        if bias is None:
+            bias = self.inference_bias(x.dtype, cout)
+        return unet.epilogue(self.conv_channels_last(x, cin, cout, kernel),
+                             bias, act, out, pool)
 
 
 class ConvChain(nn.Module):
@@ -220,21 +233,30 @@ class ConvChain(nn.Module):
         return ([getattr(self, f"layer_{d}") for d in range(self.depth - 1)]
                 + [self.prediction])
 
-    def forward_channels_last(self, x, out=None, pool=None):
-        """The chain without gradients on a channels-last ``x`` in the
+    def activations(self):
+        """Each convolution's activation, in order."""
+        return [self.activation] * (self.depth - 1) + [self.output_type]
+
+    def forward_channels_last(self, x, out=None, pool=None, params=None,
+                              saved=None):
+        """The chain without autograd on a channels-last ``x`` in the
         compute dtype, one :meth:`WNConv2D.forward_channels_last` a layer;
         the last writes into ``out`` (a channels-last tensor or channel
-        slot) if given, and its 2x2 max-pool into ``pool`` if given. Returns
-        the output."""
+        slot) if given, and its 2x2 max-pool into ``pool`` if given.
+        ``params``: each layer's ``(kernel, bias)`` in order (made by the
+        layers if None); ``saved``: a list to which each layer's input and
+        output are appended. Returns the output."""
         layers = self.layers()
-        for layer in layers[:-1]:
-            x = layer.forward_channels_last(x, self.activation,
-                                            layer.v.shape[1],
-                                            layer.v.shape[0])
-        last = layers[-1]
-        return last.forward_channels_last(x, self.output_type,
-                                          last.v.shape[1], last.v.shape[0],
-                                          out, pool)
+        for i, (layer, act) in enumerate(zip(layers, self.activations())):
+            last = i == len(layers) - 1
+            kernel, bias = (None, None) if params is None else params[i]
+            y = layer.forward_channels_last(
+                x, act, layer.v.shape[1], layer.v.shape[0],
+                out if last else None, pool if last else None, kernel, bias)
+            if saved is not None:
+                saved += [x, y]
+            x = y
+        return x
 
 
 class Autoencoder(nn.Module):
@@ -247,11 +269,16 @@ class Autoencoder(nn.Module):
     capped at ``max_width``.
 
     Where :func:`kernel_path` says so (``kernels_fit``: every channel count
-    a multiple of 8, activations the epilogue applies), :meth:`forward`
-    runs :meth:`forward_channels_last`, which launches the epilogue kernel
-    once a convolution, the upsample kernel once a level below the top and
-    the layout kernel on each side.
+    a multiple of 8, activations the epilogue applies; with or without
+    gradients: ``kernels_backward``), :meth:`forward` runs
+    :meth:`forward_channels_last`, which launches the epilogue kernel once a
+    convolution, the upsample kernel once a level below the top and the
+    layout kernel on each side; its backward launches the epilogue's and
+    the upsample's backward as often, and the layout kernel on each side.
     """
+
+    #: The channels-last kernels have a backward (:class:`_ChannelsLastUNet`).
+    kernels_backward = True
 
     def __init__(self, in_features, noutputs, ksize=3, width=64,
                  num_levels=3, num_convs=2, max_width=512,
@@ -307,23 +334,60 @@ class Autoencoder(nn.Module):
             x = getattr(self, f"right_{lvl}")(torch.cat([us, left], dim=1))
         return x
 
+    def chains(self):
+        """The chains in the order :meth:`forward` runs them: ``left_0``,
+        ..., then ``right_{num_levels - 2}``, ..., ``right_0``."""
+        return ([getattr(self, f"left_{lvl}")
+                 for lvl in range(self.num_levels)]
+                + [getattr(self, f"right_{lvl}")
+                   for lvl in range(self.num_levels - 2, -1, -1)])
+
     def forward_channels_last(self, x):
-        """:meth:`forward` without gradients, channels-last inside: the
-        input ``[bs, c, h, w]`` is laid out channels-last once, each level's
-        last left convolution writes its skip into the channel slot
-        ``[c_up:]`` of a channels-last concatenation buffer and its max-pool
-        as the next level's input, the coarse result is upsampled into the
-        slot ``[:c_up]``, and the right chain reads the buffer whole. The
-        output is laid out NCHW once. The same arithmetic and roundings as
-        :meth:`forward`, up to the order of the convolutions' sums."""
+        """:meth:`forward` channels-last inside: the input ``[bs, c, h, w]``
+        is laid out channels-last once, each level's last left convolution
+        writes its skip into the channel slot ``[c_up:]`` of a channels-last
+        concatenation buffer and its max-pool as the next level's input, the
+        coarse result is upsampled into the slot ``[:c_up]``, and the right
+        chain reads the buffer whole. The output is laid out NCHW once. The
+        same arithmetic and roundings as :meth:`forward`, up to the order of
+        the convolutions' sums.
+
+        Under gradients it runs inside one autograd Function
+        (:class:`_ChannelsLastUNet`) on the weights made here in stock
+        autograd (``WNConv2D.inference_weight``: normalised, cast and laid
+        out channels-last) and the float32 biases, so gradients reach ``v``,
+        ``g`` and ``bias`` as through :meth:`forward`."""
+        x = x.to(self.conv_dtype or x.dtype)
+        if not torch.is_grad_enabled():
+            return self._channels_last(x)
+        convs = [layer for chain in self.chains() for layer in chain.layers()]
+        kernels = [layer.inference_weight(x.dtype,
+                                          memory_format=torch.channels_last)
+                   for layer in convs]
+        return _ChannelsLastUNet.apply(self, x, *kernels,
+                                       *[layer.bias for layer in convs])
+
+    def _channels_last(self, x, params=None, saved=None):
+        """:meth:`forward_channels_last`'s dataflow on ``x`` in the compute
+        dtype, without autograd. ``params``: each convolution's ``(kernel,
+        bias)`` in :meth:`chains` order (made by the layers if None);
+        ``saved``: a list to which each convolution's input and output
+        (channels-last; a skip is its slot of the concatenation buffer) are
+        appended in that order."""
         cl = torch.channels_last
-        x = unet.relayout(x.to(self.conv_dtype or x.dtype),
-                          channels_last=True)
+        params = None if params is None else iter(params)
+
+        def run(chain, x, out=None, pool=None):
+            p = None if params is None else [next(params)
+                                             for _ in chain.layers()]
+            return chain.forward_channels_last(x, out, pool, p, saved)
+
+        x = unet.relayout(x, channels_last=True)
         cats = []
         for lvl in range(self.num_levels):
             left = getattr(self, f"left_{lvl}")
             if lvl == self.num_levels - 1:
-                x = left.forward_channels_last(x)
+                x = run(left, x)
                 break
             bs, _, h, w = x.shape
             c_skip = left.prediction.v.shape[0]
@@ -332,11 +396,90 @@ class Autoencoder(nn.Module):
                                     device=x.device, memory_format=cl))
             pooled = torch.empty(bs, c_skip, h // 2, w // 2, dtype=x.dtype,
                                  device=x.device, memory_format=cl)
-            left.forward_channels_last(x, out=cats[-1][:, c_cat - c_skip:],
-                                       pool=pooled)
+            run(left, x, cats[-1][:, c_cat - c_skip:], pooled)
             x = pooled
         for lvl in range(self.num_levels - 2, -1, -1):
             unet.upsample(x, cats[-1][:, :x.shape[1]])
-            x = getattr(self, f"right_{lvl}").forward_channels_last(
-                cats.pop())
+            x = run(getattr(self, f"right_{lvl}"), cats.pop())
         return unet.relayout(x, channels_last=False)
+
+    def _backward_channels_last(self, dout, kernels, io, needs):
+        """The backward of :meth:`_channels_last` from the output's gradient
+        ``dout`` (NCHW): ``kernels`` and ``io`` (each convolution's input
+        and output, as ``saved`` holds them) in :meth:`chains` order;
+        ``needs``: whether the input, each kernel and each bias want a
+        gradient. Each convolution from the last: the epilogue's backward
+        (``unet.epilogue_backward``; a level's last left convolution with
+        its pool's gradient), then cuDNN's dgrad and wgrad on the
+        channels-last tensors; a right chain's input gradient is the
+        concatenation buffer's, whose upsampled slot goes through
+        ``unet.upsample_backward`` to the chain below and whose skip slot
+        waits for the left chain. Returns the input's gradient (NCHW, None
+        if not wanted) and each kernel's and bias's."""
+        n = len(kernels)
+        need_x, need_k = needs[0], needs[1:1 + n]
+        dk, db = [None] * n, [None] * n
+        k = n
+
+        def chain_backward(chain, g, dpool=None):
+            nonlocal k
+            layers, acts = chain.layers(), chain.activations()
+            for i in range(len(layers) - 1, -1, -1):
+                k -= 1
+                x, y = io[2 * k], io[2 * k + 1]
+                dz, db[k] = unet.epilogue_backward(
+                    g, y, acts[i], dpool if i == len(layers) - 1 else None)
+                p = layers[i].padding
+                g, dk[k], _ = torch.ops.aten.convolution_backward(
+                    dz, x, kernels[k], None, [1, 1], [p, p], [1, 1], False,
+                    [0, 0], 1, [k > 0 or need_x, need_k[k], False])
+            return g
+
+        g = unet.relayout(dout.contiguous(), channels_last=True)
+        dcats = []
+        for lvl in range(self.num_levels - 1):
+            dcat = chain_backward(getattr(self, f"right_{lvl}"), g)
+            dcats.append(dcat)
+            c_skip = getattr(self, f"left_{lvl}").prediction.v.shape[0]
+            g = unet.upsample_backward(
+                dcat[:, :dcat.shape[1] - c_skip],
+                (dcat.shape[2] // 2, dcat.shape[3] // 2))
+        g = chain_backward(getattr(self, f"left_{self.num_levels - 1}"), g)
+        for lvl in range(self.num_levels - 2, -1, -1):
+            dcat = dcats.pop()
+            c_skip = getattr(self, f"left_{lvl}").prediction.v.shape[0]
+            g = chain_backward(getattr(self, f"left_{lvl}"),
+                               dcat[:, dcat.shape[1] - c_skip:], dpool=g)
+        dx = unet.relayout(g, channels_last=False) if need_x else None
+        return dx, dk, db
+
+
+class _ChannelsLastUNet(torch.autograd.Function):
+    """:meth:`Autoencoder.forward_channels_last` under gradients: ``apply(ae,
+    x, *kernels, *biases)`` (one kernel and bias a convolution, in
+    ``ae.chains()`` order). The forward runs ``ae._channels_last`` and saves
+    each convolution's input and output, nothing else: the activations'
+    derivatives follow from the outputs' signs and each max-pool's argmax
+    is recomputed from its saved skip. The backward is
+    ``ae._backward_channels_last``."""
+
+    @staticmethod
+    def forward(ctx, ae, x, *params):
+        n = len(params) // 2
+        kernels = [k.detach() for k in params[:n]]
+        saved = [] if any(ctx.needs_input_grad) else None
+        out = ae._channels_last(
+            x.detach(), list(zip(kernels, (b.detach() for b in params[n:]))),
+            saved)
+        if saved is not None:
+            ctx.ae = ae
+            ctx.save_for_backward(*kernels, *saved)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        tensors = ctx.saved_tensors
+        n = (len(ctx.needs_input_grad) - 2) // 2
+        dx, dk, db = ctx.ae._backward_channels_last(
+            dout, tensors[:n], tensors[n:], ctx.needs_input_grad[1:])
+        return (None, dx, *dk, *db)

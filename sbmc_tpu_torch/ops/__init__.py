@@ -146,7 +146,8 @@ launch_counts = {"progressive_splat": 0, "progressive_splat_generic": 0,
                  "tri_nearest": 0, "tri_nearest_generic": 0, "tri_any": 0,
                  "tri_any_generic": 0, "threefry_uniform": 0,
                  "sample_chain": 0, "unet_epilogue": 0, "unet_upsample": 0,
-                 "unet_layout": 0, "kpcn_entry": 0, "kpcn_exit": 0}
+                 "unet_layout": 0, "unet_epilogue_backward": 0,
+                 "unet_upsample_backward": 0, "kpcn_entry": 0, "kpcn_exit": 0}
 
 #: Channel counts one launch of the splat and kernel-weighting kernels
 #: takes (their template set); the ops run other counts in groups of these

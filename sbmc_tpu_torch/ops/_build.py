@@ -101,6 +101,12 @@ _UNET_EPILOGUE_ARGS = [_P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I]
 _UNET_UPSAMPLE_ARGS = [_P, _P, _L, _I, _I, _I, _I, _I, _I]
 #: sbmc_unet_layout(src, dst, to_nhwc, bs, c, h, w, sms[, stream])
 _UNET_LAYOUT_ARGS = [_P, _P, _I, _I, _I, _I, _I, _I]
+#: sbmc_unet_epilogue_backward(dy, ldy, out, ldo, dpool, act, dz, partials,
+#:                             nparts, dbias, bs, h, w, c, sms[, stream])
+_UNET_EPILOGUE_BWD_ARGS = [_P, _L, _P, _L, _P, _I, _P, _P, _I, _P, _I, _I, _I,
+                           _I, _I]
+#: sbmc_unet_upsample_backward(g, ldg, dx, bs, hi, wi, ho, wo, c[, stream])
+_UNET_UPSAMPLE_BWD_ARGS = [_P, _L, _P, _I, _I, _I, _I, _I, _I]
 #: sbmc_kpcn_entry(x, dtype, out, bs, c, h, w, width, sms[, stream])
 _KPCN_ENTRY_ARGS = [_P, _I, _P, _I, _I, _I, _I, _I, _I]
 #: sbmc_kpcn_exit(y, bias, out, bs, h, w, c, k2, sms[, stream])
@@ -143,7 +149,9 @@ _CUDA = {
     "unet.cu": {
         "sbmc_unet_epilogue": _UNET_EPILOGUE_ARGS + [_P],
         "sbmc_unet_upsample": _UNET_UPSAMPLE_ARGS + [_P],
-        "sbmc_unet_layout": _UNET_LAYOUT_ARGS + [_P]},
+        "sbmc_unet_layout": _UNET_LAYOUT_ARGS + [_P],
+        "sbmc_unet_epilogue_backward": _UNET_EPILOGUE_BWD_ARGS + [_P],
+        "sbmc_unet_upsample_backward": _UNET_UPSAMPLE_BWD_ARGS + [_P]},
     "kpcn.cu": {
         "sbmc_kpcn_entry": _KPCN_ENTRY_ARGS + [_P],
         "sbmc_kpcn_exit": _KPCN_EXIT_ARGS + [_P]},

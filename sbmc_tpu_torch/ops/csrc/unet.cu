@@ -1,6 +1,6 @@
 // The passes around the 3x3 convolutions of SBMC's propagation U-Net
-// (nn/layers.py: Autoencoder) for Hopper, at inference, in channels-last
-// (NHWC) bf16:
+// (nn/layers.py: Autoencoder) for Hopper, at inference and in the train
+// step, in channels-last (NHWC) bf16:
 //
 // - unet_epilogue: after each cuDNN convolution (run without its bias), the
 //   bias and the activation, rounded as WNConv2D.forward and ConvChain round
@@ -53,7 +53,42 @@
 //
 // Any batch, any size; the channel count a multiple of 8 up to 4096, the
 // output's pixel stride a multiple of 8 channels. Every output value has
-// one writer. No backward: the wrapper runs these under inference only.
+// one writer.
+//
+// The train step's backward of the same passes (the convolutions' own
+// gradients are cuDNN's NHWC dgrad and wgrad, run by the wrapper):
+//
+// - unet_epilogue_backward: from the gradient of one epilogue's output (a
+//   dense tensor, or the skip's slot of the concatenation buffer's
+//   gradient) and its saved output, the gradient of the convolution's
+//   output, dz = act'(out) * dy, rounded as PyTorch's autograd rounds it
+//   (ReLU passes or zeroes, the leaky slope one rounding of dy * 0.01), and
+//   the bias gradient, the float32 sum of dz over the pixels rounded once to
+//   bf16. For each level's last left convolution the 2x2 max-pool's
+//   gradient joins dy first: each window's argmax is recomputed from the
+//   saved output as F.max_pool2d picks it (the first maximum in row-major
+//   window order, a NaN wins), and dy + dpool is rounded once there, as
+//   autograd adds two gradients of one tensor; an odd last row or column
+//   gets none.
+// - unet_upsample_backward: the transpose of unet_upsample, from the
+//   upsampled slot of the concatenation buffer's gradient to the coarse
+//   tensor, in gather form: each coarse pixel sums in float32 the fine
+//   pixels that read it, weighted as the forward weighs them, and rounds
+//   once. PyTorch's NCHW backward scatters with atomics instead.
+//
+// Both are bound by bytes too, and keep the forward's layout of threads.
+// The epilogue's backward reads dy and the saved output once and writes dz
+// once, 16 bytes a thread; its bias sums stay in registers along the
+// thread's pixels, are summed over the block's rows in shared memory in a
+// fixed order, and leave as one float32 partial a block; a second small
+// pass sums the partials in a fixed order. No atomics: the result does not
+// depend on the schedule. The upsample's backward writes each coarse pixel
+// once; it reads each fine pixel four times at a doubling (2x2 coarse
+// pixels read it), from neighbouring threads and blocks, so the L2 serves
+// the repeats and device memory sees each value about once. (A thread
+// taking a 2x2 block of coarse pixels and loading the fine pixels they
+// share once, 36 loads for 4 outputs where this takes 64, measured slower
+// on an H100: 84 against 68 us at the train cell's second level.)
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -410,6 +445,292 @@ dim3 block_of(int cv) {
   return dim3(bx, kThreads / bx);
 }
 
+// --- Backward -------------------------------------------------------------
+
+// Blocks an SM of the backward kernels' grids: the bias partials' rows.
+constexpr int kBlocksPerSm = 2048 / kThreads;
+
+// dz of eight channels from the epilogue output's gradient g and the saved
+// output o, as PyTorch's backward of F.relu (threshold_backward on the
+// result: o <= 0 gives 0), F.leaky_relu (o > 0 passes, else g * 0.01, one
+// rounding) and the identity compute it in bf16; adds dz to acc.
+template <int ACT>
+__device__ __forceinline__ uint4 act_grad8(uint4 g, uint4 o, float* acc) {
+  const __nv_bfloat162* pg = reinterpret_cast<const __nv_bfloat162*>(&g);
+  const __nv_bfloat162* po = reinterpret_cast<const __nv_bfloat162*>(&o);
+  uint4 d;
+  __nv_bfloat162* pd = reinterpret_cast<__nv_bfloat162*>(&d);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 fg = __bfloat1622float2(pg[i]);
+    const float2 fo = __bfloat1622float2(po[i]);
+    float d0 = fg.x, d1 = fg.y;
+    if (ACT == kRelu) {
+      d0 = fo.x <= 0.f ? 0.f : d0;
+      d1 = fo.y <= 0.f ? 0.f : d1;
+    } else if (ACT == kLeaky) {
+      d0 = fo.x > 0.f ? d0 : round_bf16(d0 * 0.01f);
+      d1 = fo.y > 0.f ? d1 : round_bf16(d1 * 0.01f);
+    }
+    acc[2 * i] += d0;
+    acc[2 * i + 1] += d1;
+    pd[i] = __floats2bfloat162_rn(d0, d1);
+  }
+  return d;
+}
+
+// The block's float32 sums of eight channels (thread column x, channel
+// vector cvec) over its rows of threads, in row order, as one partial row
+// of `c` values at `part`. Every thread of the block calls it.
+__device__ __forceinline__ void block_partial(const float* acc, bool active,
+                                              int cvec, float* part) {
+  __shared__ float red[kThreads][8];
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) red[tid][i] = active ? acc[i] : 0.f;
+  __syncthreads();
+  if (threadIdx.y == 0 && active) {
+    float s[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[i] = 0.f;
+    for (int r = 0; r < (int)blockDim.y; ++r) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s[i] += red[r * blockDim.x + threadIdx.x][i];
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) part[cvec * 8 + i] = s[i];
+  }
+  __syncthreads();
+}
+
+// The plain epilogue's backward: `pixels` pixels, dy at a pixel stride of
+// `ldy` vectors, the saved output at `ldo`, dz dense; one partial row of
+// bias sums a block. The channel vectors are the outer loop, so a thread
+// keeps one vector's sums while it walks its pixels.
+template <int ACT>
+__global__ void __launch_bounds__(kThreads)
+    unet_epilogue_bwd(const uint4* __restrict__ dy, long long ldy,
+                      const uint4* __restrict__ out, long long ldo,
+                      uint4* __restrict__ dz, float* __restrict__ partials,
+                      long long pixels, int cv) {
+  const long long stride = (long long)gridDim.x * blockDim.y;
+  for (int c0 = 0; c0 < cv; c0 += blockDim.x) {
+    const int c = c0 + threadIdx.x;
+    const bool active = c < cv;
+    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (active) {
+      for (long long p0 = (long long)blockIdx.x * blockDim.y + threadIdx.y;
+           p0 < pixels; p0 += stride * kUnroll) {
+        uint4 g[kUnroll], o[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const long long p = p0 + u * stride;
+          if (p < pixels) {
+            g[u] = dy[p * ldy + c];
+            o[u] = out[p * ldo + c];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const long long p = p0 + u * stride;
+          if (p < pixels) dz[p * cv + c] = act_grad8<ACT>(g[u], o[u], acc);
+        }
+      }
+    }
+    block_partial(acc, active, c, partials + (long long)blockIdx.x * cv * 8);
+  }
+}
+
+// bf16(a + b) of eight channels where lane i's window argmax is pixel j
+// (`arg` holds each lane's argmax), else a: the pool's gradient joins the
+// argmax's.
+__device__ __forceinline__ uint4 add_at(uint4 a, uint4 b, const int* arg,
+                                        int j) {
+  const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
+  uint4 o;
+  __nv_bfloat162* po = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 fa = __bfloat1622float2(pa[i]);
+    const float2 fb = __bfloat1622float2(pb[i]);
+    po[i] = __floats2bfloat162_rn(arg[2 * i] == j ? fa.x + fb.x : fa.x,
+                                  arg[2 * i + 1] == j ? fa.y + fb.y : fa.y);
+  }
+  return o;
+}
+
+// Each lane's argmax over a full 2x2 window's four vectors, in window order
+// with max8's comparison (F.max_pool2d's: the first maximum, a NaN wins).
+__device__ __forceinline__ void argmax8(const uint4* v, int* arg) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float m0 = -INFINITY, m1 = -INFINITY;
+    int a0 = 0, a1 = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(
+          reinterpret_cast<const __nv_bfloat162*>(&v[j])[i]);
+      if (f.x > m0 || isnan(f.x)) m0 = f.x, a0 = j;
+      if (f.y > m1 || isnan(f.y)) m1 = f.y, a1 = j;
+    }
+    arg[2 * i] = a0;
+    arg[2 * i + 1] = a1;
+  }
+}
+
+// The pooled epilogue's backward: 2x2 cells of a [bs, h, w] grid as the
+// forward walks them; a full cell adds dpool ([bs, h/2, w/2, cv], dense) to
+// each lane's argmax before the activation's gradient.
+template <int ACT>
+__global__ void __launch_bounds__(kThreads)
+    unet_epilogue_pool_bwd(const uint4* __restrict__ dy, long long ldy,
+                           const uint4* __restrict__ out, long long ldo,
+                           const uint4* __restrict__ dpool,
+                           uint4* __restrict__ dz, float* __restrict__ partials,
+                           int bs, int h, int w, int cv) {
+  const int hc = (h + 1) / 2, wc = (w + 1) / 2, hp = h / 2, wp = w / 2;
+  const long long blk = (long long)blockIdx.y * gridDim.x + blockIdx.x;
+  for (int c0 = 0; c0 < cv; c0 += blockDim.x) {
+    const int c = c0 + threadIdx.x;
+    const bool active = c < cv;
+    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (long long row = blockIdx.y; active && row < (long long)bs * hc;
+         row += gridDim.y) {
+      const long long n = row / hc;
+      const int oy = (int)(row - n * hc);
+      const int y0 = 2 * oy;
+      const bool has_y1 = y0 + 1 < h;
+      for (int ox = blockIdx.x * blockDim.y + threadIdx.y; ox < wc;
+           ox += gridDim.x * blockDim.y) {
+        const int x0 = 2 * ox;
+        const bool has_x1 = x0 + 1 < w;
+        const long long p00 = (n * h + y0) * w + x0;
+        const long long pix[4] = {p00, p00 + 1, p00 + w, p00 + w + 1};
+        const bool here[4] = {true, has_x1, has_y1, has_x1 && has_y1};
+        uint4 g[4], o[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (here[j]) {
+            g[j] = dy[pix[j] * ldy + c];
+            o[j] = out[pix[j] * ldo + c];
+          }
+        }
+        if (has_x1 && has_y1) {
+          const uint4 dp = dpool[((n * hp + oy) * wp + ox) * cv + c];
+          int arg[8];
+          argmax8(o, arg);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) g[j] = add_at(g[j], dp, arg, j);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (here[j]) dz[pix[j] * cv + c] = act_grad8<ACT>(g[j], o[j], acc);
+      }
+    }
+    block_partial(acc, active, c, partials + blk * cv * 8);
+  }
+}
+
+// The bias gradient from `nparts` partial rows of `c` sums: a thread sums a
+// channel's rows r, r + 32, ... (r its row of threads) into four running
+// sums (rows 4k + j into sum j, so four loads are in flight: the pass is
+// bound by their latency), and the block adds the rows' sums in order; each
+// channel is rounded once to bf16 and stored as float32. The order is fixed
+// by nparts alone.
+constexpr int kSumRows = 32;
+__global__ void __launch_bounds__(32 * kSumRows)
+    unet_bias_sum(const float* __restrict__ partials, int nparts, int c,
+                  float* __restrict__ dbias) {
+  __shared__ float red[kSumRows][33];
+  const int ch = blockIdx.x * 32 + threadIdx.x;
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+  if (ch < c) {
+    int r = threadIdx.y;
+    for (; r + 3 * kSumRows < nparts; r += 4 * kSumRows) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        s[j] += partials[(long long)(r + j * kSumRows) * c + ch];
+    }
+    for (; r < nparts; r += kSumRows) s[0] += partials[(long long)r * c + ch];
+  }
+  red[threadIdx.y][threadIdx.x] = (s[0] + s[1]) + (s[2] + s[3]);
+  __syncthreads();
+  if (threadIdx.y == 0 && ch < c) {
+    float t = 0.f;
+    for (int r = 0; r < kSumRows; ++r) t += red[r][threadIdx.x];
+    dbias[ch] = round_bf16(t);
+  }
+}
+
+// The first output index (a row or a column) whose source index i0 may be
+// `i` - 1, less a margin for rounding: outputs before it read only sources
+// below i - 1.
+__device__ __forceinline__ int first_reader(int i, int in, int outn) {
+  const int d = (int)floorf((i - 0.5f) * ((float)outn / in) - 0.5f) - 2;
+  return d < 0 ? 0 : d;
+}
+
+// Source i's weight in output dst's interpolation (tap t of dst): l0 where
+// it is i0, l1 where it is i1 (both at the clamped last source).
+__device__ __forceinline__ float weight_of(Tap t, int i) {
+  return (t.i0 == i ? t.l0 : 0.f) + (t.i1 == i ? t.l1 : 0.f);
+}
+
+// The transpose of unet_upsample: g ([bs, ho, wo] pixels at a stride of
+// `ldg` vectors, cv of them read) to dx ([bs, hi, wi, cv], dense). A thread
+// writes one coarse pixel's channel vector: the float32 sum over the fine
+// pixels that read it (rows and columns whose source index i0 is its index
+// or the one before), each weighted by the product of its row and column
+// weights, rounded once.
+__global__ void __launch_bounds__(kThreads)
+    unet_upsample_bwd(const uint4* __restrict__ g, long long ldg,
+                      uint4* __restrict__ dx, int bs, int hi, int wi, int ho,
+                      int wo, int cv) {
+  const float rh = (float)hi / ho, rw = (float)wi / wo;
+  for (long long row = blockIdx.y; row < (long long)bs * hi;
+       row += gridDim.y) {
+    const long long n = row / hi;
+    const int iy = (int)(row - n * hi);
+    const int oy0 = first_reader(iy, hi, ho);
+    for (int ix = blockIdx.x * blockDim.y + threadIdx.y; ix < wi;
+         ix += gridDim.x * blockDim.y) {
+      const int ox0 = first_reader(ix, wi, wo);
+      for (int c = threadIdx.x; c < cv; c += blockDim.x) {
+        float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        for (int oy = oy0; oy < ho; ++oy) {
+          const Tap ty = tap(rh, oy, hi);
+          if (ty.i0 > iy) break;
+          if (ty.i1 < iy) continue;
+          const float wy = weight_of(ty, iy);
+          const uint4* grow = g + (n * ho + oy) * wo * ldg + c;
+          for (int ox = ox0; ox < wo; ++ox) {
+            const Tap tx = tap(rw, ox, wi);
+            if (tx.i0 > ix) break;
+            if (tx.i1 < ix) continue;
+            const float wt = wy * weight_of(tx, ix);
+            const uint4 v = grow[ox * ldg];
+            const __nv_bfloat162* pv =
+                reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float2 f = __bfloat1622float2(pv[i]);
+              acc[2 * i] += wt * f.x;
+              acc[2 * i + 1] += wt * f.y;
+            }
+          }
+        }
+        uint4 o;
+        __nv_bfloat162* po = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          po[i] = __floats2bfloat162_rn(acc[2 * i], acc[2 * i + 1]);
+        dx[((n * hi + iy) * wi + ix) * cv + c] = o;
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -520,6 +841,94 @@ int sbmc_unet_layout(const void* src, void* dst, int to_nhwc, int bs, int c,
       unet_layout_any<false><<<grid, kThreads, 0, s>>>(x, y, pixels, c,
                                                        total);
   }
+  return (int)cudaGetLastError();
+}
+
+// The epilogue's backward for one convolution of c channels over [bs, h, w]
+// pixels: dy (the gradient of the epilogue's output, at a pixel stride of
+// `ldy` channels), out (the saved output, at `ldo`) and, with `dpool`
+// non-null, the pool's gradient ([bs, h/2, w/2, c], dense) give dz ([bs, h,
+// w, c], dense) and dbias ([c] float32, each a bf16 value). `partials`: a
+// float32 workspace of `nparts` rows of c values (the grid has at most
+// `nparts` blocks; sms * 8 is enough for the widest). Returns a CUDA error
+// code.
+int sbmc_unet_epilogue_backward(const void* dy, long long ldy,
+                                const void* out, long long ldo,
+                                const void* dpool, int act, void* dz,
+                                void* partials, int nparts, void* dbias,
+                                int bs, int h, int w, int c, int sms,
+                                void* stream) {
+  if (c <= 0 || c % 8 != 0 || ldy % 8 != 0 || ldy < c || ldo % 8 != 0 ||
+      ldo < c || act < 0 || act > 2 || bs <= 0 || h <= 0 || w <= 0 ||
+      nparts <= 0 || sms <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int cv = c / 8;
+  const dim3 block = block_of(cv);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint4* gv = static_cast<const uint4*>(dy);
+  const uint4* ov = static_cast<const uint4*>(out);
+  uint4* zv = static_cast<uint4*>(dz);
+  float* pv = static_cast<float*>(partials);
+  long long cap = (long long)sms * kBlocksPerSm;
+  if (cap > nparts) cap = nparts;
+  int used;
+  if (dpool == nullptr) {
+    const long long pixels = (long long)bs * h * w;
+    const long long blocks =
+        (pixels + block.y * kUnroll - 1) / (block.y * kUnroll);
+    used = (int)(blocks < cap ? blocks : cap);
+    if (act == kRelu)
+      unet_epilogue_bwd<kRelu><<<used, block, 0, s>>>(
+          gv, ldy / 8, ov, ldo / 8, zv, pv, pixels, cv);
+    else if (act == kLeaky)
+      unet_epilogue_bwd<kLeaky><<<used, block, 0, s>>>(
+          gv, ldy / 8, ov, ldo / 8, zv, pv, pixels, cv);
+    else
+      unet_epilogue_bwd<kLinear><<<used, block, 0, s>>>(
+          gv, ldy / 8, ov, ldo / 8, zv, pv, pixels, cv);
+  } else {
+    const long long rows = (long long)bs * ((h + 1) / 2);
+    const long long wblocks = ((w + 1) / 2 + block.y - 1) / block.y;
+    const long long gx = wblocks < cap ? wblocks : cap;
+    long long gy = cap / gx;
+    gy = gy < rows ? gy : rows;
+    gy = gy < kMaxGridY ? gy : kMaxGridY;
+    const dim3 grid((unsigned)gx, (unsigned)gy);
+    used = (int)(gx * gy);
+    const uint4* dp = static_cast<const uint4*>(dpool);
+    if (act == kRelu)
+      unet_epilogue_pool_bwd<kRelu><<<grid, block, 0, s>>>(
+          gv, ldy / 8, ov, ldo / 8, dp, zv, pv, bs, h, w, cv);
+    else if (act == kLeaky)
+      unet_epilogue_pool_bwd<kLeaky><<<grid, block, 0, s>>>(
+          gv, ldy / 8, ov, ldo / 8, dp, zv, pv, bs, h, w, cv);
+    else
+      unet_epilogue_pool_bwd<kLinear><<<grid, block, 0, s>>>(
+          gv, ldy / 8, ov, ldo / 8, dp, zv, pv, bs, h, w, cv);
+  }
+  unet_bias_sum<<<(c + 31) / 32, dim3(32, kSumRows), 0, s>>>(
+      pv, used, c, static_cast<float*>(dbias));
+  return (int)cudaGetLastError();
+}
+
+// The upsample's backward: g (the gradient of the upsampled slot, [bs, ho,
+// wo] pixels at a stride of `ldg` channels, c of them read) to dx ([bs, hi,
+// wi, c] bf16, dense), for an upsample that at least doubled each side.
+// Returns a CUDA error code.
+int sbmc_unet_upsample_backward(const void* g, long long ldg, void* dx,
+                                int bs, int hi, int wi, int ho, int wo, int c,
+                                void* stream) {
+  if (c <= 0 || c % 8 != 0 || ldg % 8 != 0 || ldg < c || bs <= 0 ||
+      hi <= 0 || wi <= 0 || 2 * hi > ho || 2 * wi > wo)
+    return (int)cudaErrorInvalidValue;
+  const int cv = c / 8;
+  const dim3 block = block_of(cv);
+  const long long rows = (long long)bs * hi;
+  const dim3 grid((wi + block.y - 1) / block.y,
+                  (unsigned)(rows < kMaxGridY ? rows : kMaxGridY));
+  unet_upsample_bwd<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(g), ldg / 8, static_cast<uint4*>(dx), bs, hi,
+      wi, ho, wo, cv);
   return (int)cudaGetLastError();
 }
 

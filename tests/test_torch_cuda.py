@@ -915,8 +915,9 @@ def test_sample_chain_regress_clamps_logits(device):
 def test_sample_chain_launches_per_tile(device, spp):
     """3 + spp launches a tile under inference_mode (three embedding steps,
     one regressor a sample), and the three U-Nets' 45 epilogues, 6
-    upsamples and 6 layout changes; none with gradients on; the fused and unfused frames agree
-    to bf16 rounding."""
+    upsamples and 6 layout changes; with gradients on none of the chain
+    kernel (it has no backward), the U-Nets' all the same (theirs have);
+    the fused and unfused frames agree to bf16 rounding."""
     from sbmc_tpu_torch.models import Multisteps
     torch.manual_seed(0)
     net = Multisteps(n_features=93, n_global_features=3, width=128,
@@ -937,7 +938,8 @@ def test_sample_chain_launches_per_tile(device, spp):
                          "unet_layout": 6}
     ops.reset_launch_counts()
     plain = net(x)["radiance"].detach()
-    assert _counts() == {"progressive_splat": spp}
+    assert _counts() == {"progressive_splat": spp, "unet_epilogue": 45,
+                         "unet_upsample": 6, "unet_layout": 6}
     assert float((fused - plain).norm() / plain.norm()) < 2e-3
 
 
@@ -1082,27 +1084,42 @@ def test_unet_layout_matches_plain(device, bs, c, h, w):
 # the float32 U-Net on the same weights (TF32 off): the channels-last
 # path's error is the NCHW path's, within a tenth on average and half at
 # the largest (measured: within 2%).
+def _unet_of(dtype, device):
+    """The flagship's propagation U-Net, random biases."""
+    from sbmc_tpu_torch.nn.layers import Autoencoder
+    torch.manual_seed(0)
+    ae = Autoencoder(128, 128, num_levels=3, increase_factor=2.0,
+                     num_convs=3, width=128, ksize=3,
+                     output_type="leaky_relu", dtype=dtype).to(device)
+    with torch.no_grad():
+        for name, p in ae.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.3 * torch.randn_like(p))
+    return ae
+
+
+@pytest.fixture
+def plain_path(monkeypatch):
+    """A function that runs its argument with every model on its plain
+    modules (the kernels' rule says no)."""
+    from sbmc_tpu_torch.nn import layers
+
+    def run(fn):
+        with monkeypatch.context() as m:
+            m.setattr(layers, "kernel_path", lambda module, x: False)
+            return fn()
+    return run
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bs,h,w", [(1, 96, 128), (2, 37, 53),
                                     (1, 160, 160)])
-def test_unet_channels_last_matches_forward(device, bs, h, w):
+def test_unet_channels_last_matches_forward(device, plain_path, bs, h, w):
     """The flagship's U-Net: 15 epilogue, 2 upsample and 2 layout launches
-    under inference_mode, none with gradients on, and the two outputs as
-    close to the float32 U-Net."""
-    from sbmc_tpu_torch.nn.layers import Autoencoder
-
-    def unet_of(dtype):
-        torch.manual_seed(0)
-        ae = Autoencoder(128, 128, num_levels=3, increase_factor=2.0,
-                         num_convs=3, width=128, ksize=3,
-                         output_type="leaky_relu", dtype=dtype).to(device)
-        with torch.no_grad():
-            for name, p in ae.named_parameters():
-                if name.endswith("bias"):
-                    p.copy_(0.3 * torch.randn_like(p))
-        return ae
-
-    ae = unet_of(torch.bfloat16)
+    under inference_mode and (its kernels have a backward) with gradients
+    on, and the channels-last and NCHW outputs as close to the float32
+    U-Net."""
+    ae = _unet_of(torch.bfloat16, device)
     x = torch.randn(bs, 128, h, w, device=device).to(torch.bfloat16)
     ops.reset_launch_counts()
     with torch.inference_mode():
@@ -1111,18 +1128,154 @@ def test_unet_channels_last_matches_forward(device, bs, h, w):
                          "unet_layout": 2}
     assert got.is_contiguous() and got.dtype == torch.bfloat16
     ops.reset_launch_counts()
-    want = ae(x).detach()
+    assert torch.equal(ae(x).detach(), got)
+    assert _counts() == {"unet_epilogue": 15, "unet_upsample": 2,
+                         "unet_layout": 2}
+    ops.reset_launch_counts()
+    want = plain_path(lambda: ae(x).detach())
     assert _counts() == {}
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
         with torch.no_grad():
-            f32 = unet_of(None)(x.float())
+            f32 = _unet_of(None, device)(x.float())
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     mx, mean = _chain_units(got, f32)
     mx_nchw, mean_nchw = _chain_units(want, f32)
     assert mean <= 1.1 * mean_nchw and mx <= 1.5 * mx_nchw
+
+
+# The backward of the U-Net's passes in the train step, against their
+# plain versions at the train cell's shapes (batch 16, levels of 128x128,
+# 64x64 and 32x32 at 128, 256 and 512 channels, concatenation buffers of 384
+# and 768) and odd ones. The epilogue's dz rounds as the plain version
+# does: bit for bit (a NaN output passes ReLU's gradient and wins its
+# pooling window in both). Its bias gradient and the upsample's backward
+# sum in float32 in another order than the plain versions and round once:
+# within one bf16 unit (the bias at |plain|, the upsample at the larger of
+# |plain| and its mean magnitude).
+UNET_TRAIN_LEVELS = [(16, 128, 128, 128, 384), (16, 256, 64, 64, 768),
+                     (16, 512, 32, 32, None), (2, 24, 37, 53, 40),
+                     (1, 8, 5, 3, 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,c,h,w,c_cat", UNET_TRAIN_LEVELS)
+@pytest.mark.parametrize("act", ["relu", "leaky_relu"])
+def test_unet_epilogue_backward_matches_plain(device, bs, c, h, w, c_cat,
+                                              act):
+    """Dense, and (where the level has a concatenation buffer) from the
+    skip slot of the buffer's gradient with the saved skip a slot too and
+    the pool's gradient."""
+    from sbmc_tpu_torch.nn import unet
+    cl = torch.channels_last
+    gen = torch.Generator(device=device).manual_seed(c + h)
+    out = torch.relu(_cl_bf16(gen, bs, c, h, w, device=device)) if \
+        act == "relu" else _cl_bf16(gen, bs, c, h, w, device=device)
+    out[0, 0, 0, 0] = float("nan")
+    dy = _cl_bf16(gen, bs, c, h, w, device=device)
+    cases = [(dy, out, None)]
+    if c_cat is not None:
+        dcat = _cl_bf16(gen, bs, c_cat, h, w, device=device)
+        skip = torch.empty(bs, c_cat, h, w, dtype=torch.bfloat16,
+                           device=device, memory_format=cl)[:, c_cat - c:]
+        skip.copy_(out)
+        dpool = _cl_bf16(gen, bs, c, h // 2, w // 2, device=device)
+        cases.append((dcat[:, c_cat - c:], skip, dpool))
+    for dy_, out_, dpool in cases:
+        ops.reset_launch_counts()
+        dz, db = unet.epilogue_backward(dy_, out_, act, dpool)
+        assert _counts() == {"unet_epilogue_backward": 1}
+        want_dz, want_db = unet.epilogue_backward_ref(dy_, out_, act, dpool)
+        assert dz.is_contiguous(memory_format=cl)
+        assert torch.equal(dz, want_dz)
+        ulp = torch.pow(2.0, torch.floor(torch.log2(
+            want_db.abs().clamp(min=1e-30))) - 7)
+        assert bool(((db - want_db).abs() <= ulp).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,c,hi,wi,ho,wo,c_cat", [
+    (16, 256, 64, 64, 128, 128, 384), (16, 512, 32, 32, 64, 64, 768),
+    (2, 24, 18, 26, 37, 53, 40), (1, 8, 2, 1, 5, 3, 16),
+    (1, 16, 2, 2, 9, 13, 24)])
+def test_unet_upsample_backward_matches_plain(device, bs, c, hi, wi, ho, wo,
+                                              c_cat):
+    """From the upsampled slot of a concatenation buffer's gradient: the
+    train cell's two levels, odd sizes (the pooled sizes floor), more than
+    a doubling."""
+    from sbmc_tpu_torch.nn import unet
+    gen = torch.Generator(device=device).manual_seed(c + ho)
+    g = _cl_bf16(gen, bs, c_cat, ho, wo, device=device)[:, :c]
+    ops.reset_launch_counts()
+    got = unet.upsample_backward(g, (hi, wi))
+    assert _counts() == {"unet_upsample_backward": 1}
+    want = unet.upsample_backward_ref(g, (hi, wi))
+    assert got.shape == want.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert _chain_units(got, want)[0] <= 1.0
+
+
+def _train_step(model, x, target):
+    """One forward and backward of ``model`` on ``x``: the loss and the
+    parameters' gradients (float32)."""
+    model.zero_grad(set_to_none=True)
+    loss = ((model(x)["radiance"].float() - target) ** 2).mean()
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.float().clone()
+                         for n, p in model.named_parameters()}
+
+
+@pytest.mark.cuda
+def test_sbmc_train_step_unets_channels_last(device, plain_path):
+    """One bf16 train step of the flagship (batch 2 x 8 spp x 128x128): the
+    U-Nets' kernels launch 45 + 6 + 6 times in the forward and 45 epilogue
+    and 6 upsample backwards and 6 more layout changes in the backward; the
+    loss and gradients are as close to the float32 model's (TF32 off) as the
+    NCHW modules' within the train cell's limits: the loss within its
+    ``loss_gap.1`` limit (5e-3, relative) of the NCHW step's, and the median
+    leaf's gradient error within its ``grad_dir.median.rounding`` limit (4
+    times the NCHW step's error)."""
+    from sbmc_tpu_torch.models import Multisteps
+
+    def model_of(dtype):
+        torch.manual_seed(0)
+        return Multisteps(93, 3, width=128, embedding_width=128, ksize=21,
+                          nsteps=3, conv_dtype=dtype).to(device)
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    x = {"radiance": torch.rand(2, 8, 3, 128, 128, generator=gen,
+                                device=device),
+         "features": torch.randn(2, 8, 93, 128, 128, generator=gen,
+                                 device=device),
+         "global_features": torch.randn(2, 3, 1, 1, generator=gen,
+                                        device=device)}
+    target = torch.rand(2, 3, 108, 108, generator=gen, device=device)
+    model = model_of("bfloat16")
+    ops.reset_launch_counts()
+    loss, grads = _train_step(model, x, target)
+    assert _counts() == {"progressive_splat": 8,
+                         "progressive_splat_dlogits": 8,
+                         "unet_epilogue": 45, "unet_upsample": 6,
+                         "unet_layout": 12, "unet_epilogue_backward": 45,
+                         "unet_upsample_backward": 6}
+    loss_nchw, grads_nchw = plain_path(lambda: _train_step(model, x, target))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        loss_f32, grads_f32 = _train_step(model_of(None), x, target)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert abs(loss - loss_nchw) <= 5e-3 * abs(loss_nchw)
+
+    def err(g):
+        return {n: float((g[n] - w).norm() / w.norm())
+                for n, w in grads_f32.items()}
+
+    e, e_nchw = err(grads), err(grads_nchw)
+    ratios = sorted(e[n] / e_nchw[n] for n in e)
+    assert ratios[len(ratios) // 2] <= 4.0
 
 
 # KPCN's channels-last kernels (csrc/kpcn.cu) against their plain versions.

@@ -1,10 +1,11 @@
-"""When each model's forward takes its inference kernels
+"""When each model's forward takes its hand-written kernels
 (``sbmc_tpu_torch.nn.layers.kernel_path``), on the CPU.
 
 One rule decides it for ``Multisteps`` (the per-sample chain kernel),
 ``Autoencoder`` (the channels-last U-Net) and ``KPCN`` (the channels-last
-chains): gradients off, input on the card, bf16 convs and an architecture
-the kernels hold. The ``fake_card`` fixture runs the kernel bindings' CUDA
+chains): gradients off, or kernels that have a backward (the U-Net's
+alone), input on the card, bf16 convs and an architecture the kernels
+hold. The ``fake_card`` fixture runs the kernel bindings' CUDA
 branch on CPU tensors with each launch recorded in place of the call, and
 inputs that say they lie on the card stand for CUDA input. The splat and
 the gathers, which every path runs, return their input state or zeros.
@@ -124,6 +125,13 @@ TAKEN = {"multisteps": {"sample_chain": NSTEPS + SPP},
                          "unet_layout": 2},
          "kpcn": {"kpcn_entry": 2, "unet_epilogue": 2 * (KPCN_DEPTH - 1),
                   "kpcn_exit": 2}}
+#: The forward's launches under gradients: only the U-Net's kernels have a
+#: backward, so the Autoencoder and Multisteps' U-Nets (one a step, on the
+#: plain chains' outputs) take theirs, KPCN none.
+TAKEN_WITH_GRAD = {"multisteps": {"unet_epilogue": 15 * NSTEPS,
+                                  "unet_upsample": 2 * NSTEPS,
+                                  "unet_layout": 2 * NSTEPS},
+                   "autoencoder": TAKEN["autoencoder"], "kpcn": {}}
 
 
 @pytest.mark.parametrize("device", ["card", "cpu"])
@@ -132,8 +140,9 @@ TAKEN = {"multisteps": {"sample_chain": NSTEPS + SPP},
 @pytest.mark.parametrize("name", ["multisteps", "autoencoder", "kpcn"])
 def test_kernels_taken_only_without_grad_on_card_bf16(
         monkeypatch, fake_card, name, conv_dtype, grad, device):
-    """The kernels launch only for bf16 convs without gradients on the
-    card, each as many times as the path makes them; otherwise the plain
+    """The inference kernels launch only for bf16 convs without gradients
+    on the card, each as many times as the path makes them; with gradients
+    on only the U-Net's (which have a backward); otherwise the plain
     modules run, no kernel launches, KPCN's gathers normalise, and the
     chain kernel's build is never asked what it holds."""
     gathers = []
@@ -152,10 +161,12 @@ def test_kernels_taken_only_without_grad_on_card_bf16(
              else {k: fake_card.on_card(v) for k, v in x.items()})
     with torch.set_grad_enabled(grad):
         model(x)
-    takes = conv_dtype == "bfloat16" and not grad and device == "card"
+    on_card_bf16 = conv_dtype == "bfloat16" and device == "card"
+    takes = on_card_bf16 and not grad
     names = [launch[0] for launch in fake_card.launches]
-    assert {n: names.count(n) for n in names} == (TAKEN[name] if takes
-                                                  else {})
+    assert {n: names.count(n) for n in names} == (
+        TAKEN[name] if takes else TAKEN_WITH_GRAD[name] if on_card_bf16
+        else {})
     if name == "kpcn":
         assert gathers == [not takes] * 2
     if name == "multisteps":
