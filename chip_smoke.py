@@ -141,8 +141,8 @@ Phases, each printing one line (or a few) before the last:
    ``multi-card: not run (1 device)``.
 
 The composed kernels' phases and the other entry points run between these
-(4b to 4e after 4, 18 to 20 after 4e, 6b after 6, 8b to 8i after 8; 12 after 8i,
-13 after 11d, 14 after 10):
+(4b to 4e after 4, 18 to 21 after 4e, 6b after 6, 8b to 8i after 8; 12
+after 8i, 13 after 11d, 14 after 10):
 
 18. per-sample chains: (a) the per-sample chain kernel
     (``csrc/sample_chain.cu``: an embedding step, the kernel regressor)
@@ -176,7 +176,8 @@ The composed kernels' phases and the other entry points run between these
     there through the NCHW modules, the same modules on channels-last
     tensors (stock autograd) and the port's Function. The bf16 SBMC
     training paths (8, 8f, 11d, 15d, 16b, 16c) launch the U-Net's forward
-    and backward kernels in every step (``_unet_train_launches``);
+    and backward kernels in every step (``_unet_train_launches``), on the
+    per-sample chains' channels-last layout since 21 (no layout change);
 
 20. KPCN's channels-last kernels (``csrc/kpcn.cu``): (a) KPCN at full
     width, bf16 (random weights), at every tile shape the paths give it
@@ -191,6 +192,24 @@ The composed kernels' phases and the other entry points run between these
     channels-last convolutions alone at the tile's shapes, at widths 104,
     112 and 128 and predictions of 448 and 512, and each whole chain), and
     the whole KPCN against the NCHW one;
+
+21. the per-sample chains of the train step, pixel-major
+    (``nn/chain_train.py``, ``csrc/chain_train.cu``): (a) the flagship's
+    forward and backward under gradients at every training shape
+    (CHAIN_TRAIN_SHAPES: float16 features, one sample masked), each launch
+    of the five chain kernels held to its plain version (the entry, the
+    epilogues and the logits' clamp and gradient bit for bit; the mean, the
+    bias gradients and the sums over the samples within one bf16 unit),
+    the launches a step (``_chain_train_launches``, the U-Nets' without
+    layout changes), the gradients held to the NCHW modules' distance from
+    the float32 model's; (b) each kernel timed at the train cell's shapes
+    (16 x 8 spp x 128x128, 93 features, widths 128, 441 logits) on the host
+    clock and by CUDA-graph replay beside the plain version and the bound
+    (bytes at 3.35 TB/s), and the chains' forward and backward for one
+    step (three embedding steps and the regressor, on random U-Net
+    outputs) through the NCHW modules and through the Functions, with the
+    Functions' host time. The bf16 SBMC training paths launch the chain
+    kernels in every step (``_train_launches``);
 4b. composed kernels: holds kernel weighting and its gradient to the
     weights (each as the tiled kernel and the generic one) and
     scatter2gather against their plain versions (k in {3, 5, 21}, odd
@@ -379,6 +398,24 @@ KERNELS = (
     ("kpcn_exit", _CSRC + "kpcn.cu",
      "none: XLA fused the prediction's bias, the softmax over the taps and "
      "the layout of sbmc_tpu/models/kpcn.py's kernels"),
+    # The passes around cuBLAS's products of the per-sample 1x1 chains in
+    # the train step, and their backward: XLA fused them into the 1x1
+    # convolutions of sbmc_tpu/models/multisteps.py.
+    ("chain_entry", _CSRC + "chain_train.cu",
+     "none: XLA fused the cast, the global features' concatenation and the "
+     "layout of sbmc_tpu/models/multisteps.py's embedding input"),
+    ("chain_epilogue", _CSRC + "chain_train.cu",
+     "none: XLA fused the bias, activation, concatenation and masked mean "
+     "of sbmc_tpu/models/multisteps.py's per-sample chains"),
+    ("chain_epilogue_backward", _CSRC + "chain_train.cu",
+     "none: XLA fused the backward of the bias, activation, concatenation "
+     "and masked mean of sbmc_tpu/models/multisteps.py's per-sample chains"),
+    ("chain_logits", _CSRC + "chain_train.cu",
+     "none: XLA fused the bias and the logit clamp of "
+     "sbmc_tpu/models/multisteps.py's kernel regressor"),
+    ("chain_logits_backward", _CSRC + "chain_train.cu",
+     "none: XLA fused the backward of the bias and the logit clamp of "
+     "sbmc_tpu/models/multisteps.py's kernel regressor"),
 )
 #: Phase 16's SBMC training paths, each rank's apart.
 _DP_SBMC = ("dp_world1", "dp_steps_rank0", "dp_steps_rank1",
@@ -393,8 +430,9 @@ _BF16_SBMC_INFERENCE = ("denoise", "eval", "bench", "bench_ragged",
                         "dp_replicas_uniform")
 #: The paths that run bf16 KPCN inference.
 _BF16_KPCN_INFERENCE = ("kpcn_denoise_bf16", "eval", "bench_kpcn")
-#: The paths that train SBMC with bf16 convs: their U-Nets run channels-last
-#: in the train steps, forward and backward.
+#: The paths that train SBMC with bf16 convs: their per-sample chains run
+#: pixel-major and their U-Nets channels-last in the train steps, forward
+#: and backward.
 _BF16_SBMC_TRAIN = ("train_bf16", "reservoir_bf16", "render_train",
                     "pbrt_train", "dp_steps_bf16_rank0", "dp_steps_bf16_rank1",
                     "dp_cli_rank0", "dp_cli_rank1")
@@ -455,11 +493,17 @@ MUST_LAUNCH = {
     "unet_epilogue": _BF16_SBMC_INFERENCE + _BF16_SBMC_TRAIN + (
         "kpcn_denoise_bf16", "bench_kpcn"),
     "unet_upsample": _BF16_SBMC_INFERENCE + _BF16_SBMC_TRAIN,
-    "unet_layout": _BF16_SBMC_INFERENCE + _BF16_SBMC_TRAIN,
+    # In the train step the U-Nets read and write the chains' layout.
+    "unet_layout": _BF16_SBMC_INFERENCE,
     "unet_epilogue_backward": _BF16_SBMC_TRAIN,
     "unet_upsample_backward": _BF16_SBMC_TRAIN,
     "kpcn_entry": _BF16_KPCN_INFERENCE,
     "kpcn_exit": _BF16_KPCN_INFERENCE,
+    "chain_entry": _BF16_SBMC_TRAIN,
+    "chain_epilogue": _BF16_SBMC_TRAIN,
+    "chain_epilogue_backward": _BF16_SBMC_TRAIN,
+    "chain_logits": _BF16_SBMC_TRAIN,
+    "chain_logits_backward": _BF16_SBMC_TRAIN,
 }
 #: The generic variants of the splat, kernel-weighting (plain and exp),
 #: scatter2gather and triangle kernels (the first port's per-pixel,
@@ -486,16 +530,24 @@ _OP_OF = {"progressive_splat": "splat", "progressive_splat_ddata": "splat",
           "unet_epilogue": "unet", "unet_upsample": "unet",
           "unet_layout": "unet", "unet_epilogue_backward": "unet_train",
           "unet_upsample_backward": "unet_train", "kpcn_entry": "kpcn",
-          "kpcn_exit": "kpcn"}
+          "kpcn_exit": "kpcn", "chain_entry": "chain_train",
+          "chain_epilogue": "chain_train",
+          "chain_epilogue_backward": "chain_train",
+          "chain_logits": "chain_train",
+          "chain_logits_backward": "chain_train"}
 #: The kernels any bf16 SBMC inference launches (display strips of training
 #: runs too), bf16 KPCN inference's layout kernels, and the U-Net's backward
-#: kernels of bf16 SBMC training, held to the cases compared with the plain
-#: versions on every path (KPCN's epilogues with its chains: phase 20a checks
-#: them in the same calls; the U-Net's forward under gradients with its
-#: inference cases, which 19a compares at every training shape too).
+#: kernels and the per-sample chains' kernels of bf16 SBMC training, held to
+#: the cases compared with the plain versions on every path (KPCN's
+#: epilogues with its chains: phase 20a checks them in the same calls; the
+#: U-Net's forward under gradients with its inference cases, which 19a
+#: compares at every training shape too; the U-Net's epilogue between the
+#: chains' products with the chains, 21a).
 _MODEL_KERNELS = ("sample_chain", "unet_epilogue", "unet_upsample",
                   "unet_layout", "kpcn_entry", "kpcn_exit",
-                  "unet_epilogue_backward", "unet_upsample_backward")
+                  "unet_epilogue_backward", "unet_upsample_backward",
+                  "chain_entry", "chain_epilogue", "chain_epilogue_backward",
+                  "chain_logits", "chain_logits_backward")
 
 #: (bs, c, h, w, logit type) the paths give the splat step, k = 21: the
 #: denoise path's tile, a training batch in float32 and with --bf16 (from
@@ -702,13 +754,15 @@ class _record_shapes:
 
     def __init__(self, ops):
         from sbmc_tpu_torch.models.kpcn import KPCN
-        from sbmc_tpu_torch.nn import sample_chain
+        from sbmc_tpu_torch.nn import chain_train, sample_chain
         from sbmc_tpu_torch.nn.layers import Autoencoder
         self.ops, self.sc, self.ae, self.kpcn = (ops, sample_chain,
                                                  Autoencoder, KPCN)
+        self.ct = chain_train
         self.seen = {"splat": set(), "kw": set(), "s2g": set(),
                      "s2g_max": set(), "kw_exp": set(), "chain": set(),
-                     "unet": set(), "unet_train": set(), "kpcn": set()}
+                     "unet": set(), "unet_train": set(), "kpcn": set(),
+                     "chain_train": set()}
 
     def __enter__(self):
         ops, sc, seen = self.ops, self.sc, self.seen
@@ -716,9 +770,10 @@ class _record_shapes:
                       ops.scatter2gather, ops.scatter2gather_max,
                       ops.kernel_weighting_exp, sc.embedding_step,
                       sc.regress, self.ae.forward_channels_last,
-                      self.kpcn.forward_channels_last)
+                      self.kpcn.forward_channels_last,
+                      self.ct.embedding_step, self.ct.regress)
         (splat, kw, s2g, s2g_max, kw_exp, embed, regress,
-         unet, kpcn) = self.plain
+         unet, kpcn, train_embed, train_regress) = self.plain
 
         def rec_splat(data, klogits, *state):
             if data.is_cuda:
@@ -767,6 +822,16 @@ class _record_shapes:
                 seen["kpcn"].add(_kpcn_case(module, data["kpcn_diffuse_in"]))
             return kpcn(module, data)
 
+        def rec_train_embed(chain, x, *rest):
+            if x.is_cuda:
+                seen["chain_train"].add(_chain_train_case(chain, x))
+            return train_embed(chain, x, *rest)
+
+        def rec_train_regress(chain, x, *rest):
+            if x.is_cuda:
+                seen["chain_train"].add(_chain_train_case(chain, x))
+            return train_regress(chain, x, *rest)
+
         ops.progressive_splat_update = rec_splat
         ops.kernel_weighting = rec_kw
         ops.scatter2gather = rec_s2g
@@ -776,6 +841,8 @@ class _record_shapes:
         sc.regress = rec_regress
         self.ae.forward_channels_last = rec_unet
         self.kpcn.forward_channels_last = rec_kpcn
+        self.ct.embedding_step = rec_train_embed
+        self.ct.regress = rec_train_regress
         return seen
 
     def __exit__(self, *exc):
@@ -783,7 +850,8 @@ class _record_shapes:
          self.ops.scatter2gather, self.ops.scatter2gather_max,
          self.ops.kernel_weighting_exp, self.sc.embedding_step,
          self.sc.regress, self.ae.forward_channels_last,
-         self.kpcn.forward_channels_last) = self.plain
+         self.kpcn.forward_channels_last, self.ct.embedding_step,
+         self.ct.regress) = self.plain
 
 
 @contextlib.contextmanager
@@ -827,25 +895,48 @@ def _unet_launches(calls):
             "unet_layout": 2 * calls}
 
 
-def _unet_train_launches(steps, nsteps=3):
+def _unet_train_launches(steps, nsteps=3, layout=True):
     """Launches of ``steps`` bf16 SBMC train steps' U-Nets (``nsteps`` a
     step): each U-Net's inference launches in the forward, then the
     epilogue's backward once a convolution, the upsample's once a level
-    below the top and the layout change on each side in the backward."""
+    below the top and the layout change on each side in the backward;
+    without ``layout`` (the U-Net on the chains' channels-last layout) no
+    layout change."""
     calls = steps * nsteps
-    return _summed(_unet_launches(calls), {
+    want = _summed(_unet_launches(calls), {
         "unet_epilogue_backward": 15 * calls,
         "unet_upsample_backward": 2 * calls, "unet_layout": 2 * calls})
+    if not layout:
+        del want["unet_layout"]
+    return want
+
+
+def _chain_train_launches(steps, spp, nsteps=3):
+    """Launches of ``steps`` bf16 SBMC train steps' per-sample chains: the
+    entry once; the per-sample epilogue for each layer with a per-pixel
+    term or a mean (1 in step 0, 2 in each later step, 1 in the regressor)
+    and the U-Net's epilogue for the others (2, 1 and 1); the logits' once;
+    then each one's backward, the logits' once a sample."""
+    return {"chain_entry": steps, "chain_epilogue": 2 * nsteps * steps,
+            "chain_logits": steps,
+            "chain_epilogue_backward": 2 * nsteps * steps,
+            "chain_logits_backward": spp * steps,
+            "unet_epilogue": (nsteps + 2) * steps,
+            "unet_epilogue_backward": (nsteps + 2) * steps}
 
 
 def _train_launches(steps, spp, bf16):
     """Launches inside ``steps`` SBMC train steps: the forward and
     logits-gradient splat kernels once a sample slot (masked samples too;
     nothing asks for the gradient to the radiance, a batch input), and with
-    bf16 convs the U-Nets' (:func:`_unet_train_launches`)."""
+    bf16 convs the per-sample chains' (:func:`_chain_train_launches`) and
+    the U-Nets' on their layout (:func:`_unet_train_launches`)."""
     want = {"progressive_splat": steps * spp,
             "progressive_splat_dlogits": steps * spp}
-    return _summed(want, _unet_train_launches(steps)) if bf16 else want
+    if not bf16:
+        return want
+    return _summed(want, _unet_train_launches(steps, layout=False),
+                   _chain_train_launches(steps, spp))
 
 
 def _fused_launches(tiles, spp, nsteps=3):
@@ -5113,7 +5204,7 @@ def _chain_checks(sc):
 
 def _chain_model_checks(ops, sc):
     """18b: the model calls the kernel 3 + spp times under inference and
-    never with gradients on (where only the U-Nets take their kernels), and
+    never with gradients on (where the training path's kernels run), and
     the wrapper refuses what requires grad."""
     from sbmc_tpu_torch.models.multisteps import Multisteps
     torch.manual_seed(0)
@@ -5138,7 +5229,10 @@ def _chain_model_checks(ops, sc):
     plain = model(x)["radiance"].detach()
     torch.cuda.synchronize()
     got = _nonzero(ops.launch_counts)
-    if got != {"progressive_splat": spp, **_unet_launches(3)}:
+    forward = {k: n for k, n in _train_launches(1, spp, True).items()
+               if not k.endswith("backward")
+               and k != "progressive_splat_dlogits"}
+    if got != forward:
         raise AssertionError("a forward with gradients launched %s" % got)
     rel = float((fused - plain).norm() / plain.norm())
     print("18b flagship %s: inference %s launches, with gradients 0; "
@@ -5866,6 +5960,353 @@ def _kpcn_layout_phase(ops):
     return numbers
 
 
+#: (bs, spp, h, w) the paths give the flagship's per-sample chains under
+#: gradients (bf16 SBMC training: batches of 4 128x128 tiles at 8 spp, 2 a
+#: rank in phase 16), after an odd size no path gives, and the train cell's
+#: batch of 16 last (21b times the kernels there).
+CHAIN_TRAIN_SHAPES = ((2, 3, 37, 53), (4, 8, 128, 128), (2, 8, 128, 128),
+                      (16, 8, 128, 128))
+#: 21a: the median leaf's gradient error (against the float32 model) over
+#: the NCHW modules' may be at most this.
+CHAIN_GRAD_RATIO = 2.0
+_CHAIN_KERNELS = ("chain_entry", "chain_epilogue", "chain_epilogue_backward",
+                  "chain_logits", "chain_logits_backward")
+
+
+def _chain_train_case(chain, x):
+    """A call of an embedding step or the regressor on the training path:
+    the pixel-major input's shape and the chain's outputs (the kernels'
+    shapes follow)."""
+    return ("chain_train",) + tuple(x.shape) + (chain.prediction.v.shape[0],)
+
+
+class _checked_chain_kernels:
+    """While active, each launch of the five chain kernels is held to its
+    plain version on the same inputs: the entry, the epilogue's output, the
+    epilogue's backward's dz, the logits and their gradient bit for bit;
+    the mean, the bias gradients and the sum over the samples within one
+    bf16 unit (float32 sums in another order, each rounded once). Notes the
+    launches."""
+
+    def __enter__(self):
+        from sbmc_tpu_torch.nn import chain_train as ct
+        self.ct, self.launched = ct, []
+        self.real = (ct.entry, ct.epilogue, ct.epilogue_backward, ct.logits,
+                     ct.logits_backward)
+        entry, epilogue, epilogue_bwd, logits, logits_bwd = self.real
+
+        def same(name, got, want):
+            if not torch.allclose(got, want, rtol=0, atol=0, equal_nan=True):
+                raise AssertionError("%s disagrees with its plain version at "
+                                     "%s" % (name, tuple(got.shape)))
+
+        def within_a_unit(name, got, want):
+            err = float(_bf16_units(got, want).max())
+            _note_err(name, err)
+            if err > 1.0:
+                raise AssertionError("%s %.2f bf16 units from its plain "
+                                     "version at %s" % (name, err,
+                                                        tuple(got.shape)))
+
+        def checked_entry(features, gf, k, dtype):
+            got = entry(features, gf, k, dtype)
+            same("chain_entry", got, ct.entry_ref(features, gf, k, dtype))
+            self.launched.append("chain_entry")
+            return got
+
+        def checked_epilogue(z, bias, act, dtype, e=None, mask=None,
+                             nvalid=None):
+            want, want_red = ct.epilogue_ref(z, bias, act, dtype, e, mask,
+                                             nvalid)
+            got, red = epilogue(z, bias, act, dtype, e, mask, nvalid)
+            same("chain_epilogue", got, want)
+            if mask is not None:
+                within_a_unit("chain_epilogue", red, want_red)
+            self.launched.append("chain_epilogue")
+            return got, red
+
+        def checked_epilogue_bwd(dy, out, act, dred=None, mask=None,
+                                 nvalid=None, sum_samples=False):
+            want = ct.epilogue_backward_ref(dy, out, act, dred, mask, nvalid,
+                                            sum_samples)
+            got = epilogue_bwd(dy, out, act, dred, mask, nvalid, sum_samples)
+            same("chain_epilogue_backward", got[0], want[0])
+            within_a_unit("chain_epilogue_backward", got[1], want[1])
+            if sum_samples:
+                within_a_unit("chain_epilogue_backward", got[2], want[2])
+            self.launched.append("chain_epilogue_backward")
+            return got
+
+        def checked_logits(z, bias):
+            want = ct.logits_ref(z, bias)
+            same("chain_logits", logits(z, bias), want)
+            self.launched.append("chain_logits")
+            return z
+
+        def checked_logits_bwd(g, out, partials, row0, dbias=None):
+            bs, k2, hw = out.shape
+            want, want_db = ct.logits_backward_ref(g.reshape(bs, k2, hw), out)
+            got = logits_bwd(g, out, partials, row0, dbias)
+            same("chain_logits_backward", got, want)
+            self.launched.append("chain_logits_backward")
+            return got
+
+        (ct.entry, ct.epilogue, ct.epilogue_backward, ct.logits,
+         ct.logits_backward) = (checked_entry, checked_epilogue,
+                                checked_epilogue_bwd, checked_logits,
+                                checked_logits_bwd)
+        return self
+
+    def __exit__(self, *exc):
+        (self.ct.entry, self.ct.epilogue, self.ct.epilogue_backward,
+         self.ct.logits, self.ct.logits_backward) = self.real
+
+
+def _flagship_module(seed, dtype="bfloat16"):
+    """The flagship on the card (random weights and biases), its logits in
+    the conv dtype as the train cell runs them."""
+    from sbmc_tpu_torch.models import Multisteps
+    torch.manual_seed(seed)
+    model = Multisteps(93, 3, width=128, embedding_width=128, ksize=21,
+                       nsteps=3, conv_dtype=dtype, kernel_dtype=dtype)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.1 * torch.randn_like(p))
+    return model.cuda()
+
+
+def _train_batch(gen, bs, spp, h, w):
+    """A training batch on the card as the reservoir gives it (float16
+    features), one sample of the last batch item masked."""
+    mask = torch.ones(bs, spp, dtype=torch.bool, device="cuda")
+    mask[-1, spp // 2] = False
+    return ({"radiance": torch.rand(bs, spp, 3, h, w, generator=gen,
+                                    device="cuda"),
+             "features": torch.randn(bs, spp, 93, h, w, generator=gen,
+                                     device="cuda").half(),
+             "global_features": torch.randn(bs, 3, 1, 1, generator=gen,
+                                            device="cuda"),
+             "sample_mask": mask},
+            torch.rand(bs, 3, h - 20, w - 20, generator=gen, device="cuda"))
+
+
+def _model_grads(model, x, target):
+    """Every parameter's gradient (float32) of one step's loss."""
+    loss = ((model(x)["radiance"].float() - target) ** 2).mean()
+    return [g.float() for g in torch.autograd.grad(loss,
+                                                   list(model.parameters()))]
+
+
+def _chain_train_checks(ops):
+    """21a: the flagship's forward and backward at every training shape,
+    each chain kernel launch against its plain version, the launches a
+    step, the gradients against the NCHW modules' distance from the float32
+    model's."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rows = []
+    for i, (bs, spp, h, w) in enumerate(CHAIN_TRAIN_SHAPES):
+        model = _flagship_module(i)
+        x, target = _train_batch(gen, bs, spp, h, w)
+        ops.reset_launch_counts()
+        with _record_shapes(ops) as seen, _checked_chain_kernels() as checked:
+            got = _model_grads(model, x, target)
+        # The splat's kernels as the shape routes them (the odd width to
+        # the generic ones): phase 4 checks them.
+        want = {k: n for k, n in _train_launches(1, spp, True).items()
+                if not k.startswith("progressive_splat")}
+        counts = {k: checked.launched.count(k) for k in _CHAIN_KERNELS}
+        if counts != {k: want[k] for k in _CHAIN_KERNELS} or {
+                k: n for k, n in _nonzero(ops.launch_counts).items()
+                if not k.startswith("progressive_splat")} != want:
+            raise AssertionError("flagship forward and backward at %s "
+                                 "launched %s (counted %s)" % (
+                                     (bs, spp, h, w), counts,
+                                     _nonzero(ops.launch_counts)))
+        for name in _CHAIN_KERNELS:
+            _COMPARED[name] |= seen["chain_train"]
+        with _plain_path():
+            nchw = _model_grads(model, x, target)
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        f32 = _model_grads(_flagship_module(i, None), x, target)
+        torch.backends.cudnn.allow_tf32 = tf32
+
+        def err(gs):
+            return [float((g - r).norm() / r.norm()) for g, r in zip(gs, f32)]
+
+        ratios = sorted(a / b for a, b in zip(err(got), err(nchw)))
+        median = ratios[len(ratios) // 2]
+        rows.append(((bs, spp, h, w), median, ratios[-1]))
+        if median > CHAIN_GRAD_RATIO:
+            raise AssertionError("flagship gradients at %s: the median "
+                                 "leaf's error %.3g of the NCHW one's "
+                                 "(largest %.3g)" % rows[-1])
+        del model, x, target, got, nchw, f32
+        torch.cuda.empty_cache()
+    print("21a the flagship's forward and backward at %d shapes: every chain "
+          "kernel launch against its plain version (the mean, bias gradients "
+          "and sums over the samples within %.2f units); the leaves' "
+          "gradient error from float32 over the NCHW modules' (median, "
+          "largest): %s" % (
+              len(CHAIN_TRAIN_SHAPES),
+              max(_MAX_ERR.get(k, 0.0) for k in _CHAIN_KERNELS),
+              "; ".join("%s %.3f %.3f" % r for r in rows)))
+
+
+def _chain_train_times(ops, numbers):
+    """21b: each chain kernel at the train cell's shapes (16 x 8 spp x
+    128x128), and the chains' forward and backward for one step through the
+    NCHW modules and through the Functions."""
+    from sbmc_tpu_torch.nn import chain_train as ct
+    from sbmc_tpu_torch.nn import sample_chain as sc
+    bf16 = torch.bfloat16
+    bs, spp, h, w, c, k2 = 16, 8, 128, 128, 128, 441
+    hw, rows = h * w, spp * bs * h * w
+    gen = torch.Generator(device="cuda").manual_seed(24)
+
+    def rand(*shape, dtype=bf16):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    def row(name, tag, fn, plain, nbytes):
+        ms = _time_ms(fn, 3, 20)
+        device_ms = _graph_ms(fn, iters=10, reps=3)
+        _record_times(numbers, name, tag, ms, _time_ms(plain, 1, 3),
+                      nbytes / H100_BYTES_PER_S * 1e3, "bytes",
+                      device_ms=device_ms,
+                      gbytes_s=round(nbytes / device_ms / 1e6, 1))
+
+    mask = torch.ones(bs, spp, device="cuda", dtype=bf16)
+    nvalid = mask.sum(1)
+    with torch.no_grad():
+        feats = rand(bs, spp, 93, h, w, dtype=torch.float16)
+        gf = rand(bs, 3, dtype=torch.float32)
+        row("chain_entry", "16x8x93x128x128 float16 to 96 channels",
+            lambda: ct.entry(feats, gf, 96, bf16),
+            lambda: ct.entry_ref(feats, gf, 96, bf16),
+            feats.numel() * 2 + rows * 96 * 2)
+        del feats
+        z, e = rand(spp, bs, hw, c, dtype=torch.float32), rand(
+            bs, hw, c, dtype=torch.float32)
+        bias = rand(c, dtype=torch.float32)
+        row("chain_epilogue", "16x8x128x128x128 float32 + per-pixel term, "
+            "ReLU", lambda: ct.epilogue(z, bias, "relu", bf16, e=e),
+            lambda: ct.epilogue_ref(z, bias, "relu", bf16, e=e),
+            z.numel() * 4 + e.numel() * 4 + rows * c * 2)
+        del z, e
+        zb = rand(spp, bs, hw, c)
+        row("chain_epilogue", "16x8x128x128x128 bf16 in place, masked mean",
+            lambda: ct.epilogue(zb, bias, "linear", bf16, mask=mask,
+                                nvalid=nvalid),
+            lambda: ct.epilogue_ref(zb, bias, "linear", bf16, mask=mask,
+                                    nvalid=nvalid),
+            2 * zb.numel() * 2 + bs * hw * c * 2)
+        dy, out = rand(spp, bs, hw, c), torch.relu(rand(spp, bs, hw, c))
+        dred = rand(bs, hw, c)
+        row("chain_epilogue_backward", "16x8x128x128x128, ReLU, the sum over "
+            "the samples", lambda: ct.epilogue_backward(
+                dy, out, "relu", sum_samples=True),
+            lambda: ct.epilogue_backward_ref(dy, out, "relu",
+                                             sum_samples=True),
+            3 * dy.numel() * 2 + bs * hw * c * 2)
+        row("chain_epilogue_backward", "16x8x128x128x128, the mean's "
+            "gradient", lambda: ct.epilogue_backward(
+                dy, None, "linear", dred, mask, nvalid),
+            lambda: ct.epilogue_backward_ref(dy, None, "linear", dred, mask,
+                                             nvalid),
+            2 * dy.numel() * 2 + dred.numel() * 2)
+        del zb, dy, out, dred
+        torch.cuda.empty_cache()
+        zl = rand(spp * bs, k2, hw)
+        lbias = rand(k2, dtype=torch.float32)
+        row("chain_logits", "128x441x128x128 in place",
+            lambda: ct.logits(zl, lbias), lambda: ct.logits_ref(zl, lbias),
+            2 * zl.numel() * 2)
+        g = rand(bs, k2, h, w)
+        partials = torch.empty(spp * bs, k2, device="cuda")
+        dbias = torch.empty(k2, device="cuda")
+        row("chain_logits_backward", "one sample's 16x441x128x128 and the "
+            "bias sum", lambda: ct.logits_backward(g, zl[:bs], partials, 0,
+                                                  dbias),
+            lambda: ct.logits_backward_ref(g.reshape(bs, k2, hw), zl[:bs]),
+            3 * g.numel() * 2)
+        del zl, g
+        torch.cuda.empty_cache()
+
+    # The chains alone for one step: three embedding steps and the
+    # regressor, on random U-Net outputs, forward and backward.
+    model = _flagship_module(0)
+    chains = [getattr(model, "embedding_%02d" % s) for s in range(3)]
+    reg = model.kernel_stage.kernel_regressor
+    feats = rand(bs, spp, 93, h, w, dtype=torch.float16)
+    gf = rand(bs, 3, dtype=torch.float32)
+    prop = rand(bs, c, h, w).requires_grad_()
+    prop_pm = prop.detach().permute(0, 2, 3, 1).reshape(
+        bs, hw, c).contiguous().requires_grad_()
+    cot_red = rand(bs, c, h, w)
+    cot_logits = rand(bs, k2, h, w)
+
+    def nchw():
+        x, extra = feats.to(bf16), gf.to(bf16)[:, :, None, None]
+        outs = []
+        for chain in chains:
+            x, red = sc.embedding_step_ref(chain, x, extra, mask, nvalid)
+            outs.append(red)
+            extra = prop
+        outs += [sc.regress_ref(reg, x[:, s], prop, None) for s in range(spp)]
+        torch.autograd.backward(outs, [cot_red] * 3 + [cot_logits] * spp)
+
+    pm_red = cot_red.permute(0, 2, 3, 1).reshape(bs, hw, c)
+
+    def port():
+        x = ct.entry(feats, gf.to(bf16), 96, bf16)
+        e, outs = None, []
+        for chain in chains:
+            x, red = ct.embedding_step(chain, x, e, mask, nvalid)
+            outs.append(red)
+            e = prop_pm
+        outs += list(ct.regress(reg, x, e, (h, w)))
+        torch.autograd.backward(outs, [pm_red] * 3 + [cot_logits] * spp)
+
+    def host_ms(fn, iters=5):
+        total = 0.0
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            total += time.perf_counter() - t0
+            torch.cuda.synchronize()
+        return total / iters * 1e3
+
+    ops.reset_launch_counts()
+    port_ms = _time_ms(port, 2, 5)
+    launched = _nonzero(ops.launch_counts)
+    nchw_ms = _time_ms(nchw, 2, 5)
+    port_host, nchw_host = host_ms(port), host_ms(nchw)
+    numbers["chain_epilogue"]["chains_fwd_bwd_ms"] = {
+        "nchw": nchw_ms, "port": port_ms, "nchw_host": nchw_host,
+        "port_host": port_host}
+    print("21b the chains' forward and backward for one step at 16 x 8 spp x "
+          "128x128 (three embedding steps and the regressor): NCHW modules "
+          "%.2f ms (host %.2f ms), the port's Functions %.2f ms (host %.2f "
+          "ms; %s launched in 7)" % (nchw_ms, nchw_host, port_ms, port_host,
+                                     json.dumps(launched)))
+    del model, feats, prop, prop_pm
+    torch.cuda.empty_cache()
+
+
+def _chain_train_phase(ops):
+    """21: the per-sample chains of the train step
+    (``csrc/chain_train.cu``): against their plain versions at the paths'
+    shapes, and timed at the train cell's. Returns their numbers."""
+    t0 = time.perf_counter()
+    numbers = {}
+    _chain_train_checks(ops)
+    _chain_train_times(ops, numbers)
+    print("phase 21: %.1f s" % (time.perf_counter() - t0))
+    return numbers
+
+
 def _sample_chain_phase(ops):
     """18: the per-sample chain kernel (``csrc/sample_chain.cu``): against
     its plain version, in the model, and timed at the bench's shapes.
@@ -5925,6 +6366,7 @@ def main():
     numbers.update(_sample_chain_phase(ops))
     numbers.update(_unet_phase(ops))
     numbers.update(_kpcn_layout_phase(ops))
+    numbers.update(_chain_train_phase(ops))
     checkpoint = os.path.join(ROOT, "weights", "flagship_f16")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -15,11 +15,18 @@ backward runs the hand-written backward kernels on the card). With
 in the backward pass (``torch.utils.checkpoint``), as ``nn.remat`` does in
 the JAX model.
 
-Where :func:`~sbmc_tpu_torch.nn.layers.kernel_path` says so (gradients off,
-on the card, bf16 convs, ``kernels_fit``), each embedding step and each
-sample's kernel regressor is one launch of the hand-written per-sample chain
-kernel (:mod:`sbmc_tpu_torch.nn.sample_chain`): 3 + ``spp`` launches a call
-at three steps. Otherwise the unfused modules run (it has no backward).
+Where :func:`~sbmc_tpu_torch.nn.layers.kernel_path` says so (on the card,
+bf16 convs, ``kernels_fit``), the per-sample chains take hand-written
+kernels. With gradients off each embedding step and each sample's kernel
+regressor is one launch of the per-sample chain kernel
+(:mod:`sbmc_tpu_torch.nn.sample_chain`): 3 + ``spp`` launches a call at
+three steps. With gradients on they run on pixel-major matrices
+(:mod:`sbmc_tpu_torch.nn.chain_train`): each embedding step is one autograd
+Function of cuBLAS products and hand-written epilogues, the regressor one
+over all samples, and the U-Nets read and write the chains' layout
+(channels-last). With ``remat`` an embedding step's Function recomputes its
+activations in the backward pass, as the plain stack does. Otherwise the
+unfused modules run.
 
 While tracing is on (:mod:`sbmc_tpu_torch.tracing`) a call is the span
 ``sbmc.forward``, with ``sbmc.embedding`` (the chain and the masked mean
@@ -32,7 +39,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from sbmc_tpu_torch import tracing
-from sbmc_tpu_torch.nn import layers, sample_chain
+from sbmc_tpu_torch.nn import chain_train, layers, sample_chain
 from sbmc_tpu_torch.nn.kernel_apply import (progressive_init,
                                             progressive_kernel_apply)
 from sbmc_tpu_torch.nn.layers import Autoencoder, ConvChain, dtype_of
@@ -84,8 +91,8 @@ class Multisteps(nn.Module):
     ``[bs, spp, ksize**2, h, w]``.
     """
 
-    #: The per-sample chain kernel has no backward: inference only.
-    kernels_backward = False
+    #: The per-sample chains have a training path (``nn/chain_train.py``).
+    kernels_backward = True
 
     def __init__(self, n_features, n_global_features, width=128,
                  embedding_width=128, ksize=21, splat=True, nsteps=3,
@@ -124,19 +131,28 @@ class Multisteps(nn.Module):
                                          ksize * ksize, width,
                                          self.conv_dtype)
 
-    def _stack(self, name, x):
-        module = getattr(self, name)
+    def _remat(self, fn, *args):
+        """``fn(*args)``, recomputed in the backward pass with ``remat``."""
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(module, x, use_reentrant=False)
-        return module(x)
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    def _stack(self, name, x):
+        return self._remat(getattr(self, name), x)
 
     @property
     def kernels_fit(self):
         """Whether the per-sample chain kernel holds every embedding step
-        and the kernel regressor. Asks the CUDA build, loading it (building
-        it on first use): only ``layers.kernel_path`` reads this, last."""
+        and the kernel regressor, and the training path's kernels their
+        widths (multiples of 8; the entry's row at most
+        ``chain_train.MAX_ENTRY`` channels). Asks the CUDA build, loading it
+        (building it on first use): only ``layers.kernel_path`` reads this,
+        last."""
         nf, ngf, ew, w = self._chain_channels
-        return (sample_chain.embedding_fits(self.embedding_00, nf, ngf, False)
+        return (ew % 8 == 0 and w % 8 == 0
+                and chain_train.pad8(nf + ngf) <= chain_train.MAX_ENTRY
+                and sample_chain.embedding_fits(self.embedding_00, nf, ngf,
+                                                False)
                 and all(sample_chain.embedding_fits(
                     getattr(self, f"embedding_{s:02d}"), ew, w, True)
                     for s in range(1, self.nsteps))
@@ -149,17 +165,23 @@ class Multisteps(nn.Module):
 
     def _forward(self, samples):
         radiance = samples["radiance"].float()
-        # Features may arrive float16 (halved host->device transfer).
-        features = samples["features"].to(self.conv_dtype or torch.float32)
+        # Features may arrive float16 (halved host->device transfer); the
+        # training path's entry casts them as it lays them out.
+        features = samples["features"]
+        dtype = self.conv_dtype or torch.float32
+        fused = layers.kernel_path(self, features)
+        train = fused and torch.is_grad_enabled()
+        if not train or self.pixel:
+            features = features.to(dtype)
         gfeatures = samples["global_features"]
         mask = samples.get("sample_mask", None)
         bs, spp, _, h, w = features.shape
 
         if mask is None:
-            mask_f = torch.ones((bs, spp), dtype=features.dtype,
+            mask_f = torch.ones((bs, spp), dtype=dtype,
                                 device=features.device)
         else:
-            mask_f = mask.to(features.dtype)
+            mask_f = mask.to(dtype)
         n_valid = mask_f.sum(dim=1).clamp(min=1.0)  # [bs]
 
         if self.pixel:
@@ -174,23 +196,12 @@ class Multisteps(nn.Module):
             n_valid = torch.ones((bs,), dtype=features.dtype,
                                  device=features.device)
 
-        fused = layers.kernel_path(self, features)
-        feats = features
-        gf = gfeatures.reshape(bs, -1, 1, 1).to(features.dtype)
-        propagated = None
-        for step in range(self.nsteps):
-            name = f"embedding_{step:02d}"
-            extra = gf if step == 0 else propagated
-            with tracing.span("sbmc.embedding"):
-                if fused:
-                    feats, reduced = sample_chain.embedding_step(
-                        getattr(self, name), feats, extra, mask_f, n_valid)
-                else:
-                    feats, reduced = sample_chain.embedding_step_ref(
-                        getattr(self, name), feats, extra, mask_f, n_valid,
-                        run=lambda x, name=name: self._stack(name, x))
-            with tracing.span("sbmc.propagation"):
-                propagated = self._stack(f"propagation_{step:02d}", reduced)
+        gf = gfeatures.reshape(bs, -1, 1, 1).to(dtype)
+        if train:
+            logits = self._train_chains(features, gf, mask_f, n_valid)
+        else:
+            feats, propagated = self._embed(fused, features, gf, mask_f,
+                                            n_valid)
 
         regressor = self.kernel_stage.kernel_regressor
         weights = None
@@ -198,16 +209,20 @@ class Multisteps(nn.Module):
                                  radiance.device)
         kernels_out = []
         for s in range(spp):
-            with tracing.span("sbmc.regress"):
-                if fused:
-                    weights = weights or sample_chain.regressor_weights(
-                        regressor)
-                    kernels = sample_chain.regress(
-                        regressor, feats[:, s], propagated, self.kernel_dtype,
-                        weights)
-                else:
-                    kernels = sample_chain.regress_ref(
-                        regressor, feats[:, s], propagated, self.kernel_dtype)
+            if train:
+                kernels = logits[s].to(self.kernel_dtype or dtype)
+            else:
+                with tracing.span("sbmc.regress"):
+                    if fused:
+                        weights = weights or sample_chain.regressor_weights(
+                            regressor)
+                        kernels = sample_chain.regress(
+                            regressor, feats[:, s], propagated,
+                            self.kernel_dtype, weights)
+                    else:
+                        kernels = sample_chain.regress_ref(
+                            regressor, feats[:, s], propagated,
+                            self.kernel_dtype)
             with tracing.span("sbmc.splat"):
                 data = crop_like(radiance[:, s], kernels).contiguous()
                 state = progressive_kernel_apply(
@@ -222,3 +237,50 @@ class Multisteps(nn.Module):
         if self.return_kernels:
             out["kernels"] = torch.stack(kernels_out, dim=1)
         return out
+
+    def _embed(self, fused, feats, gf, mask_f, n_valid):
+        """The embedding steps and the U-Nets (the chain kernel with
+        ``fused``, else the plain modules): the last step's per-sample
+        features and the last U-Net's output."""
+        propagated = None
+        for step in range(self.nsteps):
+            name = f"embedding_{step:02d}"
+            extra = gf if step == 0 else propagated
+            with tracing.span("sbmc.embedding"):
+                if fused:
+                    feats, reduced = sample_chain.embedding_step(
+                        getattr(self, name), feats, extra, mask_f, n_valid)
+                else:
+                    feats, reduced = sample_chain.embedding_step_ref(
+                        getattr(self, name), feats, extra, mask_f, n_valid,
+                        run=lambda x, name=name: self._stack(name, x))
+            with tracing.span("sbmc.propagation"):
+                propagated = self._stack(f"propagation_{step:02d}", reduced)
+        return feats, propagated
+
+    def _train_chains(self, features, gf, mask_f, n_valid):
+        """The embedding steps, the U-Nets and the regressor under gradients
+        on the card (:mod:`~sbmc_tpu_torch.nn.chain_train`): the chains on
+        pixel-major matrices, each U-Net on the step's mean as a
+        channels-last tensor. Returns each sample's logits (in the conv
+        dtype). Spans as :meth:`forward`'s, the regressor's once for all
+        samples."""
+        bs, spp, nf, h, w = features.shape
+        x = chain_train.entry(features, gf.reshape(bs, -1),
+                              chain_train.pad8(nf + gf.shape[1]), gf.dtype)
+        e = None
+        for step in range(self.nsteps):
+            with tracing.span("sbmc.embedding"):
+                x, reduced = self._remat(
+                    chain_train.embedding_step,
+                    getattr(self, f"embedding_{step:02d}"), x, e, mask_f,
+                    n_valid)
+            with tracing.span("sbmc.propagation"):
+                c = reduced.shape[-1]
+                propagated = self._stack(
+                    f"propagation_{step:02d}",
+                    reduced.view(bs, h, w, c).permute(0, 3, 1, 2))
+            e = propagated.permute(0, 2, 3, 1).reshape(bs, h * w, -1)
+        with tracing.span("sbmc.regress"):
+            return chain_train.regress(self.kernel_stage.kernel_regressor,
+                                       x, e, (h, w))

@@ -132,7 +132,7 @@ class WNConv2D(nn.Module):
         if not self.weight_norm:
             return self.v
         norm = self.v.flatten(1).norm(dim=1) + 1e-12
-        return self.v * (self.g / norm)[:, None, None, None]
+        return self.v * (self.g / norm).view(-1, 1, 1, 1)
 
     def forward(self, x):
         kernel = self.weight()
@@ -147,8 +147,13 @@ class WNConv2D(nn.Module):
         """The normalised weight for the inference kernels, made each call
         (so it always follows the parameters): rounded to ``dtype``, with
         zero output channels up to ``cout`` and zero input channels up to
-        ``cin`` (None: none added), in ``memory_format``."""
-        return _padded(self.weight(), dtype, (cout, cin), memory_format)
+        ``cin`` (None: none added), in ``memory_format``. Without padding
+        one cast (under gradients one autograd node, not a copy into a
+        slice)."""
+        w = self.weight()
+        if (cout or w.shape[0], cin or w.shape[1]) == tuple(w.shape[:2]):
+            return w.to(dtype, memory_format=memory_format)
+        return _padded(w, dtype, (cout, cin), memory_format)
 
     def inference_bias(self, dtype, cout):
         """The bias as :meth:`inference_weight` makes the weight, with zero
@@ -350,7 +355,11 @@ class Autoencoder(nn.Module):
         coarse result is upsampled into the slot ``[:c_up]``, and the right
         chain reads the buffer whole. The output is laid out NCHW once. The
         same arithmetic and roundings as :meth:`forward`, up to the order of
-        the convolutions' sums.
+        the convolutions' sums. An input that is channels-last already (and
+        not NCHW too) keeps its layout: it is not laid out again, and the
+        output (and under gradients the input's gradient) stays
+        channels-last, as the per-sample chains of the train step read and
+        write them (:mod:`sbmc_tpu_torch.nn.chain_train`).
 
         Under gradients it runs inside one autograd Function
         (:class:`_ChannelsLastUNet`) on the weights made here in stock
@@ -358,22 +367,24 @@ class Autoencoder(nn.Module):
         out channels-last) and the float32 biases, so gradients reach ``v``,
         ``g`` and ``bias`` as through :meth:`forward`."""
         x = x.to(self.conv_dtype or x.dtype)
+        nhwc = (x.is_contiguous(memory_format=torch.channels_last)
+                and not x.is_contiguous())
         if not torch.is_grad_enabled():
-            return self._channels_last(x)
+            return self._channels_last(x, nhwc=nhwc)
         convs = [layer for chain in self.chains() for layer in chain.layers()]
         kernels = [layer.inference_weight(x.dtype,
                                           memory_format=torch.channels_last)
                    for layer in convs]
-        return _ChannelsLastUNet.apply(self, x, *kernels,
+        return _ChannelsLastUNet.apply(self, nhwc, x, *kernels,
                                        *[layer.bias for layer in convs])
 
-    def _channels_last(self, x, params=None, saved=None):
+    def _channels_last(self, x, params=None, saved=None, nhwc=False):
         """:meth:`forward_channels_last`'s dataflow on ``x`` in the compute
         dtype, without autograd. ``params``: each convolution's ``(kernel,
         bias)`` in :meth:`chains` order (made by the layers if None);
         ``saved``: a list to which each convolution's input and output
         (channels-last; a skip is its slot of the concatenation buffer) are
-        appended in that order."""
+        appended in that order; ``nhwc``: leave the output channels-last."""
         cl = torch.channels_last
         params = None if params is None else iter(params)
 
@@ -401,21 +412,21 @@ class Autoencoder(nn.Module):
         for lvl in range(self.num_levels - 2, -1, -1):
             unet.upsample(x, cats[-1][:, :x.shape[1]])
             x = run(getattr(self, f"right_{lvl}"), cats.pop())
-        return unet.relayout(x, channels_last=False)
+        return x if nhwc else unet.relayout(x, channels_last=False)
 
-    def _backward_channels_last(self, dout, kernels, io, needs):
+    def _backward_channels_last(self, dout, kernels, io, needs, nhwc=False):
         """The backward of :meth:`_channels_last` from the output's gradient
-        ``dout`` (NCHW): ``kernels`` and ``io`` (each convolution's input
-        and output, as ``saved`` holds them) in :meth:`chains` order;
-        ``needs``: whether the input, each kernel and each bias want a
-        gradient. Each convolution from the last: the epilogue's backward
-        (``unet.epilogue_backward``; a level's last left convolution with
-        its pool's gradient), then cuDNN's dgrad and wgrad on the
-        channels-last tensors; a right chain's input gradient is the
-        concatenation buffer's, whose upsampled slot goes through
-        ``unet.upsample_backward`` to the chain below and whose skip slot
-        waits for the left chain. Returns the input's gradient (NCHW, None
-        if not wanted) and each kernel's and bias's."""
+        ``dout`` (NCHW, or channels-last with ``nhwc``, as the output lay):
+        ``kernels`` and ``io`` (each convolution's input and output, as
+        ``saved`` holds them) in :meth:`chains` order; ``needs``: whether the
+        input, each kernel and each bias want a gradient. Each convolution from
+        the last: the epilogue's backward (``unet.epilogue_backward``; a
+        level's last left convolution with its pool's gradient), then cuDNN's
+        dgrad and wgrad on the channels-last tensors; a right chain's input
+        gradient is the concatenation buffer's, whose upsampled slot goes
+        through ``unet.upsample_backward`` to the chain below and whose skip
+        slot waits for the left chain. Returns the input's gradient (in the
+        output's layout, None if not wanted) and each kernel's and bias's."""
         n = len(kernels)
         need_x, need_k = needs[0], needs[1:1 + n]
         dk, db = [None] * n, [None] * n
@@ -435,7 +446,8 @@ class Autoencoder(nn.Module):
                     [0, 0], 1, [k > 0 or need_x, need_k[k], False])
             return g
 
-        g = unet.relayout(dout.contiguous(), channels_last=True)
+        g = (dout.contiguous(memory_format=torch.channels_last) if nhwc
+             else unet.relayout(dout.contiguous(), channels_last=True))
         dcats = []
         for lvl in range(self.num_levels - 1):
             dcat = chain_backward(getattr(self, f"right_{lvl}"), g)
@@ -450,36 +462,42 @@ class Autoencoder(nn.Module):
             c_skip = getattr(self, f"left_{lvl}").prediction.v.shape[0]
             g = chain_backward(getattr(self, f"left_{lvl}"),
                                dcat[:, dcat.shape[1] - c_skip:], dpool=g)
-        dx = unet.relayout(g, channels_last=False) if need_x else None
+        dx = None
+        if need_x:
+            dx = g if nhwc else unet.relayout(g, channels_last=False)
         return dx, dk, db
 
 
 class _ChannelsLastUNet(torch.autograd.Function):
     """:meth:`Autoencoder.forward_channels_last` under gradients: ``apply(ae,
-    x, *kernels, *biases)`` (one kernel and bias a convolution, in
-    ``ae.chains()`` order). The forward runs ``ae._channels_last`` and saves
+    nhwc, x, *kernels, *biases)`` (one kernel and bias a convolution, in
+    ``ae.chains()`` order; ``nhwc``: ``x`` channels-last, the output and the
+    input's gradient too). The forward runs ``ae._channels_last`` and saves
     each convolution's input and output, nothing else: the activations'
     derivatives follow from the outputs' signs and each max-pool's argmax
     is recomputed from its saved skip. The backward is
     ``ae._backward_channels_last``."""
 
     @staticmethod
-    def forward(ctx, ae, x, *params):
+    def forward(ctx, ae, nhwc, x, *params):
         n = len(params) // 2
         kernels = [k.detach() for k in params[:n]]
         saved = [] if any(ctx.needs_input_grad) else None
         out = ae._channels_last(
             x.detach(), list(zip(kernels, (b.detach() for b in params[n:]))),
-            saved)
+            saved, nhwc)
         if saved is not None:
-            ctx.ae = ae
+            ctx.ae, ctx.nhwc = ae, nhwc
             ctx.save_for_backward(*kernels, *saved)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        tensors = ctx.saved_tensors
-        n = (len(ctx.needs_input_grad) - 2) // 2
+        # Detached: with ``nhwc`` the last convolution's saved output is the
+        # Function's own output, which unpacks requiring grad.
+        tensors = [t.detach() for t in ctx.saved_tensors]
+        n = (len(ctx.needs_input_grad) - 3) // 2
         dx, dk, db = ctx.ae._backward_channels_last(
-            dout, tensors[:n], tensors[n:], ctx.needs_input_grad[1:])
-        return (None, dx, *dk, *db)
+            dout, tensors[:n], tensors[n:], ctx.needs_input_grad[2:],
+            ctx.nhwc)
+        return (None, None, dx, *dk, *db)

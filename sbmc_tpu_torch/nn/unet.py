@@ -46,17 +46,18 @@ import torch.nn.functional as F
 
 from sbmc_tpu_torch import ops
 
-__all__ = ["ACTIVATIONS", "epilogue", "epilogue_ref", "upsample",
-           "upsample_ref", "relayout", "relayout_ref", "epilogue_backward",
-           "epilogue_backward_ref", "upsample_backward",
-           "upsample_backward_ref"]
+__all__ = ["ACTIVATIONS", "activate", "activation_grad", "epilogue",
+           "epilogue_ref", "upsample", "upsample_ref", "relayout",
+           "relayout_ref", "epilogue_backward", "epilogue_backward_ref",
+           "upsample_backward", "upsample_backward_ref"]
 
 #: The activations the epilogue applies, by ``ConvChain`` name, and their
 #: codes in the kernel.
 ACTIVATIONS = {"linear": 0, "relu": 1, "leaky_relu": 2}
 
 
-def _activate(act, x):
+def activate(act, x):
+    """``act`` (an :data:`ACTIVATIONS` name) applied to ``x``."""
     if act == "relu":
         return F.relu(x)
     if act == "leaky_relu":
@@ -73,7 +74,7 @@ def epilogue_ref(y, bias, act, out=None, pool=None):
     ``pool``. ``y`` ``[bs, c, h, w]``, ``bias`` ``[c]`` (float32; rounded to
     ``y``'s dtype first), ``out`` of ``y``'s shape, ``pool`` ``[bs, c, h //
     2, w // 2]``. Returns ``out``."""
-    r = _activate(act, y + bias.to(y.dtype)[:, None, None])
+    r = activate(act, y + bias.to(y.dtype)[:, None, None])
     if pool is not None:
         pool.copy_(F.max_pool2d(r, 2))
     out = y if out is None else out
@@ -112,17 +113,24 @@ def epilogue_backward_ref(dy, out, act, dpool=None):
         routed = torch.zeros(bs, c, h * w, dtype=dy.dtype, device=dy.device)
         routed.scatter_(2, idx.flatten(2), dpool.flatten(2).to(dy.dtype))
         g = dy + routed.view(bs, c, h, w)
-    if act == "relu":
-        dz = torch.where(out <= 0, torch.zeros_like(g), g)
-    elif act == "leaky_relu":
-        dz = torch.where(out > 0, g, g * 0.01)
-    elif act == "linear":
-        dz = g
-    else:
-        raise ValueError(f"the U-Net epilogue has no activation {act!r}")
-    dz = dz.contiguous(memory_format=torch.channels_last)
+    dz = activation_grad(g, out, act).contiguous(
+        memory_format=torch.channels_last)
     dbias = dz.float().sum((0, 2, 3)).to(dz.dtype).float()
     return dz, dbias
+
+
+def activation_grad(g, out, act):
+    """The gradient through ``act`` from the gradient ``g`` of its output
+    ``out`` (read for its sign alone), as autograd computes it in ``g``'s
+    dtype: the ReLU's zero where ``out <= 0``, the leaky ReLU's ``g * 0.01``
+    where ``out`` is not positive."""
+    if act == "relu":
+        return torch.where(out <= 0, torch.zeros_like(g), g)
+    if act == "leaky_relu":
+        return torch.where(out > 0, g, g * 0.01)
+    if act == "linear":
+        return g
+    raise ValueError(f"the U-Net epilogue has no activation {act!r}")
 
 
 def _interpolation(n_in, n_out, device):

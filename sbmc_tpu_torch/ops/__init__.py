@@ -147,7 +147,10 @@ launch_counts = {"progressive_splat": 0, "progressive_splat_generic": 0,
                  "tri_any_generic": 0, "threefry_uniform": 0,
                  "sample_chain": 0, "unet_epilogue": 0, "unet_upsample": 0,
                  "unet_layout": 0, "unet_epilogue_backward": 0,
-                 "unet_upsample_backward": 0, "kpcn_entry": 0, "kpcn_exit": 0}
+                 "unet_upsample_backward": 0, "kpcn_entry": 0, "kpcn_exit": 0,
+                 "chain_entry": 0, "chain_epilogue": 0,
+                 "chain_epilogue_backward": 0, "chain_logits": 0,
+                 "chain_logits_backward": 0}
 
 #: Channel counts one launch of the splat and kernel-weighting kernels
 #: takes (their template set); the ops run other counts in groups of these
@@ -772,9 +775,16 @@ def _check(data, klogits, sum_r, sum_w, max_w):
 
 def _launch(name, fn, device, *args):
     """Call a kernel's C entry point on the current stream of ``device``,
-    raise on a refused launch, and count the launch."""
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    raise on a refused launch, and count the launch. The stream's handle is
+    read raw, and the device made current only when it is not: a train
+    step makes hundreds of launches, and the host sets its pace."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     launch_counts[name] += 1

@@ -107,6 +107,23 @@ _UNET_EPILOGUE_BWD_ARGS = [_P, _L, _P, _L, _P, _I, _P, _P, _I, _P, _I, _I, _I,
                            _I, _I]
 #: sbmc_unet_upsample_backward(g, ldg, dx, bs, hi, wi, ho, wo, c[, stream])
 _UNET_UPSAMPLE_BWD_ARGS = [_P, _L, _P, _I, _I, _I, _I, _I, _I]
+#: sbmc_chain_entry(x, x_dtype, x_bs, x_ss, cf, gf, cg, out, k, bs, spp, hw,
+#:                  sms[, stream])
+_CHAIN_ENTRY_ARGS = [_P, _I, _L, _L, _I, _P, _I, _P, _I, _I, _I, _L, _I]
+#: sbmc_chain_epilogue(z, z_f32, e, bias, act, out, mask, nvalid, reduced,
+#:                     bs, spp, hw, c, sms[, stream])
+_CHAIN_EPILOGUE_ARGS = [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _L, _I,
+                        _I]
+#: sbmc_chain_epilogue_backward(dy, out, act, dred, mask, nvalid, dz, dsum,
+#:                              partials, nparts, dbias, bs, spp, hw, c,
+#:                              sms[, stream])
+_CHAIN_EPILOGUE_BWD_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I,
+                            _I, _L, _I, _I]
+#: sbmc_chain_logits(z, bias, lim, n, k2, hw, sms[, stream])
+_CHAIN_LOGITS_ARGS = [_P, _P, _F, _I, _I, _L, _I]
+#: sbmc_chain_logits_backward(g, out, dz, partials, row0, n, nparts, dbias,
+#:                            lim, k2, hw, sms[, stream])
+_CHAIN_LOGITS_BWD_ARGS = [_P, _P, _P, _P, _I, _I, _I, _P, _F, _I, _L, _I]
 #: sbmc_kpcn_entry(x, dtype, out, bs, c, h, w, width, sms[, stream])
 _KPCN_ENTRY_ARGS = [_P, _I, _P, _I, _I, _I, _I, _I, _I]
 #: sbmc_kpcn_exit(y, bias, out, bs, h, w, c, k2, sms[, stream])
@@ -155,6 +172,12 @@ _CUDA = {
     "kpcn.cu": {
         "sbmc_kpcn_entry": _KPCN_ENTRY_ARGS + [_P],
         "sbmc_kpcn_exit": _KPCN_EXIT_ARGS + [_P]},
+    "chain_train.cu": {
+        "sbmc_chain_entry": _CHAIN_ENTRY_ARGS + [_P],
+        "sbmc_chain_epilogue": _CHAIN_EPILOGUE_ARGS + [_P],
+        "sbmc_chain_epilogue_backward": _CHAIN_EPILOGUE_BWD_ARGS + [_P],
+        "sbmc_chain_logits": _CHAIN_LOGITS_ARGS + [_P],
+        "sbmc_chain_logits_backward": _CHAIN_LOGITS_BWD_ARGS + [_P]},
 }
 _HOST = {
     "progressive_splat_host.cpp": {

@@ -916,8 +916,10 @@ def test_sample_chain_launches_per_tile(device, spp):
     """3 + spp launches a tile under inference_mode (three embedding steps,
     one regressor a sample), and the three U-Nets' 45 epilogues, 6
     upsamples and 6 layout changes; with gradients on none of the chain
-    kernel (it has no backward), the U-Nets' all the same (theirs have);
-    the fused and unfused frames agree to bf16 rounding."""
+    kernel (it has no backward): the training path's kernels (the entry,
+    6 per-sample epilogues, 5 U-Net epilogues between the products, the
+    logits' epilogue) and the U-Nets' without layout changes; the fused and
+    unfused frames agree to bf16 rounding."""
     from sbmc_tpu_torch.models import Multisteps
     torch.manual_seed(0)
     net = Multisteps(n_features=93, n_global_features=3, width=128,
@@ -938,9 +940,71 @@ def test_sample_chain_launches_per_tile(device, spp):
                          "unet_layout": 6}
     ops.reset_launch_counts()
     plain = net(x)["radiance"].detach()
-    assert _counts() == {"progressive_splat": spp, "unet_epilogue": 45,
-                         "unet_upsample": 6, "unet_layout": 6}
+    assert _counts() == {"progressive_splat": spp, "chain_entry": 1,
+                         "chain_epilogue": 6, "chain_logits": 1,
+                         "unet_epilogue": 45 + 5, "unet_upsample": 6}
     assert float((fused - plain).norm() / plain.norm()) < 2e-3
+
+
+@pytest.mark.cuda
+def test_sbmc_frame_is_the_inference_dataflow(device):
+    """A bf16 SBMC frame under inference_mode (float16 features, one sample
+    masked) is, bit for bit and launch for launch, the inference dataflow
+    spelled out: each embedding step one chain kernel on the features and
+    the global features or the last U-Net's output, the U-Net on the mean,
+    each sample's regressor one chain kernel on the regressor's weights made
+    once, then its splat. The train step's path leaves inference alone."""
+    from sbmc_tpu_torch.models import Multisteps
+    from sbmc_tpu_torch.nn import sample_chain
+    from sbmc_tpu_torch.nn.kernel_apply import (progressive_init,
+                                                progressive_kernel_apply)
+    from sbmc_tpu_torch.utils.image import crop_like
+    torch.manual_seed(0)
+    net = Multisteps(n_features=93, n_global_features=3, width=128,
+                     embedding_width=128, ksize=21,
+                     conv_dtype="bfloat16").to(device)
+    g = torch.Generator(device=device).manual_seed(2)
+    bs, spp, h, w = 2, 4, 48, 64
+    mask = torch.ones(bs, spp, dtype=torch.bool, device=device)
+    mask[1, 3] = False
+    x = {"radiance": torch.rand(bs, spp, 3, h, w, generator=g,
+                                device=device),
+         "features": torch.randn(bs, spp, 93, h, w, generator=g,
+                                 device=device).half(),
+         "global_features": torch.randn(bs, 3, 1, 1, generator=g,
+                                        device=device),
+         "sample_mask": mask}
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        got = net(x)["radiance"]
+    launched = _counts()
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        feats = x["features"].to(torch.bfloat16)
+        mask_f = mask.to(torch.bfloat16)
+        n_valid = mask_f.sum(dim=1).clamp(min=1.0)
+        extra = x["global_features"].reshape(bs, -1, 1, 1).to(torch.bfloat16)
+        for step in range(3):
+            feats, reduced = sample_chain.embedding_step(
+                getattr(net, f"embedding_{step:02d}"), feats, extra, mask_f,
+                n_valid)
+            extra = getattr(net, f"propagation_{step:02d}")(reduced)
+        regressor = net.kernel_stage.kernel_regressor
+        weights = sample_chain.regressor_weights(regressor)
+        state = progressive_init(bs, 3, h, w, device)
+        for s in range(spp):
+            kernels = sample_chain.regress(regressor, feats[:, s], extra,
+                                           net.kernel_dtype, weights)
+            data = crop_like(x["radiance"][:, s], kernels).contiguous()
+            state = progressive_kernel_apply(data, kernels, state,
+                                             splat=True, valid=mask[:, s])
+        crop = (net.ksize - 1) // 2
+        want = (state.sum_r / (state.sum_w + net.eps))[
+            ..., crop:-crop, crop:-crop]
+    assert launched == _counts() == {
+        "sample_chain": 3 + spp, "progressive_splat": spp,
+        "unet_epilogue": 45, "unet_upsample": 6, "unet_layout": 6}
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -1229,14 +1293,16 @@ def _train_step(model, x, target):
 
 @pytest.mark.cuda
 def test_sbmc_train_step_unets_channels_last(device, plain_path):
-    """One bf16 train step of the flagship (batch 2 x 8 spp x 128x128): the
-    U-Nets' kernels launch 45 + 6 + 6 times in the forward and 45 epilogue
-    and 6 upsample backwards and 6 more layout changes in the backward; the
-    loss and gradients are as close to the float32 model's (TF32 off) as the
-    NCHW modules' within the train cell's limits: the loss within its
-    ``loss_gap.1`` limit (5e-3, relative) of the NCHW step's, and the median
-    leaf's gradient error within its ``grad_dir.median.rounding`` limit (4
-    times the NCHW step's error)."""
+    """One bf16 train step of the flagship (batch 2 x 8 spp x 128x128, float32
+    features, no mask): the U-Nets' kernels launch 45 + 6 times in the forward
+    and 45 epilogue and 6 upsample backwards in the backward, with no layout
+    change (they read and write the per-sample chains' channels-last layout,
+    whose kernels launch as in
+    :func:`test_sbmc_train_step_chains_pixel_major`); the loss and gradients
+    are as close to the float32 model's (TF32 off) as the NCHW modules' within
+    the train cell's limits: the loss within its ``loss_gap.1`` limit (5e-3,
+    relative) of the NCHW step's, and the median leaf's gradient error within
+    its ``grad_dir.median.rounding`` limit (4 times the NCHW step's error)."""
     from sbmc_tpu_torch.models import Multisteps
 
     def model_of(dtype):
@@ -1257,8 +1323,11 @@ def test_sbmc_train_step_unets_channels_last(device, plain_path):
     loss, grads = _train_step(model, x, target)
     assert _counts() == {"progressive_splat": 8,
                          "progressive_splat_dlogits": 8,
-                         "unet_epilogue": 45, "unet_upsample": 6,
-                         "unet_layout": 12, "unet_epilogue_backward": 45,
+                         "chain_entry": 1, "chain_epilogue": 6,
+                         "chain_logits": 1, "chain_epilogue_backward": 6,
+                         "chain_logits_backward": 8,
+                         "unet_epilogue": 45 + 5, "unet_upsample": 6,
+                         "unet_epilogue_backward": 45 + 5,
                          "unet_upsample_backward": 6}
     loss_nchw, grads_nchw = plain_path(lambda: _train_step(model, x, target))
     tf32 = torch.backends.cudnn.allow_tf32
@@ -1384,3 +1453,206 @@ def test_kpcn_channels_last_matches_forward(device, bs, h, w):
     err = float((got - f32).norm() / f32.norm())
     err_nchw = float((want - f32).norm() / f32.norm())
     assert err <= 1.25 * err_nchw
+
+
+# The per-sample chains' kernels of the train step (csrc/chain_train.cu)
+# against their plain versions (nn/chain_train.py), at the train cell's
+# shapes (16 x 8 spp x 128x128, 93 features and 3 global ones, widths 128,
+# 441 logits) and odd ones. The entry casts and moves values, the epilogues
+# round as the plain versions do: bit for bit. The sums in float32 in
+# another order than PyTorch's, each rounded once (the masked mean, the
+# bias gradients, the sum over the samples): within one bf16 unit at the
+# larger of the value and the tensor's mean magnitude.
+CHAIN_TRAIN_SHAPES = [(8, 16, 128, 128, 128), (3, 2, 37, 53, 24),
+                      (1, 1, 5, 3, 8)]
+
+
+def _mask_of(spp, bs, device):
+    mask = torch.ones(bs, spp, device=device, dtype=torch.bfloat16)
+    if spp > 1:
+        mask[-1, 1] = 0
+    return mask, mask.sum(1).clamp(min=1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,spp,cf,cg,h,w,dtype", [
+    (16, 8, 93, 3, 128, 128, torch.float16),
+    (2, 3, 5, 3, 37, 53, torch.float32),
+    (1, 2, 13, 0, 9, 7, torch.bfloat16)])
+def test_chain_entry_matches_plain(device, bs, spp, cf, cg, h, w, dtype):
+    from sbmc_tpu_torch.nn import chain_train as ct
+    gen = torch.Generator(device=device).manual_seed(cf)
+    x = torch.randn(bs, spp, cf, h, w, generator=gen, device=device).to(dtype)
+    gf = torch.randn(bs, cg, generator=gen, device=device) if cg else None
+    k = ct.pad8(cf + cg)
+    ops.reset_launch_counts()
+    got = ct.entry(x, gf, k, torch.bfloat16)
+    assert _counts() == {"chain_entry": 1}
+    assert torch.equal(got, ct.entry_ref(x, gf, k, torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spp,bs,h,w,c", CHAIN_TRAIN_SHAPES)
+@pytest.mark.parametrize("act,split,mean", [
+    ("relu", True, False), ("leaky_relu", True, False),
+    ("linear", False, True), ("relu", False, True)])
+def test_chain_epilogue_matches_plain(device, spp, bs, h, w, c, act, split,
+                                      mean):
+    """A split first layer's float32 product and per-pixel term, or a bf16
+    product with the masked mean (one sample of the last batch item
+    masked)."""
+    from sbmc_tpu_torch.nn import chain_train as ct
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(c + h)
+    z = torch.randn(spp, bs, h * w, c, generator=gen, device=device)
+    e = (torch.randn(bs, h * w, c, generator=gen, device=device)
+         if split else None)
+    if not split:
+        z = z.to(bf16)
+    z[0, 0, 0, 0] = float("nan")
+    bias = torch.randn(c, generator=gen, device=device)
+    mask, nvalid = _mask_of(spp, bs, device) if mean else (None, None)
+    want, want_red = ct.epilogue_ref(z, bias, act, bf16, e, mask, nvalid)
+    ops.reset_launch_counts()
+    got, red = ct.epilogue(z.clone(), bias, act, bf16, e, mask, nvalid)
+    assert _counts() == {"chain_epilogue": 1}
+    assert torch.allclose(got, want, rtol=0, atol=0, equal_nan=True)
+    if mean:
+        assert bool(red[0, 0, 0].isnan())
+        assert _chain_units(red.flatten()[1:], want_red.flatten()[1:])[0] \
+            <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spp,bs,h,w,c", CHAIN_TRAIN_SHAPES)
+@pytest.mark.parametrize("act,mean,sum_samples", [
+    ("relu", False, True), ("leaky_relu", False, True),
+    ("linear", True, False)])
+def test_chain_epilogue_backward_matches_plain(device, spp, bs, h, w, c, act,
+                                               mean, sum_samples):
+    from sbmc_tpu_torch.nn import chain_train as ct
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(c + w)
+    dy = torch.randn(spp, bs, h * w, c, generator=gen, device=device).to(bf16)
+    out = torch.randn(spp, bs, h * w, c, generator=gen, device=device).to(bf16)
+    if act == "relu":
+        out = out.relu()
+    mask, nvalid = _mask_of(spp, bs, device) if mean else (None, None)
+    dred = (torch.randn(bs, h * w, c, generator=gen, device=device).to(bf16)
+            if mean else None)
+    saved = None if act == "linear" else out
+    want = ct.epilogue_backward_ref(dy, saved, act, dred, mask, nvalid,
+                                    sum_samples)
+    ops.reset_launch_counts()
+    got = ct.epilogue_backward(dy, saved, act, dred, mask, nvalid,
+                               sum_samples)
+    assert _counts() == {"chain_epilogue_backward": 1}
+    assert torch.equal(got[0], want[0])
+    assert _chain_units(got[1], want[1])[0] <= 1.0
+    if sum_samples:
+        assert _chain_units(got[2], want[2])[0] <= 1.0
+    else:
+        assert got[2] is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spp,bs,k2,h,w", [(8, 16, 441, 128, 128),
+                                           (3, 2, 25, 37, 53),
+                                           (2, 1, 9, 5, 3)])
+def test_chain_logits_matches_plain(device, spp, bs, k2, h, w):
+    """The bias and the clamp in place (logits beyond the clamp, a NaN),
+    then the backward from each sample's gradient: dz bit for bit (zero at
+    the clamp and the NaN), the bias gradient within one unit."""
+    from sbmc_tpu_torch.nn import chain_train as ct
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(k2 + h)
+    z = torch.randn(spp * bs, k2, h * w, generator=gen, device=device)
+    z[0, 0, :3] = torch.tensor([4e4, -5e4, float("nan")])
+    z = z.to(bf16)
+    bias = torch.randn(k2, generator=gen, device=device)
+    want = ct.logits_ref(z, bias)
+    ops.reset_launch_counts()
+    got = ct.logits(z.clone(), bias)
+    assert _counts() == {"chain_logits": 1}
+    assert torch.allclose(got, want, rtol=0, atol=0, equal_nan=True)
+    grads = [torch.randn(bs, k2, h, w, generator=gen, device=device).to(bf16)
+             for _ in range(spp)]
+    want_dz, want_db = ct.logits_backward_ref(
+        torch.stack(grads).reshape(spp * bs, k2, h * w), want)
+    partials = torch.empty(spp * bs, k2, device=device)
+    db = torch.empty(k2, device=device)
+    ops.reset_launch_counts()
+    dz = torch.cat([ct.logits_backward(g, got[s * bs:(s + 1) * bs], partials,
+                                       s * bs, db if s == spp - 1 else None)
+                    for s, g in enumerate(grads)])
+    assert _counts() == {"chain_logits_backward": spp}
+    assert torch.equal(dz, want_dz)
+    assert float(dz[0, 0, :3].abs().sum()) == 0.0
+    assert _chain_units(db, want_db)[0] <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_sbmc_train_step_chains_pixel_major(device, plain_path, remat):
+    """One bf16 train step of the flagship (batch 2 x 8 spp x 128x128,
+    float16 features as the reservoir holds them, one sample masked): the
+    chains' kernels launch once an embedding step's epilogue with a
+    per-pixel term or a mean and once a sample in the logits' backward, the
+    U-Nets' without layout changes; under ``remat`` the embedding steps and
+    the U-Nets run their forward again in the backward pass. The loss and
+    gradients are as close to the float32 model's (TF32 off) as the NCHW
+    modules' within the train cell's limits (the loss within
+    ``loss_gap.1``'s 5e-3, the median leaf's gradient error within
+    ``grad_dir.median.rounding``'s 4 times the NCHW step's)."""
+    from sbmc_tpu_torch.models import Multisteps
+
+    def model_of(dtype):
+        torch.manual_seed(0)
+        return Multisteps(93, 3, width=128, embedding_width=128, ksize=21,
+                          nsteps=3, conv_dtype=dtype, kernel_dtype=dtype,
+                          remat=remat).to(device)
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    x = {"radiance": torch.rand(2, 8, 3, 128, 128, generator=gen,
+                                device=device),
+         "features": torch.randn(2, 8, 93, 128, 128, generator=gen,
+                                 device=device).half(),
+         "global_features": torch.randn(2, 3, 1, 1, generator=gen,
+                                        device=device)}
+    x["sample_mask"] = torch.ones(2, 8, dtype=torch.bool, device=device)
+    x["sample_mask"][1, 3] = False
+    target = torch.rand(2, 3, 108, 108, generator=gen, device=device)
+    model = model_of("bfloat16")
+    ops.reset_launch_counts()
+    loss, grads = _train_step(model, x, target)
+    # Recomputed under remat: the embedding steps' epilogues (1 + 2 + 2
+    # per-sample, 2 + 1 + 1 of the U-Net's) and the three U-Nets'.
+    again = 45 + 4 if remat else 0
+    assert _counts() == {"progressive_splat": 8,
+                         "progressive_splat_dlogits": 8,
+                         "chain_entry": 1,
+                         "chain_epilogue": 6 + (5 if remat else 0),
+                         "chain_logits": 1, "chain_epilogue_backward": 6,
+                         "chain_logits_backward": 8,
+                         "unet_epilogue": 45 + 5 + again,
+                         "unet_upsample": 6 + (6 if remat else 0),
+                         "unet_epilogue_backward": 45 + 5,
+                         "unet_upsample_backward": 6}
+    loss_nchw, grads_nchw = plain_path(lambda: _train_step(model, x, target))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        loss_f32, grads_f32 = _train_step(model_of(None), x, target)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert abs(loss - loss_nchw) <= 5e-3 * abs(loss_nchw)
+
+    def err(g):
+        return {n: float((g[n] - w).norm() / w.norm())
+                for n, w in grads_f32.items()}
+
+    e, e_nchw = err(grads), err(grads_nchw)
+    ratios = sorted(e[n] / e_nchw[n] for n in e)
+    print("chain train step: loss", loss, loss_nchw, loss_f32,
+          "ratios median", ratios[len(ratios) // 2], "max", ratios[-1])
+    assert ratios[len(ratios) // 2] <= 4.0

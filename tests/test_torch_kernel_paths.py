@@ -125,12 +125,17 @@ TAKEN = {"multisteps": {"sample_chain": NSTEPS + SPP},
                          "unet_layout": 2},
          "kpcn": {"kpcn_entry": 2, "unet_epilogue": 2 * (KPCN_DEPTH - 1),
                   "kpcn_exit": 2}}
-#: The forward's launches under gradients: only the U-Net's kernels have a
-#: backward, so the Autoencoder and Multisteps' U-Nets (one a step, on the
-#: plain chains' outputs) take theirs, KPCN none.
-TAKEN_WITH_GRAD = {"multisteps": {"unet_epilogue": 15 * NSTEPS,
-                                  "unet_upsample": 2 * NSTEPS,
-                                  "unet_layout": 2 * NSTEPS},
+#: The forward's launches under gradients: the U-Net's kernels and
+#: Multisteps' training path have a backward, KPCN's kernels none.
+#: Multisteps lays its features out once (the entry), runs each layer's
+#: epilogue (the per-sample one with a per-pixel term or a mean, else the
+#: U-Net's: two in the first step, one in later steps and in the
+#: regressor) and the logits' epilogue once (its U-Nets see the faked
+#: launches' outputs and run NCHW here, as at inference).
+TAKEN_WITH_GRAD = {"multisteps": {"chain_entry": 1,
+                                  "chain_epilogue": 1 + 2 * (NSTEPS - 1) + 1,
+                                  "chain_logits": 1,
+                                  "unet_epilogue": 2 + (NSTEPS - 1) + 1},
                    "autoencoder": TAKEN["autoencoder"], "kpcn": {}}
 
 
@@ -142,9 +147,10 @@ def test_kernels_taken_only_without_grad_on_card_bf16(
         monkeypatch, fake_card, name, conv_dtype, grad, device):
     """The inference kernels launch only for bf16 convs without gradients
     on the card, each as many times as the path makes them; with gradients
-    on only the U-Net's (which have a backward); otherwise the plain
-    modules run, no kernel launches, KPCN's gathers normalise, and the
-    chain kernel's build is never asked what it holds."""
+    on the U-Net's and Multisteps' training path's (which have a
+    backward); otherwise the plain modules run, no kernel launches, KPCN's
+    gathers normalise, and the chain kernel's build is never asked what it
+    holds."""
     gathers = []
 
     def kernel_apply(data, kernels, softmax, splat):
@@ -170,4 +176,4 @@ def test_kernels_taken_only_without_grad_on_card_bf16(
     if name == "kpcn":
         assert gathers == [not takes] * 2
     if name == "multisteps":
-        assert bool(fake_card.asked) is takes
+        assert bool(fake_card.asked) is on_card_bf16

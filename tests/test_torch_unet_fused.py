@@ -18,11 +18,19 @@ Tolerances:
   convolution's up to 9 x 768 products in another order), a few ulps a
   layer over 15 layers; the largest difference measured is 1.5e-6 of the
   output's largest value.
-- bf16: at most 4 bf16 units at the larger of ``|NCHW|`` and the output's
-  mean magnitude, 0.02 units on average. A sum taken in another order can
-  flip one product's rounding to bf16, which moves the values it feeds in
-  later layers by a unit or two; on the CPU (oneDNN) the two layouts agree
-  bit for bit.
+- bf16: both paths round in the same places, but oneDNN's bf16
+  convolutions sum their products in another order by layout and by the
+  CPU's instruction set (with ``ONEDNN_MAX_CPU_ISA=AVX512_CORE`` the two
+  layouts agree bit for bit; with AVX2 or AVX512-BF16 a sum's rounding
+  flips here and there, which later layers carry up to 8-10 bf16 units).
+  So each path is held to the float32 U-Net on the same weights and input
+  in units of the NCHW path's own error (:func:`_rounding_ratios`): at
+  most ``ROUNDING_L2`` (2.0) in L2 and ``ROUNDING_MAX`` (3.0) at the
+  largest element. Read on three instruction sets of an AMD EPYC
+  (AVX512-BF16, AVX512_CORE, AVX2) over these tests and those of
+  ``test_torch_kpcn_channels_last.py``, ``test_torch_unet_train.py`` and
+  ``test_torch_chain_train.py``: at most 1.36 and 1.54. A dropped bias or
+  a pool read one pixel off fails every case on each.
 """
 
 import pytest
@@ -37,7 +45,10 @@ from tests.test_torch_kernel_paths import fake_card  # noqa: F401
 BF16 = torch.bfloat16
 CL = torch.channels_last
 F32_REL = 1e-5
-BF16_MAX_UNITS, BF16_MEAN_UNITS = 4.0, 0.02
+#: A bf16 path's error against the float32 model on the same weights and
+#: input, over the plain (NCHW) bf16 path's own error: the relative L2
+#: norms' ratio and the largest elements' ratio (:func:`_rounding_ratios`).
+ROUNDING_L2, ROUNDING_MAX = 2.0, 3.0
 
 
 def _unet(width, dtype, seed=0, **kw):
@@ -55,12 +66,18 @@ def _unet(width, dtype, seed=0, **kw):
     return ae
 
 
-def _bf16_units(got, want):
-    want = want.float()
-    scale = torch.maximum(want.abs(), want.abs().mean().expand_as(want))
-    ulp = torch.pow(2.0, torch.floor(torch.log2(scale.clamp(min=1e-30))) - 7)
-    units = (got.float() - want).abs() / ulp
-    return float(units.max()), float(units.mean())
+def _rounding_ratios(got, plain, f32):
+    """``got``'s error against the float32 result ``f32`` in units of the
+    plain bf16 path's (``plain``): the ratio of their L2 norms and of their
+    largest elements. Both paths round to bf16 in the same places but sum
+    in other orders (oneDNN's convolutions block their products by layout
+    and by the CPU's instruction set), so their elementwise difference
+    grows through the layers while their distances from ``f32`` stay
+    alike."""
+    f32 = f32.float()
+    err, own = got.float() - f32, plain.float() - f32
+    return (float(err.norm() / own.norm()),
+            float(err.abs().max() / own.abs().max()))
 
 
 @pytest.mark.parametrize("width", [8, 128])
@@ -77,14 +94,15 @@ def test_channels_last_matches_forward(width, bs, h, w, dtype):
     with torch.no_grad():
         want = ae(x)
         got = ae.forward_channels_last(x)
+        f32 = _unet(width, None, seed=width + h)(x)
     assert got.shape == want.shape and got.dtype == want.dtype
     assert got.is_contiguous()
     if dtype is None:
         err = float((got - want).abs().max())
         assert err <= F32_REL * float(want.abs().max())
     else:
-        mx, mean = _bf16_units(got, want)
-        assert mx <= BF16_MAX_UNITS and mean <= BF16_MEAN_UNITS
+        l2, mx = _rounding_ratios(got, want, f32)
+        assert l2 <= ROUNDING_L2 and mx <= ROUNDING_MAX
 
 
 @pytest.mark.parametrize("act", ["relu", "leaky_relu", "linear"])

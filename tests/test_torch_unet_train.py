@@ -21,11 +21,11 @@ Tolerances:
   interpolation matrices);
 - the Function's gradients against the NCHW autograd in float32: the same
   bound, each parameter's and the input's (measured: up to 1.3e-6);
-- in bf16 the input's gradient and the biases' within the forward's bf16
-  bound (``test_torch_unet_fused.py``: 4 units at most, 0.02 on average;
-  measured: equal), the float32 ``v`` and ``g`` within 1e-5 of their
-  largest (the weight norm's float32 sums read a channels-last weight
-  gradient in another order; measured 2.4e-7).
+- in bf16 the input's gradient and every parameter's held to the float32
+  U-Net's in units of the NCHW modules' own error, as the forward is
+  (``_rounding_ratios``, ``ROUNDING_L2`` and ``ROUNDING_MAX`` of
+  ``test_torch_unet_fused.py``, which says why: oneDNN's bf16
+  convolutions sum in another order by layout and instruction set).
 """
 
 import pytest
@@ -37,8 +37,8 @@ from sbmc_tpu_torch.models import KPCN, Multisteps
 from sbmc_tpu_torch.nn import layers, unet
 from sbmc_tpu_torch.nn.layers import Autoencoder
 from tests.test_torch_kernel_paths import fake_card  # noqa: F401
-from tests.test_torch_unet_fused import (BF16_MAX_UNITS, BF16_MEAN_UNITS,
-                                         _bf16_units, _unet)
+from tests.test_torch_unet_fused import (ROUNDING_L2, ROUNDING_MAX,
+                                         _rounding_ratios, _unet)
 
 BF16 = torch.bfloat16
 CL = torch.channels_last
@@ -156,9 +156,9 @@ def test_channels_last_gradients_match_forward(levels, bs, h, w, remat):
 
 
 def test_channels_last_gradients_match_forward_bf16():
-    """bf16 convs at width 16: the same forward bit for bit on the CPU, the
-    input's and biases' gradients within the forward's bf16 bound of the
-    NCHW modules', ``v`` and ``g`` to float32 rounding."""
+    """bf16 convs at width 16: the same forward bit for bit on the CPU; the
+    input's and every parameter's gradient as close to the float32 U-Net's
+    as the NCHW modules'."""
     ae = _unet(16, BF16, seed=3)
     gen = torch.Generator().manual_seed(4)
     x = torch.randn(2, 16, 17, 23, generator=gen).to(BF16).requires_grad_()
@@ -167,21 +167,23 @@ def test_channels_last_gradients_match_forward_bf16():
         assert torch.equal(ae.forward_channels_last(x), ae(x))
     got = _grads(ae.forward_channels_last, ae, x, cot)
     want = _grads(ae, ae, x, cot)
+    ae32 = _unet(16, None, seed=3)
+    f32 = _grads(ae32, ae32, x.detach().float().requires_grad_(), cot)
     names = ["input"] + [n for n, _ in ae.named_parameters()]
-    for name, g, w_ in zip(names, got, want):
+    bad = []
+    for name, g, w_, r in zip(names, got, want, f32):
         assert g.dtype == w_.dtype, name
-        if name == "input" or name.endswith("bias"):
-            mx, mean = _bf16_units(g, w_)
-            assert mx <= BF16_MAX_UNITS and mean <= BF16_MEAN_UNITS, name
-        else:
-            assert _close(g, w_), name
+        l2, mx = _rounding_ratios(g, w_, r)
+        if not (l2 <= ROUNDING_L2 and mx <= ROUNDING_MAX):
+            bad.append(name)
+    assert not bad
 
 
 def test_kernel_path_with_gradients(fake_card):
-    """With gradients on, the U-Net takes its kernels on the card for bf16
-    convs (its kernels have a backward), not for float32 convs or on the
-    CPU; the per-sample chain kernel and KPCN's kernels, which have none,
-    are refused."""
+    """With gradients on, the U-Net and Multisteps' per-sample chains take
+    their kernels on the card for bf16 convs (they have a backward), not
+    for float32 convs or on the CPU; KPCN's kernels, which have none, are
+    refused."""
     x = torch.randn(1, 8, 6, 6)
     on_card = fake_card.on_card(x)
     assert layers.kernel_path(_unet(8, BF16), on_card)
@@ -190,10 +192,12 @@ def test_kernel_path_with_gradients(fake_card):
     ms = Multisteps(5, 3, width=8, embedding_width=8, ksize=3, nsteps=1,
                     conv_dtype="bfloat16")
     kp = KPCN(n_in=5, ksize=3, depth=3, width=12, conv_dtype="bfloat16")
-    for model in (ms, kp):
-        assert not model.kernels_backward
-        assert not layers.kernel_path(model, on_card)
+    assert ms.kernels_backward and not kp.kernels_backward
+    assert not layers.kernel_path(ms, x)
     assert fake_card.asked == []
+    assert layers.kernel_path(ms, on_card)
+    assert fake_card.asked
+    assert not layers.kernel_path(kp, on_card)
     with torch.no_grad():
         assert layers.kernel_path(kp, on_card)
 
